@@ -1,0 +1,35 @@
+"""The port stands alone: no module of vsrlab_tpu_torch, and not
+chip_smoke.py, imports jax, flax or vsrlab_tpu (checked on the sources,
+without importing them)."""
+
+import ast
+from pathlib import Path
+
+import pytest
+
+ROOT = Path(__file__).resolve().parent.parent
+FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "orbax", "vsrlab_tpu"}
+SOURCES = sorted((ROOT / "vsrlab_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+
+
+def _imported_roots(path: Path):
+    for node in ast.walk(ast.parse(path.read_text(), str(path))):
+        if isinstance(node, ast.Import):
+            yield from (a.name.split(".")[0] for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module.split(".")[0]
+        elif (isinstance(node, ast.Call) and getattr(node.func, "attr", getattr(node.func, "id", ""))
+              in ("import_module", "__import__") and node.args
+              and isinstance(node.args[0], ast.Constant)):
+            yield str(node.args[0].value).split(".")[0]
+
+
+def test_sources_exist():
+    assert (ROOT / "chip_smoke.py").is_file()
+    assert len(SOURCES) > 10
+
+
+@pytest.mark.parametrize("path", SOURCES, ids=lambda p: str(p.relative_to(ROOT)))
+def test_no_jax_or_vsrlab_tpu_import(path):
+    bad = sorted(set(_imported_roots(path)) & FORBIDDEN)
+    assert not bad, f"{path.relative_to(ROOT)} imports {bad}"

@@ -1,0 +1,172 @@
+"""Conv building blocks on channels-last tensors (port of ``vsrlab_tpu/nn/blocks.py``).
+
+Every block takes and returns ``(N, H, W, C)`` tensors; a conv views its
+input as a ``channels_last`` NCHW tensor for ``F.conv2d`` and views the
+result back, so no copy is made. Parameters are fp32 in torch's OIHW
+layout; ``dtype`` (for example ``torch.bfloat16``) is the compute type,
+as the JAX package threads it through its modules.
+
+Initialisation is torch's ``nn.Conv2d`` default (kaiming_uniform with
+``a=sqrt(5)``, i.e. ``U(-1/sqrt(fan_in), 1/sqrt(fan_in))`` for weight and
+bias), drawn from an explicit ``torch.Generator`` (:func:`init_weights`).
+
+The ``ResidualConv`` units of a :class:`ResidualBlock` run through the
+fused residual pair (:mod:`vsrlab_tpu_torch.ops.residual_pair`): on a CUDA
+tensor a hand-written kernel, on a CPU tensor its plain version. That
+path is forward-only.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from vsrlab_tpu_torch.ops.pixel_shuffle import pixel_shuffle
+from vsrlab_tpu_torch.ops.residual_pair import PAIR_IMPLS
+
+
+class Conv2d(nn.Module):
+    """2-D conv with torch-default init, on ``(N, H, W, C)``."""
+
+    def __init__(self, in_channels: int, out_channels: int, kernel_size: int = 3,
+                 stride: int = 1, padding: int = 1, dtype: torch.dtype | None = None):
+        super().__init__()
+        self.stride, self.padding, self.dtype = stride, padding, dtype
+        self.weight = nn.Parameter(
+            torch.empty(out_channels, in_channels, kernel_size, kernel_size))
+        self.bias = nn.Parameter(torch.empty(out_channels))
+        self.reset_parameters()
+
+    def reset_parameters(self, generator: torch.Generator | None = None) -> None:
+        bound = 1.0 / math.sqrt(self.weight[0].numel())
+        with torch.no_grad():
+            self.weight.uniform_(-bound, bound, generator=generator)
+            self.bias.uniform_(-bound, bound, generator=generator)
+
+    def compute_dtype(self, x: torch.Tensor) -> torch.dtype:
+        """``dtype`` if set, else the promotion of input and params (flax's rule)."""
+        return self.dtype or torch.promote_types(x.dtype, self.weight.dtype)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        dt = self.compute_dtype(x)
+        y = F.conv2d(x.to(dt).permute(0, 3, 1, 2), self.weight.to(dt), self.bias.to(dt),
+                     self.stride, self.padding)
+        return y.permute(0, 2, 3, 1)
+
+
+class ConvLeaky(nn.Module):
+    """conv -> LeakyReLU(0.1)."""
+
+    def __init__(self, in_channels: int, out_channels: int, dtype=None):
+        super().__init__()
+        self.conv = Conv2d(in_channels, out_channels, 3, 1, 1, dtype=dtype)
+
+    def forward(self, x):
+        return F.leaky_relu(self.conv(x), 0.1)
+
+
+class ResidualConv(nn.Module):
+    """``x + conv2(relu(conv1(x)))``, computed by the fused residual pair.
+
+    The pair's operands (HWIO weights in the compute type, fp32 biases) are
+    laid out once and reused until a parameter changes, moves or the
+    compute type differs.
+    """
+
+    def __init__(self, features: int = 64, dtype=None):
+        super().__init__()
+        self.conv1 = Conv2d(features, features, 3, 1, 1, dtype=dtype)
+        self.conv2 = Conv2d(features, features, 3, 1, 1, dtype=dtype)
+        self._pair_cache: tuple | None = None
+
+    def pair_operands(self, dtype: torch.dtype):
+        """``(w1, b1, w2, b2)`` in the kernel's layout for compute ``dtype``."""
+        params = (self.conv1.weight, self.conv1.bias, self.conv2.weight, self.conv2.bias)
+        key = (dtype,) + tuple((p.data_ptr(), p._version) for p in params)
+        if self._pair_cache is None or self._pair_cache[0] != key:
+            with torch.no_grad():
+                w1, b1, w2, b2 = (p.detach() for p in params)
+                ops = (
+                    w1.permute(2, 3, 1, 0).to(dtype).contiguous(),  # OIHW -> HWIO
+                    b1.float().contiguous(),
+                    w2.permute(2, 3, 1, 0).to(dtype).contiguous(),
+                    b2.float().contiguous(),
+                )
+            self._pair_cache = (key, ops)
+        return self._pair_cache[1]
+
+    def forward(self, x, impl: str = "taps"):
+        dt = self.conv1.compute_dtype(x)
+        return PAIR_IMPLS[impl](x.to(dt).contiguous(), *self.pair_operands(dt))
+
+
+class ResidualBlock(nn.Module):
+    """ConvLeaky head then ``blocks`` x :class:`ResidualConv`.
+
+    ``pair_impl`` picks the residual pair's formulation: ``"taps"`` (nine
+    K=64 products per conv, the default), ``"im2col"`` (one K=576 product)
+    or ``"plain"`` (the plain PyTorch version, on any device).
+    """
+
+    def __init__(self, in_channels: int, features: int = 64, blocks: int = 30, dtype=None):
+        super().__init__()
+        self.head = ConvLeaky(in_channels, features, dtype=dtype)
+        self.res_blocks = nn.ModuleList(ResidualConv(features, dtype) for _ in range(blocks))
+        self.pair_impl = "taps"
+
+    def forward(self, x):
+        x = self.head(x)
+        for unit in self.res_blocks:
+            x = unit(x, self.pair_impl)
+        return x
+
+
+class PixelShufflePack(nn.Module):
+    """conv to ``features * r^2`` channels, then depth-to-space x r."""
+
+    def __init__(self, in_channels: int, features: int, upscale_factor: int = 2, dtype=None):
+        super().__init__()
+        self.r = upscale_factor
+        self.conv = Conv2d(in_channels, features * upscale_factor**2, 3, 1, 1, dtype=dtype)
+
+    def forward(self, x):
+        return pixel_shuffle(self.conv(x), self.r)
+
+
+class IterativeRefinement(nn.Module):
+    """RealBasicVSR cleaning module: ``steps`` x (``x += conv(resblock(x))``)
+    over frames ``(N, H, W, out_channels)``."""
+
+    def __init__(self, mid_channels: int = 64, blocks: int = 20, steps: int = 3,
+                 out_channels: int = 3, dtype=None):
+        super().__init__()
+        self.steps = steps
+        self.resblock = ResidualBlock(out_channels, mid_channels, blocks, dtype=dtype)
+        self.conv = Conv2d(mid_channels, out_channels, 3, 1, 1, dtype=dtype)
+
+    def forward(self, x):
+        for _ in range(self.steps):
+            x = x + self.conv(self.resblock(x))
+        return x
+
+
+def init_weights(module: nn.Module, generator: torch.Generator) -> nn.Module:
+    """Re-draw every :class:`Conv2d` under ``module`` from ``generator``,
+    in module order (reproducible for a seeded generator)."""
+    for m in module.modules():
+        if isinstance(m, Conv2d):
+            m.reset_parameters(generator)
+    return module
+
+
+def set_pair_impl(module: nn.Module, impl: str) -> nn.Module:
+    """Set ``pair_impl`` on every :class:`ResidualBlock` under ``module``."""
+    if impl not in PAIR_IMPLS:
+        raise ValueError(f"unknown residual pair formulation: {impl}")
+    for m in module.modules():
+        if isinstance(m, ResidualBlock):
+            m.pair_impl = impl
+    return module
