@@ -45,10 +45,11 @@ def _operands(shape, dtype, device, seed=0):
 @pytest.mark.parametrize("shape", [(3, 7, 33, 64), (1, 1, 1, 64), (2, 25, 17, 64)])
 def test_kernel_matches_plain(cuda, wrapper, dtype, tol, shape):
     ops = _operands(shape, dtype, cuda)
-    before = wrapper.launches
+    before, before_shape = wrapper.launches, wrapper.launches_by_shape[shape]
     got = wrapper(*ops)
     torch.cuda.synchronize()
     assert wrapper.launches == before + 1
+    assert wrapper.launches_by_shape[shape] == before_shape + 1
     assert got.dtype == dtype and got.shape == ops[0].shape
     torch.testing.assert_close(got.float(), residual_conv_pair_plain(*ops).float(),
                                rtol=tol, atol=tol)

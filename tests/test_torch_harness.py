@@ -36,7 +36,7 @@ def test_windowed_inference_matches_jax(models):
     jmodel, params, model = models
     video = np.random.default_rng(1).random((1, 7, H, W, 3)).astype(np.float32)
     want, jn = jh.windowed_inference(jh.make_forward(jmodel), params, video, window_size=3)
-    got, n = th.windowed_inference(th.make_forward(model, device="cpu"), video, 3, device="cpu")
+    got, n = th.windowed_inference(th.make_forward(model, device="cpu"), video, 3)
     assert n == jn == 3
     assert got.shape == (1, 7, 4 * H, 4 * W, 3)
     np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=ATOL)
@@ -64,5 +64,3 @@ def test_entry_points_refuse_missing_cuda(models):
         th.make_forward(model)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         th.make_stream_forward(model, device="cuda")
-    with pytest.raises(RuntimeError, match="device='cpu'"):
-        th.windowed_inference(lambda x: x, np.zeros((1, 2, 4, 4, 3), np.float32), 2)

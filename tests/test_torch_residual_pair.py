@@ -20,6 +20,7 @@ from vsrlab_tpu.ops.pallas_conv import (  # noqa: E402
     residual_conv_pair_xla,
 )
 from vsrlab_tpu_torch.ops.residual_pair import (  # noqa: E402
+    reset_launch_counts,
     residual_conv_pair,
     residual_conv_pair_im2col,
     residual_conv_pair_plain,
@@ -81,10 +82,21 @@ def test_plain_matches_xla_and_pallas_bf16(rng):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_wrapper_on_cpu_is_plain_and_launches_nothing(rng, wrapper, dtype):
     ops = _torch(_operands(rng, (2, 13, 21, 64)), dtype)
-    before = wrapper.launches
+    before, before_by_shape = wrapper.launches, wrapper.launches_by_shape.copy()
     got = wrapper(*ops)
     assert wrapper.launches == before
+    assert wrapper.launches_by_shape == before_by_shape
     torch.testing.assert_close(got, residual_conv_pair_plain(*ops), rtol=0, atol=0)
+
+
+def test_reset_launch_counts_zeroes_every_wrapper():
+    for wrapper in (residual_conv_pair, residual_conv_pair_im2col):
+        wrapper.launches += 3
+        wrapper.launches_by_shape[(1, 2, 3, 64)] += 3
+    reset_launch_counts()
+    for wrapper in (residual_conv_pair, residual_conv_pair_im2col):
+        assert wrapper.launches == 0
+        assert sum(wrapper.launches_by_shape.values()) == 0
 
 
 @pytest.mark.parametrize("wrapper", [residual_conv_pair, residual_conv_pair_im2col])

@@ -6,8 +6,10 @@
 * :func:`windowed_inference` splits a long clip into windows, runs them
   as one batch and restitches.
 
-Each takes a ``device``, ``"cuda"`` unless the caller asks for ``"cpu"``;
-asking for CUDA where there is none raises. The model is moved to the
+``make_forward`` and ``make_stream_forward`` take a ``device``, ``"cuda"``
+unless the caller asks for ``"cpu"``; asking for CUDA where there is none
+raises. ``windowed_inference`` runs on the device of the ``forward`` it is
+given. The model is moved to the
 device once and runs in inference mode. Clips are ``(B, T, H, W, C)``
 numpy arrays or tensors; results are tensors on the device.
 """
@@ -70,17 +72,12 @@ def make_stream_forward(model: torch.nn.Module, device: str | torch.device = "cu
     return first, rest
 
 
-def windowed_inference(
-    forward: Callable,
-    video_lr,
-    window_size: int,
-    device: str | torch.device = "cuda",
-) -> Tuple[torch.Tensor, int]:
+def windowed_inference(forward: Callable, video_lr, window_size: int) -> Tuple[torch.Tensor, int]:
     """Split ``(1, T, H, W, C)`` into ``window_size`` windows (the last one
-    padded by repeating the last frame), run them as ONE batch and
-    restitch. Returns ``(sr, num_windows)`` with ``sr`` ``(1, T, sH, sW, C)``."""
-    device = resolve_device(device)
-    video = _to(video_lr, device)
+    padded by repeating the last frame), run them as ONE batch through
+    ``forward`` (which places them on its device) and restitch. Returns
+    ``(sr, num_windows)`` with ``sr`` ``(1, T, sH, sW, C)``."""
+    video = torch.as_tensor(video_lr, dtype=torch.float32)
     _, t, h, w, c = video.shape
     n_windows = -(-t // window_size)
     pad = n_windows * window_size - t

@@ -21,11 +21,14 @@ accumulation; the residual add is in ``x.dtype``.
 A wrapper given a CPU tensor returns the plain version; given a CUDA
 tensor it launches its kernel or raises. Both are forward-only and raise
 on an input that requires grad. Each wrapper counts its kernel launches
-in its ``launches`` attribute.
+in its ``launches`` attribute, and by input shape in ``launches_by_shape``
+(a ``Counter`` of ``(B, H, W, C)``); :func:`reset_launch_counts` zeroes
+both.
 """
 
 from __future__ import annotations
 
+import collections
 import ctypes
 import functools
 
@@ -121,6 +124,9 @@ def _launch(formulation, x, w1, b1, w2, b2):
     if rc != 0:
         msg = lib.vsr_cuda_error_string(rc).decode()
         raise RuntimeError(f"residual_conv_pair ({formulation}) launch failed: {msg}")
+    wrapper = _WRAPPERS[formulation]
+    wrapper.launches += 1
+    wrapper.launches_by_shape[tuple(x.shape)] += 1
     return out
 
 
@@ -129,9 +135,7 @@ def residual_conv_pair(x, w1, b1, w2, b2):
     _check(x, w1, b1, w2, b2)
     if x.device.type == "cpu":
         return residual_conv_pair_plain(x, w1, b1, w2, b2)
-    out = _launch("taps", x, w1, b1, w2, b2)
-    residual_conv_pair.launches += 1
-    return out
+    return _launch("taps", x, w1, b1, w2, b2)
 
 
 def residual_conv_pair_im2col(x, w1, b1, w2, b2):
@@ -139,13 +143,20 @@ def residual_conv_pair_im2col(x, w1, b1, w2, b2):
     _check(x, w1, b1, w2, b2)
     if x.device.type == "cpu":
         return residual_conv_pair_plain(x, w1, b1, w2, b2)
-    out = _launch("im2col", x, w1, b1, w2, b2)
-    residual_conv_pair_im2col.launches += 1
-    return out
+    return _launch("im2col", x, w1, b1, w2, b2)
 
 
-residual_conv_pair.launches = 0
-residual_conv_pair_im2col.launches = 0
+_WRAPPERS = {"taps": residual_conv_pair, "im2col": residual_conv_pair_im2col}
+
+
+def reset_launch_counts() -> None:
+    """Zero every wrapper's ``launches`` and ``launches_by_shape``."""
+    for wrapper in _WRAPPERS.values():
+        wrapper.launches = 0
+        wrapper.launches_by_shape = collections.Counter()
+
+
+reset_launch_counts()
 
 PAIR_IMPLS = {
     "taps": residual_conv_pair,
