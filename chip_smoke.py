@@ -6,14 +6,19 @@
 Phases, in order; any failure exits non-zero:
 
 1. Device and build: the card's name and power limit (``nvidia-smi``), then
-   the residual-pair kernels built from ``vsrlab_tpu_torch/csrc`` (nvcc,
-   sm_90a) into ``build/kernels/``.
-2. Kernels against their plain version: both residual-pair kernels
+   the kernel libraries (``residual_pair``, ``packed_gather``) built side by
+   side from ``vsrlab_tpu_torch/csrc`` (nvcc, sm_90a) into ``build/kernels/``.
+2. Kernels against their plain version, fp32 with TF32 off at 1e-4, bf16
+   at 2e-2 (``|a-b| <= tol + tol*|b|``): both residual-pair kernels
    (``taps``, ``im2col``) against ``residual_conv_pair_plain`` at
    ``(1,180,320,64)`` (a recurrence step), ``(10,180,320,64)`` (the
-   cleaner) and a ragged ``(2,13,21,64)``; fp32 with TF32 off at 1e-4,
-   bf16 at 2e-2 (``|a-b| <= tol + tol*|b|``).
-3. The main path: RealBasicVSR 4x at the headline configuration (mid 64,
+   cleaner) and a ragged ``(2,13,21,64)``; both packed-gather kernels
+   (``packed_row_gather``, ``packed_bilinear``) against their plain
+   versions at the alignment shape (180 images of 128x128x10, two
+   x-positions a row: table ``(180, 8001, 80)``, 16384 pixels an image)
+   with realistic coordinates (pixel + N(0, 3) residue) and with uniformly
+   random ones, and at a ragged ``(3, 9, 13, 5)``.
+3. The RealBasicVSR path: RealBasicVSR 4x at the headline configuration (mid 64,
    30 residual blocks, 20 cleaning blocks, 3 steps, bf16), weights from a
    seeded ``torch.Generator``, serving 180x320 -> 720x1280 requests through
    the harness: ``windowed_inference`` on a 20-frame clip (two 10-frame
@@ -25,11 +30,33 @@ Phases, in order; any failure exits non-zero:
    (``rest`` with the state ``first`` returned; gate: twice the plain bf16
    run's deviation from fp32), the frames/s of a 10-frame and a 20-frame
    request, and a torch.profiler breakdown of the 10-frame one.
-4. Each kernel at every input shape the main path gave it: bf16 against
+4. The VRT path: VRT 4x at the paper configuration (13 depths, 120 x 7 +
+   180 x 6 channels, 6 heads, 12 offset groups, window (6, 8, 8), bf16),
+   weights from the same kind of generator with the zero-initialised offset
+   heads filled (else every offset is the flow prior), serving one
+   ``(1,16,256,256,3) -> (1,16,1024,1024,3)`` request through
+   ``make_forward`` with the fused sampler kernel and once with the row
+   gather kernel. The wrappers count their launches by shape: each request
+   must make 126 (7 stages x 2 directions x 9 taps) at the four alignment
+   scales, which also shows that no call fell back to the four-corner
+   sampler. Then shapes and finite values, both outputs against the plain
+   sampler's and an fp32 run (the same gate), the frames/s of the request
+   with each sampler, a torch.profiler breakdown of the fused one by
+   kernel, and its device time by module class (CUDA events around every
+   forward of WindowAttention, MlpGEGLU, FlowGuidedDeformAlign and
+   LayerNorm; SpyNet, the convs and the glue between them are the rest).
+   Then the default TinyVRT (8 channels an offset group) on a 6-frame
+   64x64 request under the same launch-count and deviation gates, and a
+   96x96 clip through ``tiled_forward`` (four 64x64 tiles).
+5. Each kernel at every input shape its path gave it: bf16 against
    the plain version (2e-2), then its time, the plain version's and one
-   library call's (two bf16 channels_last ``F.conv2d`` plus ReLU and the
-   add; timed only), with CUDA events, median of 20 samples after warm-up.
-5. One JSON line ``{"kernels": [...]}``: per kernel its main-path launches
+   library call's (the residual pair: two bf16 channels_last ``F.conv2d``
+   plus ReLU and the add; the row gather: one ``index_select`` of the
+   flattened table; the fused sampler has none; timed only), with CUDA
+   events, median of 20 samples after warm-up. Beside the fused sampler's
+   rows: the torch ops that build its table and fields, and the four-corner
+   sampler on the same images.
+6. One JSON line ``{"kernels": [...]}``: per kernel its main-path launches
    and, summed over those launches (per-launch time at each shape times
    that shape's count), ``ms``, ``plain_ms``, ``library_ms`` and
    ``bound_ms``; ``max_abs_err`` is the largest bf16 error, beside
@@ -39,6 +66,7 @@ Phases, in order; any failure exits non-zero:
 
 from __future__ import annotations
 
+import concurrent.futures
 import json
 import statistics
 import subprocess
@@ -57,6 +85,19 @@ KERNELS = {
     "im2col": ("residual_conv_pair_im2col", "vsrlab_tpu/ops/pallas_conv.py:185"),
 }
 SOURCE = "vsrlab_tpu_torch/csrc/residual_pair.cu"
+PEAK_FP32_FLOPS = 67e12  # H100 SXM fp32 outside the tensor cores
+PACKED_SOURCE = "vsrlab_tpu_torch/csrc/packed_gather.cu"
+PROBE = "scripts/bench_pallas_deform_gather.py"
+PACKED_KERNELS = {
+    # pallas_loop, pallas_blk and pallas_take compute one function
+    "packed_row_gather": (f"{PROBE}:149", [f"{PROBE}:202", f"{PROBE}:237"]),
+    "packed_bilinear": (f"{PROBE}:278", []),
+}
+# (images, H, W, channels a group, x-positions a row); the first is the probe's shape
+PACKED_CHECKS = ((180, 128, 128, 10, 2), (3, 9, 13, 5, 2))
+VRT_CLIP = (1, 16, 256, 256, 3)
+VRT_SCALES = (1, 2, 4, 8, 4, 2, 1)
+VRT_GROUPS, VRT_CG, VRT_GP = 12, 10, 2
 
 
 def log(msg: str) -> None:
@@ -186,9 +227,392 @@ def time_kernel(form, launches_by_shape, device):
     return err, rows
 
 
-def profile_request(request, wall_s: float, top: int = 12) -> dict:
+def packed_operands(n, h, w, c, gp, dtype, realistic, seed, device):
+    """The packed sampler's operands for ``n`` random images ``(h, w, c)``:
+    the table and the seven per-pixel fields, from coordinates that are
+    the pixel grid plus an N(0, 3) residue (``realistic``: neighbouring
+    pixels read neighbouring rows) or uniform over the image and a
+    2-pixel margin outside it."""
+    import torch
+
+    from vsrlab_tpu_torch.ops.warp import packed_fields, packed_table
+
+    g = torch.Generator().manual_seed(seed)
+    x = torch.randn((n, h, w, c), generator=g).to(device, dtype)
+    if realistic:
+        ys, xs = torch.meshgrid(torch.arange(h), torch.arange(w), indexing="ij")
+        ix = xs[None] + torch.randn((n, h, w), generator=g) * 3.0
+        iy = ys[None] + torch.randn((n, h, w), generator=g) * 3.0
+    else:
+        ix = torch.rand((n, h, w), generator=g) * (w + 3) - 2
+        iy = torch.rand((n, h, w), generator=g) * (h + 3) - 2
+    fields = packed_fields(ix.to(device), iy.to(device), h, w, gp, "zeros")
+    return packed_table(x, gp), fields
+
+
+def check_packed(name, xf, fields, c, tol, label) -> float:
+    """max |kernel - plain| of one packed-gather kernel; raises beyond
+    ``tol + tol*|plain|`` (the row gather moves bits: it must be exact)."""
+    import torch
+
+    from vsrlab_tpu_torch.ops import packed_gather as pg
+
+    if name == "packed_row_gather":
+        got, want, tol = pg.packed_row_gather(xf, fields[0]), \
+            pg.packed_row_gather_plain(xf, fields[0]), 0.0
+    else:
+        got, want = pg.packed_bilinear(xf, *fields, c), pg.packed_bilinear_plain(xf, *fields, c)
+    torch.cuda.synchronize()
+    err = (got.float() - want.float()).abs()
+    ok = bool(torch.isfinite(got).all()) and bool((err <= tol + tol * want.float().abs()).all())
+    e = float(err.max())
+    log(f"  {label}: max|kernel-plain| = {e:.3e} (tol {tol}) {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"{label} disagrees with the plain version")
+    return e
+
+
+def check_packed_kernels(device):
+    """Phase 2 for the packed-gather kernels. Returns ``{name: {"fp32": err, "bf16": err}}``."""
+    import torch
+
+    errs = {name: {} for name in PACKED_KERNELS}
+    for dname, dtype in (("fp32", torch.float32), ("bf16", torch.bfloat16)):
+        for n, h, w, c, gp in PACKED_CHECKS:
+            for realistic in (True, False):
+                xf, fields = packed_operands(n, h, w, c, gp, dtype, realistic, 3, device)
+                for name in PACKED_KERNELS:
+                    label = (f"{name:17s} {dname} {tuple(xf.shape)} x {fields[0].shape[1]} "
+                             f"{'realistic' if realistic else 'random'}")
+                    e = check_packed(name, xf, fields, c, TOL[dname], label)
+                    errs[name][dname] = max(errs[name].get(dname, 0.0), e)
+                del xf, fields
+    return errs
+
+
+def packed_bound(name, shape, itemsize=2) -> tuple[float, str]:
+    """Least time (ms) for one launch at ``shape`` ``(N, R, Wrow, P)``: the
+    table and every per-pixel field read once, the output written once,
+    over the HBM rate, against the fused fold's 8 fp32 operations for each
+    output element."""
+    n, r, wrow, p = shape
+    table = n * r * wrow * itemsize
+    if name == "packed_row_gather":
+        nbytes, flops = table + n * p * 4 + n * p * wrow * itemsize, 0
+    else:
+        c = wrow // (4 * VRT_GP)
+        nbytes, flops = table + 7 * n * p * 4 + n * p * c * itemsize, 8 * n * p * c
+    t_ops, t_bytes = flops / PEAK_FP32_FLOPS * 1e3, nbytes / PEAK_BYTES * 1e3
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def time_packed_kernel(name, launches_by_shape, device):
+    """Phase 5 for one packed-gather kernel: at each shape the VRT path
+    gave it (bf16, realistic coordinates), a check against the plain
+    version and per-launch times. Returns the largest error and one row
+    per shape."""
+    import torch
+
+    from vsrlab_tpu_torch.ops import packed_gather as pg
+    from vsrlab_tpu_torch.ops.warp import packed_fields, packed_table, sample_pixel_coords
+
+    err, rows = 0.0, []
+    for shape, count in sorted(launches_by_shape.items()):
+        n, r, wrow, p = shape
+        h = w = int(round(p ** 0.5))
+        c = wrow // (4 * VRT_GP)
+        xf, fields = packed_operands(n, h, w, c, VRT_GP, torch.bfloat16, True, 7, device)
+        if tuple(xf.shape) != (n, r, wrow) or fields[0].shape[1] != p:
+            raise AssertionError(f"cannot rebuild the operands of shape {shape}")
+        err = max(err, check_packed(name, xf, fields, c, TOL["bf16"], f"{name:17s} bf16 {shape}"))
+        library_ms = None
+        if name == "packed_row_gather":
+            idx = fields[0]
+            flat = xf.reshape(-1, wrow)
+            lin = (idx.long() + torch.arange(n, device=device)[:, None] * r).reshape(-1)
+            fn, plain = (lambda: pg.packed_row_gather(xf, idx)), \
+                (lambda: pg.packed_row_gather_plain(xf, idx))
+            library_ms = cuda_ms(lambda: flat.index_select(0, lin), 3)
+        else:
+            fn, plain = (lambda: pg.packed_bilinear(xf, *fields, c)), \
+                (lambda: pg.packed_bilinear_plain(xf, *fields, c))
+        b_ms, b_by = packed_bound(name, shape)
+        row = {"shape": list(shape), "launches": count, "ms": cuda_ms(fn, 3),
+               "plain_ms": cuda_ms(plain, 3), "library_ms": library_ms,
+               "bound_ms": b_ms, "bound_by": b_by}
+        lib = "none" if library_ms is None else f"{library_ms:.4f} ms"
+        log(f"  {name:17s} bf16 {shape} x{count}: kernel {row['ms']:.4f} ms, plain "
+            f"{row['plain_ms']:.4f} ms, library {lib}, bound {b_ms:.4f} ms ({b_by})")
+        if name == "packed_bilinear":
+            # what surrounds the kernel in the sampler, and the four-corner
+            # sampler it stands in for, on the same images and coordinates
+            x = torch.randn((n, h, w, c), device=device).bfloat16()
+            ix = torch.rand((n, h, w), device=device) * (w - 1)
+            iy = torch.rand((n, h, w), device=device) * (h - 1)
+            row["table_ms"] = cuda_ms(lambda: packed_table(x, VRT_GP), 3)
+            row["fields_ms"] = cuda_ms(
+                lambda: packed_fields(ix, iy, h, w, VRT_GP, "zeros"), 3)
+            row["four_corner_ms"] = cuda_ms(
+                lambda: sample_pixel_coords(x, ix, iy, padding_mode="zeros"), 3)
+            log(f"  {'':17s} around it: table {row['table_ms']:.4f} ms, fields "
+                f"{row['fields_ms']:.4f} ms; four-corner sampler {row['four_corner_ms']:.4f} ms")
+            del x, ix, iy
+        rows.append(row)
+        del xf, fields
+    return err, rows
+
+
+def module_breakdown(model, request, classes) -> dict:
+    """Device ms of one ``request()`` by module class: CUDA events around
+    every forward of the listed classes (which must not nest in each
+    other), summed by class name; ``rest`` is what lies outside them."""
+    import torch
+
+    def event():
+        e = torch.cuda.Event(enable_timing=True)
+        e.record()
+        return e
+
+    starts, spans, handles = {}, [], []
+    for m in model.modules():
+        if isinstance(m, classes):
+            handles.append(m.register_forward_pre_hook(
+                lambda mod, _: starts.__setitem__(mod, event())))
+            handles.append(m.register_forward_hook(
+                lambda mod, _, __: spans.append((type(mod).__name__, starts.pop(mod), event()))))
+    try:
+        t0 = event()
+        request()
+        t1 = event()
+        torch.cuda.synchronize()
+    finally:
+        for h in handles:
+            h.remove()
+    out = {"total_ms": t0.elapsed_time(t1)}
+    for name, a, b in spans:
+        out[name] = out.get(name, 0.0) + a.elapsed_time(b)
+    out["rest"] = out["total_ms"] - sum(v for k, v in out.items() if k != "total_ms")
+    return out
+
+
+def build_vrt(dtype, tiny=False, **kw):
+    """Full-width VRT (or the default TinyVRT) with seeded weights; the
+    offset / mask heads, which start at zero, are drawn too (std 0.05), so
+    that offsets carry a residue of a few pixels on top of the flow prior
+    and masks vary."""
+    import torch
+
+    from vsrlab_tpu_torch.models import VRT, TinyVRT
+    from vsrlab_tpu_torch.models.vrt import FlowGuidedDeformAlign
+    from vsrlab_tpu_torch.nn.blocks import init_weights
+
+    g = torch.Generator().manual_seed(0)
+    model = init_weights((TinyVRT if tiny else VRT)(upscale=4, dtype=dtype, **kw), g)
+    with torch.no_grad():
+        for m in model.modules():
+            if isinstance(m, FlowGuidedDeformAlign):
+                m.conv_offset_3.weight.normal_(0.0, 0.05, generator=g)
+                m.conv_offset_3.bias.normal_(0.0, 0.05, generator=g)
+    return model
+
+
+def expected_vrt_launches(clip_shape, scales=VRT_SCALES, groups=VRT_GROUPS, cg=VRT_CG,
+                          gp=VRT_GP):
+    """Sampler launches of one VRT forward by ``(N, R, Wrow, P)``: at every
+    stage 2 directions x 9 taps over ``B*(T-1)*groups`` images."""
+    import collections
+
+    b, t, h, w, _ = clip_shape
+    want = collections.Counter()
+    for s in scales:
+        hs, ws = h // s, w // s
+        want[(b * (t - 1) * groups, (hs - 1) * (-(-ws // gp) - 1), 4 * gp * cg, hs * ws)] += 18
+    return want
+
+
+def run_vrt_path(model, clip, device):
+    """Phase 4's served requests: one ``make_forward`` request over ``clip``
+    with the fused sampler kernel, then one with the row gather kernel.
+    Returns both outputs and each packed-gather kernel's launches by shape,
+    per request; the residual pair's count is read too (it must stay 0)."""
+    from vsrlab_tpu_torch.evaluation.harness import make_forward
+    from vsrlab_tpu_torch.nn.blocks import set_sampler_impl
+    from vsrlab_tpu_torch.ops import packed_gather as pg
+    from vsrlab_tpu_torch.ops import residual_pair as rp
+
+    wrappers = {"packed_row_gather": pg.packed_row_gather, "packed_bilinear": pg.packed_bilinear}
+
+    def counts():
+        return {name: fn.launches_by_shape.copy() for name, fn in wrappers.items()}
+
+    forward = make_forward(model, device)
+    pg.reset_launch_counts()
+    rp.reset_launch_counts()
+    seen, calls, out = counts(), {}, {}
+    for impl in ("fused", "take"):
+        set_sampler_impl(model, impl)
+        out[impl] = forward(clip)
+        now = counts()
+        calls[impl], seen = {name: now[name] - seen[name] for name in wrappers}, now
+    set_sampler_impl(model, "fused")
+    pair = rp.residual_conv_pair.launches + rp.residual_conv_pair_im2col.launches
+    return {**out, "calls": calls, "launches_by_shape": seen, "pair_launches": pair}
+
+
+def gate_samplers(outs, plain, ref32) -> None:
+    """Each output of ``outs`` (by sampler formulation) against the plain
+    sampler's bf16 run and the fp32 run; raises beyond twice the deviation
+    of plain bf16 from fp32, in max or rms."""
+    def dev(a, b):
+        d = (a.float() - b).abs()
+        return float(d.max()), float(d.pow(2).mean().sqrt())
+
+    b_max, b_rms = dev(plain, ref32)
+    log(f"  plain sampler bf16 vs fp32: max {b_max:.4e}, rms {b_rms:.4e}; gate: 2x that")
+    for impl, out in outs.items():
+        for other, ref in (("plain (bf16)", plain), ("fp32", ref32)):
+            d_max, d_rms = dev(out, ref)
+            log(f"  {impl} vs {other}: max {d_max:.4e} ({d_max / b_max:.2f}x), rms {d_rms:.4e} "
+                f"({d_rms / b_rms:.2f}x)")
+            if not (d_max <= 2 * b_max and d_rms <= 2 * b_rms):
+                raise AssertionError(f"{impl} vs {other} deviates by more than twice bf16's "
+                                     "own deviation")
+
+
+def tiny_vrt_phase(device, card) -> None:
+    """Phase 4, second part: the default TinyVRT (32 channels, 4 offset
+    groups of 8 channels: 128-byte table rows) serves a 6-frame 64x64
+    request with the fused kernel, held to the same launch-count and
+    deviation gates, and a 96x96 clip through ``tiled_forward``."""
+    import torch
+
+    from vsrlab_tpu_torch.evaluation.harness import make_forward
+    from vsrlab_tpu_torch.evaluation.tiled import tiled_forward
+    from vsrlab_tpu_torch.nn.blocks import set_sampler_impl
+    from vsrlab_tpu_torch.ops import packed_gather as pg
+
+    shape = (1, 6, 64, 64, 3)
+    model = build_vrt(torch.bfloat16, tiny=True)
+    forward = make_forward(model, device)
+    g = torch.Generator().manual_seed(3)
+    clip = torch.rand(shape, generator=g)
+    pg.reset_launch_counts()
+    fused = forward(clip)
+    got = pg.packed_bilinear.launches_by_shape.copy()
+    want = expected_vrt_launches(shape, scales=(1, 2, 4, 2, 1), groups=4, cg=8)
+    log(f"  TinyVRT {shape}: packed_bilinear launches by (N, R, Wrow, P): {dict(got)}")
+    if got != want or pg.packed_row_gather.launches:
+        raise AssertionError(f"TinyVRT: launches {dict(got)} != expected {dict(want)}")
+    if tuple(fused.shape) != (1, 6, 256, 256, 3) or not bool(torch.isfinite(fused).all()):
+        raise AssertionError(f"TinyVRT: shape {tuple(fused.shape)} or non-finite")
+    set_sampler_impl(model, "plain")
+    plain = forward(clip).float()
+    set_sampler_impl(model, "fused")
+    model32 = build_vrt(None, tiny=True)
+    model32.load_state_dict(model.state_dict())
+    set_sampler_impl(model32, "plain")
+    gate_samplers({"fused": fused}, plain, make_forward(model32, device)(clip).float())
+    times = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        forward(clip)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    log(json.dumps({"tiny_vrt_fps": shape[1] / statistics.median(times), "card": card}))
+
+    big = torch.rand((1, 6, 96, 96, 3), generator=g)
+    pg.reset_launch_counts()
+    out = tiled_forward(forward, big, tile=(64, 64), overlap=16)
+    tiles = pg.packed_bilinear.launches // sum(want.values())
+    log(f"  tiled_forward (1, 6, 96, 96, 3), 64x64 tiles, overlap 16: {tuple(out.shape)}, "
+        f"{tiles} tiles, {pg.packed_bilinear.launches} sampler launches")
+    if (tuple(out.shape) != (1, 6, 384, 384, 3) or not bool(torch.isfinite(out).all())
+            or pg.packed_bilinear.launches != 4 * sum(want.values())):
+        raise AssertionError("tiled_forward: wrong shape, non-finite or not 4 tiles")
+
+
+def vrt_phase(device, card):
+    """Phase 4. Returns each packed-gather kernel's launches by shape."""
+    import torch
+
+    from vsrlab_tpu_torch.evaluation.harness import make_forward
+    from vsrlab_tpu_torch.nn.blocks import set_sampler_impl
+
+    model = build_vrt(torch.bfloat16, img_size=VRT_CLIP[1:4])
+    log(f"  parameters: {sum(p.numel() for p in model.parameters()) / 1e6:.2f} M")
+    clip = torch.rand(VRT_CLIP, generator=torch.Generator().manual_seed(2))
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    res = run_vrt_path(model, clip, device)
+    torch.cuda.synchronize()
+    log(f"  served 2 requests in {time.perf_counter() - t0:.2f} s (first use included), "
+        f"peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    want_shape = (VRT_CLIP[0], VRT_CLIP[1], 4 * VRT_CLIP[2], 4 * VRT_CLIP[3], 3)
+    uses = {"fused": "packed_bilinear", "take": "packed_row_gather"}
+    want = expected_vrt_launches(VRT_CLIP)
+    for impl, kernel in uses.items():
+        out = res[impl]
+        if tuple(out.shape) != want_shape or not bool(torch.isfinite(out).all()):
+            raise AssertionError(f"{impl}: shape {tuple(out.shape)} (want {want_shape}) "
+                                 "or non-finite")
+        log(f"  {impl}: {tuple(out.shape)} finite, range [{float(out.min()):.3f}, "
+            f"{float(out.max()):.3f}]")
+        for name, by_shape in res["calls"][impl].items():
+            log(f"  {impl} request, {name} launches by (N, R, Wrow, P): {dict(by_shape)}")
+            # all 126 sampler calls at their expected shapes: none took the
+            # four-corner fallback, and the other kernel was not launched
+            if by_shape != (want if name == kernel else {}):
+                raise AssertionError(f"{impl}: {name} launches {dict(by_shape)} != expected "
+                                     f"{dict(want) if name == kernel else {}}")
+    if res["pair_launches"] != 0:
+        raise AssertionError("the VRT path launched the residual pair")
+
+    forward = make_forward(model, device)
+    set_sampler_impl(model, "plain")
+    plain = forward(clip).float()
+    model32 = build_vrt(None, img_size=VRT_CLIP[1:4])
+    model32.load_state_dict(model.state_dict())
+    set_sampler_impl(model32, "plain")
+    ref32 = make_forward(model32, device)(clip).float()
+    del model32
+    log(f"  comparison runs use the whole request {VRT_CLIP}")
+    gate_samplers({impl: res[impl] for impl in uses}, plain, ref32)
+    del plain, ref32, res["fused"], res["take"]
+
+    seconds = {}
+    for impl in ("fused", "take", "plain"):
+        set_sampler_impl(model, impl)
+        times = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            forward(clip)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+        seconds[impl] = statistics.median(times)
+    set_sampler_impl(model, "fused")
+    fps = {impl: VRT_CLIP[1] / t for impl, t in seconds.items()}
+    log(f"  frames/s on {card}: 16-frame 256x256 request, fused {fps['fused']:.3f}, take "
+        f"{fps['take']:.3f}, plain {fps['plain']:.3f} (median of 3, host clock, input "
+        "upload included)")
+    log(json.dumps({"vrt_fps": fps, "card": card}))
+    log(json.dumps({"profile_vrt_fused": profile_request(
+        lambda: forward(clip), seconds["fused"], ours=("packed_",))}))
+    from vsrlab_tpu_torch.models.vrt import FlowGuidedDeformAlign, MlpGEGLU, WindowAttention
+    from vsrlab_tpu_torch.nn.blocks import LayerNorm
+
+    log(json.dumps({"modules_vrt_fused_ms": module_breakdown(
+        model, lambda: forward(clip),
+        (WindowAttention, MlpGEGLU, FlowGuidedDeformAlign, LayerNorm))}))
+    return res["launches_by_shape"]
+
+
+def profile_request(request, wall_s: float, top: int = 12,
+                    ours=("pair_taps", "pair_im2col")) -> dict:
     """Device time of one ``request()`` by kernel (``torch.profiler``), its
-    share of ``wall_s`` (the request's unprofiled time) and the top kernels."""
+    share of ``wall_s`` (the request's unprofiled time), the time in the
+    port's own kernels (names holding one of ``ours``) and the top kernels."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -203,13 +627,13 @@ def profile_request(request, wall_s: float, top: int = 12) -> dict:
     total = sum(kernels.values())
     if total == 0:
         return {"device_ms": "not measured (the profiler saw no device time)"}
-    pair = sum(v for k, v in kernels.items() if "pair_taps" in k or "pair_im2col" in k)
+    own = sum(v for k, v in kernels.items() if any(tag in k for tag in ours))
     ranked = sorted(kernels.items(), key=lambda kv: -kv[1])[:top]
     return {
         "wall_ms": wall_s * 1e3,
         "device_ms": total,
         "device_busy_share": total / (wall_s * 1e3),
-        "residual_pair_ms": pair,
+        "own_kernels_ms": own,
         "top": [{"kernel": k[:90], "ms": v, "share": v / total} for k, v in ranked],
     }
 
@@ -260,36 +684,34 @@ def run_main_path(model, clip, device):
             "n_windows": n_windows, "calls": calls, "launches_by_shape": seen}
 
 
-def main() -> int:
+def kernel_summary(rows, err, check_errs) -> dict:
+    """One kernel's entry of the ``kernels`` line from its per-shape rows:
+    times and bound summed over the path's launches (per-launch value at a
+    shape times that shape's count); ``library_ms`` is null where no one
+    PyTorch call computes the function."""
+    def total(key):
+        if any(r[key] is None for r in rows):
+            return None
+        return sum(r[key] * r["launches"] for r in rows)
+
+    return {
+        "launches": sum(r["launches"] for r in rows),
+        "max_abs_err": max(err, check_errs["bf16"]),
+        "max_abs_err_fp32": check_errs["fp32"],
+        **{k: total(k) for k in ("ms", "plain_ms", "library_ms", "bound_ms")},
+        "bound_by": "operations" if all(r["bound_by"] == "operations" for r in rows) else "bytes",
+        "shapes": rows,
+    }
+
+
+def realbasicvsr_phase(device, card):
+    """Phase 3. Returns each residual-pair kernel's launches by input shape."""
     import torch
 
-    if not torch.cuda.is_available():
-        print("chip_smoke: torch.cuda.is_available() is False; this script needs a CUDA GPU",
-              file=sys.stderr)
-        return 1
-    from vsrlab_tpu_torch.build import load
     from vsrlab_tpu_torch.evaluation.harness import (
         make_forward, make_stream_forward, windowed_inference)
     from vsrlab_tpu_torch.nn.blocks import set_pair_impl
 
-    torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cuda.matmul.allow_tf32 = False
-    device = torch.device("cuda")
-    card = card_line()
-    log("phase 1: device and build")
-    log(f"  torch {torch.__version__}, CUDA {torch.version.cuda}, "
-        f"{torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}")
-    log(card)
-    lib = load("residual_pair")
-    log(f"  kernels built in {lib.build_seconds:.1f} s -> {lib.path.name}")
-    for line in lib.log.splitlines():
-        if "registers" in line or "spill" in line or "Compiling entry" in line:
-            log(f"  ptxas: {line.strip()}")
-
-    log("phase 2: kernels against their plain version")
-    errs = check_kernels(device)
-
-    log("phase 3: main path (RealBasicVSR 4x, mid 64, 30+20 blocks, bf16)")
     model = build_model(torch.bfloat16)
     g = torch.Generator().manual_seed(1)
     clip = torch.rand((1, 20, 180, 320, 3), generator=g)
@@ -378,22 +800,60 @@ def main() -> int:
     log(json.dumps({"fps": fps, "card": card}))
     log(json.dumps({"profile_clip10": profile_request(requests["clip10"][1],
                                                       10 / fps["clip10"])}))
+    return res["launches_by_shape"]
 
-    log("phase 4: each kernel at the main path's shapes")
+
+def main() -> int:
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is False; this script needs a CUDA GPU",
+              file=sys.stderr)
+        return 1
+    from vsrlab_tpu_torch.build import load
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    device = torch.device("cuda")
+    card = card_line()
+    log("phase 1: device and build")
+    log(f"  torch {torch.__version__}, CUDA {torch.version.cuda}, "
+        f"{torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}")
+    log(card)
+    # one nvcc for each source, started together
+    with concurrent.futures.ThreadPoolExecutor() as pool:
+        libs = list(pool.map(load, ("residual_pair", "packed_gather")))
+    for lib in libs:
+        log(f"  kernels built in {lib.build_seconds:.1f} s -> {lib.path.name}")
+        for line in lib.log.splitlines():
+            if "registers" in line or "spill" in line or "Compiling entry" in line:
+                log(f"  ptxas: {line.strip()}")
+
+    log("phase 2: kernels against their plain version")
+    errs = check_kernels(device)
+    packed_errs = check_packed_kernels(device)
+
+    log("phase 3: RealBasicVSR path (4x, mid 64, 30+20 blocks, bf16)")
+    pair_launches = realbasicvsr_phase(device, card)
+    torch.cuda.empty_cache()
+
+    log("phase 4: VRT path (4x, paper configuration, 16x256x256 request, bf16)")
+    packed_launches = vrt_phase(device, card)
+    torch.cuda.empty_cache()
+    tiny_vrt_phase(device, card)
+    torch.cuda.empty_cache()
+
+    log("phase 5: each kernel at its path's shapes")
     kernels = []
     for form, (name, replaces) in KERNELS.items():
-        err, rows = time_kernel(form, res["launches_by_shape"][form], device)
-        kernels.append({
-            "name": name, "route": "cuda", "source": SOURCE, "replaces": replaces,
-            "launches": sum(r["launches"] for r in rows),
-            "max_abs_err": max(err, errs[form]["bf16"]),
-            "max_abs_err_fp32": errs[form]["fp32"],
-            **{k: sum(r[k] * r["launches"] for r in rows)
-               for k in ("ms", "plain_ms", "library_ms", "bound_ms")},
-            "bound_by": "operations" if all(r["bound_by"] == "operations"
-                                            for r in rows) else "bytes",
-            "shapes": rows,
-        })
+        err, rows = time_kernel(form, pair_launches[form], device)
+        kernels.append({"name": name, "route": "cuda", "source": SOURCE, "replaces": replaces,
+                        **kernel_summary(rows, err, errs[form])})
+    for name, (replaces, also) in PACKED_KERNELS.items():
+        err, rows = time_packed_kernel(name, packed_launches[name], device)
+        kernels.append({"name": name, "route": "cuda", "source": PACKED_SOURCE,
+                        "replaces": replaces, "also_replaces": also,
+                        **kernel_summary(rows, err, packed_errs[name])})
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu",
                                            "kind": torch.cuda.get_device_name(0),

@@ -1,5 +1,6 @@
-"""vsrlab_tpu_torch's CUDA kernels on the card: agreement with the plain
-version at ragged shapes, the launch counter, and the wrapper's refusals.
+"""vsrlab_tpu_torch's CUDA kernels on the card (the residual pair and the
+packed gather): agreement with the plain version at ragged shapes, the
+launch counter, and the wrapper's refusals.
 
 Skips without a CUDA device. On a machine with a card and no JAX, run
 without the JAX test configuration:
@@ -11,6 +12,8 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from vsrlab_tpu_torch.ops import packed_gather as pg  # noqa: E402
+from vsrlab_tpu_torch.ops import warp  # noqa: E402
 from vsrlab_tpu_torch.ops.residual_pair import (  # noqa: E402
     residual_conv_pair,
     residual_conv_pair_im2col,
@@ -73,3 +76,60 @@ def test_kernel_refuses_what_it_does_not_take(cuda, wrapper):
     with pytest.raises(ValueError, match="C=64"):
         wrapper(x8, w8, b8, w8, b8)
     assert wrapper.launches == before
+
+
+def _packed_operands(n, h, w, c, gp, dtype, device, seed=0):
+    """Table and per-pixel fields for random images and coordinates that
+    reach 2 pixels outside the image."""
+    g = torch.Generator().manual_seed(seed)
+    x = torch.randn((n, h, w, c), generator=g).to(device, dtype)
+    ix = (torch.rand((n, h, w), generator=g) * (w + 3) - 2).to(device)
+    iy = (torch.rand((n, h, w), generator=g) * (h + 3) - 2).to(device)
+    return warp.packed_table(x, gp), warp.packed_fields(ix, iy, h, w, gp, "zeros")
+
+
+# (N, H, W, C, gp): 160-byte rows (16-byte vectors), 24-byte bf16 / 48-byte
+# fp32 rows (the element-wise and the vector path), the TinyVRT row
+PACKED_SHAPES = [(3, 9, 13, 10, 2), (2, 7, 10, 3, 1), (5, 16, 16, 8, 2)]
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4), (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("shape", PACKED_SHAPES)
+def test_packed_kernels_match_plain(cuda, dtype, tol, shape):
+    xf, fields = _packed_operands(*shape, dtype, cuda)
+    key = (*xf.shape, fields[0].shape[1])
+    before = (pg.packed_row_gather.launches_by_shape[key], pg.packed_bilinear.launches_by_shape[key])
+    rows = pg.packed_row_gather(xf, fields[0])
+    out = pg.packed_bilinear(xf, *fields, shape[3])
+    torch.cuda.synchronize()
+    assert pg.packed_row_gather.launches_by_shape[key] == before[0] + 1
+    assert pg.packed_bilinear.launches_by_shape[key] == before[1] + 1
+    assert rows.dtype == dtype and out.dtype == dtype
+    assert torch.equal(rows, pg.packed_row_gather_plain(xf, fields[0]))
+    torch.testing.assert_close(out.float(), pg.packed_bilinear_plain(xf, *fields, shape[3]).float(),
+                               rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("impl", ["take", "fused"])
+def test_packed_sampler_matches_four_corner_on_the_card(cuda, impl):
+    g = torch.Generator().manual_seed(1)
+    x = torch.randn((4, 12, 18, 10), generator=g).to(cuda)
+    ix = (torch.rand((4, 12, 18), generator=g) * 21 - 2).to(cuda)
+    iy = (torch.rand((4, 12, 18), generator=g) * 15 - 2).to(cuda)
+    want = warp.sample_pixel_coords(x, ix, iy, window_group=2, impl="plain")
+    got = warp.sample_pixel_coords(x, ix, iy, window_group=2, impl=impl)
+    torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
+
+
+def test_packed_kernels_refuse_what_they_do_not_take(cuda):
+    xf, fields = _packed_operands(2, 6, 8, 4, 2, torch.bfloat16, cuda)
+    before = (pg.packed_row_gather.launches, pg.packed_bilinear.launches)
+    with pytest.raises(ValueError, match="bf16 or fp32"):
+        pg.packed_row_gather(xf.half(), fields[0])
+    with pytest.raises(ValueError, match="contiguous"):
+        pg.packed_row_gather(xf.transpose(1, 2), fields[0])
+    with pytest.raises(ValueError, match="one CUDA device"):
+        pg.packed_row_gather(xf, fields[0].cpu())
+    with pytest.raises(ValueError, match="one CUDA device"):
+        pg.packed_bilinear(xf, *fields[:6], fields[6].cpu(), 4)
+    assert (pg.packed_row_gather.launches, pg.packed_bilinear.launches) == before

@@ -10,6 +10,11 @@ params)``), with the paths that ``vsrlab_tpu``'s ``init`` produces:
   (``(n, 3, 3, C, C)`` kernels, ``(n, C)`` biases); slice ``i`` of that
   axis is unit ``res_blocks.i``.
 
+* the VRT family keeps flax's names (:func:`vrt_state_dict`): a ``Dense``
+  kernel ``(in, out)`` becomes a ``weight`` ``(out, in)``, a ``LayerNorm``
+  ``scale`` a ``weight``; the attention bias tables and the deformable
+  conv's HWIO ``weight`` go over as they are.
+
 Each ``*_state_dict`` function returns a flat ``{name: tensor}`` dict for
 ``load_state_dict(..., strict=True)`` of the matching port module.
 """
@@ -84,4 +89,33 @@ def basicvsr_state_dict(p: Tree, prefix: str = "") -> dict:
 def realbasicvsr_state_dict(p: Tree) -> dict:
     out = iterative_refinement_state_dict(p["cleaner"], "cleaner.")
     out.update(basicvsr_state_dict(p["basicvsr"], "basicvsr."))
+    return out
+
+
+def module_state_dict(p: Tree, prefix: str = "") -> dict:
+    """A subtree of the VRT family, whose port modules keep flax's names:
+    ``X/Conv_0`` and a bare 4-D ``kernel`` are convs (HWIO -> OIHW), a 2-D
+    ``kernel`` is a ``Dense`` (transposed), ``scale`` a LayerNorm weight;
+    every other leaf keeps its name and layout."""
+    out = {}
+    for name, sub in p.items():
+        if name == "Conv_0":
+            out.update(conv_state_dict(sub, prefix))
+        elif isinstance(sub, Mapping):
+            out.update(module_state_dict(sub, f"{prefix}{name}."))
+        else:
+            leaf = np.array(sub, np.float32)
+            if name == "kernel":
+                name = "weight"
+                leaf = leaf.transpose(3, 2, 0, 1) if leaf.ndim == 4 else leaf.T
+            elif name == "scale":
+                name = "weight"
+            out[f"{prefix}{name}"] = torch.from_numpy(np.ascontiguousarray(leaf))
+    return out
+
+
+def vrt_state_dict(p: Tree) -> dict:
+    """``VRT`` / ``TinyVRT`` params -> the port model's ``state_dict``."""
+    out = spynet_state_dict(p["optical_flow"], "optical_flow.")
+    out.update(module_state_dict({k: v for k, v in p.items() if k != "optical_flow"}))
     return out

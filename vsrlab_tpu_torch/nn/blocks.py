@@ -6,9 +6,11 @@ result back, so no copy is made. Parameters are fp32 in torch's OIHW
 layout; ``dtype`` (for example ``torch.bfloat16``) is the compute type,
 as the JAX package threads it through its modules.
 
-Initialisation is torch's ``nn.Conv2d`` default (kaiming_uniform with
-``a=sqrt(5)``, i.e. ``U(-1/sqrt(fan_in), 1/sqrt(fan_in))`` for weight and
-bias), drawn from an explicit ``torch.Generator`` (:func:`init_weights`).
+Initialisation is torch's ``nn.Conv2d`` / ``nn.Linear`` default
+(kaiming_uniform with ``a=sqrt(5)``, i.e. ``U(-1/sqrt(fan_in),
+1/sqrt(fan_in))`` for weight and bias), drawn from an explicit
+``torch.Generator`` (:func:`init_weights`); a ``zero_init`` conv (the
+offset head of a deformable conv) stays zero.
 
 The ``ResidualConv`` units of a :class:`ResidualBlock` run through the
 fused residual pair (:mod:`vsrlab_tpu_torch.ops.residual_pair`): on a CUDA
@@ -24,24 +26,28 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from vsrlab_tpu_torch.ops.deform import deform_conv2d
 from vsrlab_tpu_torch.ops.pixel_shuffle import pixel_shuffle
 from vsrlab_tpu_torch.ops.residual_pair import PAIR_IMPLS
+from vsrlab_tpu_torch.ops.warp import SAMPLER_IMPLS
 
 
 class Conv2d(nn.Module):
     """2-D conv with torch-default init, on ``(N, H, W, C)``."""
 
     def __init__(self, in_channels: int, out_channels: int, kernel_size: int = 3,
-                 stride: int = 1, padding: int = 1, dtype: torch.dtype | None = None):
+                 stride: int = 1, padding: int = 1, dtype: torch.dtype | None = None,
+                 zero_init: bool = False):
         super().__init__()
         self.stride, self.padding, self.dtype = stride, padding, dtype
+        self.zero_init = zero_init
         self.weight = nn.Parameter(
             torch.empty(out_channels, in_channels, kernel_size, kernel_size))
         self.bias = nn.Parameter(torch.empty(out_channels))
         self.reset_parameters()
 
     def reset_parameters(self, generator: torch.Generator | None = None) -> None:
-        bound = 1.0 / math.sqrt(self.weight[0].numel())
+        bound = 0.0 if self.zero_init else 1.0 / math.sqrt(self.weight[0].numel())
         with torch.no_grad():
             self.weight.uniform_(-bound, bound, generator=generator)
             self.bias.uniform_(-bound, bound, generator=generator)
@@ -55,6 +61,47 @@ class Conv2d(nn.Module):
         y = F.conv2d(x.to(dt).permute(0, 3, 1, 2), self.weight.to(dt), self.bias.to(dt),
                      self.stride, self.padding)
         return y.permute(0, 2, 3, 1)
+
+
+class Linear(nn.Module):
+    """Dense layer over the last axis with torch-default init; ``weight`` is
+    ``(out, in)`` in fp32, ``dtype`` the compute type."""
+
+    def __init__(self, in_features: int, out_features: int, bias: bool = True, dtype=None):
+        super().__init__()
+        self.dtype = dtype
+        self.weight = nn.Parameter(torch.empty(out_features, in_features))
+        self.bias = nn.Parameter(torch.empty(out_features)) if bias else None
+        self.reset_parameters()
+
+    def reset_parameters(self, generator: torch.Generator | None = None) -> None:
+        bound = 1.0 / math.sqrt(self.weight.shape[1])
+        with torch.no_grad():
+            self.weight.uniform_(-bound, bound, generator=generator)
+            if self.bias is not None:
+                self.bias.uniform_(-bound, bound, generator=generator)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        dt = self.dtype or torch.promote_types(x.dtype, self.weight.dtype)
+        bias = None if self.bias is None else self.bias.to(dt)
+        return F.linear(x.to(dt), self.weight.to(dt), bias)
+
+
+class LayerNorm(nn.Module):
+    """LayerNorm over the last axis as flax computes it: statistics and
+    the affine map in fp32, ``eps`` 1e-6, the result in the compute type."""
+
+    def __init__(self, features: int, eps: float = 1e-6, dtype=None):
+        super().__init__()
+        self.eps, self.dtype = eps, dtype
+        self.weight = nn.Parameter(torch.ones(features))
+        self.bias = nn.Parameter(torch.zeros(features))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        dt = self.dtype or torch.promote_types(x.dtype, self.weight.dtype)
+        y = F.layer_norm(x.float(), x.shape[-1:], self.weight.float(), self.bias.float(),
+                         self.eps)
+        return y.to(dt)
 
 
 class ConvLeaky(nn.Module):
@@ -153,12 +200,62 @@ class IterativeRefinement(nn.Module):
         return x
 
 
+class DeformConvPack(nn.Module):
+    """Deformable 3x3 conv with learned offsets: a zero-initialised conv
+    over the input predicts them, then
+    :func:`vsrlab_tpu_torch.ops.deform.deform_conv2d`. ``weight`` is HWIO
+    ``(k, k, Cin, Cout)``; ``sampler_impl`` is the sampler's formulation."""
+
+    def __init__(self, in_channels: int, features: int, kernel_size: int = 3, padding: int = 1,
+                 deformable_groups: int = 1, dtype=None):
+        super().__init__()
+        k = kernel_size
+        self.padding = padding
+        self.sampler_impl = "fused"
+        self.offset_conv = Conv2d(in_channels, deformable_groups * 2 * k * k, k, 1, padding,
+                                  dtype=dtype, zero_init=True)
+        self.weight = nn.Parameter(torch.empty(k, k, in_channels, features))
+        self.bias = nn.Parameter(torch.empty(features))
+        self.reset_parameters()
+
+    def reset_parameters(self, generator: torch.Generator | None = None) -> None:
+        k, _, cin, _ = self.weight.shape
+        bound = 1.0 / math.sqrt(k * k * cin)
+        with torch.no_grad():
+            self.weight.uniform_(-bound, bound, generator=generator)
+            self.bias.uniform_(-bound, bound, generator=generator)
+
+    def forward(self, x):
+        return deform_conv2d(x, self.offset_conv(x), self.weight, self.bias, stride=1,
+                             padding=self.padding, impl=self.sampler_impl)
+
+
+class DeformBlock(nn.Module):
+    """conv_in -> ``blocks`` x :class:`DeformConvPack` -> conv_out."""
+
+    def __init__(self, in_features: int, mid_features: int, blocks: int, dtype=None):
+        super().__init__()
+        self.conv_in = Conv2d(in_features, mid_features, 3, 1, 1, dtype=dtype)
+        self.dcs = nn.ModuleList(DeformConvPack(mid_features, mid_features, dtype=dtype)
+                                 for _ in range(blocks))
+        self.conv_out = Conv2d(mid_features, in_features, 3, 1, 1, dtype=dtype)
+
+    def forward(self, x):
+        x = self.conv_in(x)
+        for dc in self.dcs:
+            x = dc(x)
+        return self.conv_out(x)
+
+
 def init_weights(module: nn.Module, generator: torch.Generator) -> nn.Module:
-    """Re-draw every :class:`Conv2d` under ``module`` from ``generator``,
-    in module order (reproducible for a seeded generator)."""
+    """Re-draw the parameters of every module under ``module`` that has a
+    ``reset_parameters(generator)`` (convs, dense layers, deformable convs,
+    attention bias tables) from ``generator``, in module order
+    (reproducible for a seeded generator)."""
     for m in module.modules():
-        if isinstance(m, Conv2d):
-            m.reset_parameters(generator)
+        reset = getattr(m, "reset_parameters", None)
+        if reset is not None:
+            reset(generator)
     return module
 
 
@@ -169,4 +266,15 @@ def set_pair_impl(module: nn.Module, impl: str) -> nn.Module:
     for m in module.modules():
         if isinstance(m, ResidualBlock):
             m.pair_impl = impl
+    return module
+
+
+def set_sampler_impl(module: nn.Module, impl: str) -> nn.Module:
+    """Set ``sampler_impl`` (``"fused"``, ``"take"`` or ``"plain"``) on
+    every deformable conv under ``module``."""
+    if impl not in SAMPLER_IMPLS:
+        raise ValueError(f"unknown sampler formulation: {impl}")
+    for m in module.modules():
+        if hasattr(m, "sampler_impl"):
+            m.sampler_impl = impl
     return module

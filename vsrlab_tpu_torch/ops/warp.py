@@ -4,8 +4,14 @@
 Samples at PIXEL coordinates: :func:`flow_warp` adds the flow to the
 integer pixel grid and samples there directly, so an integer flow warps
 bit-exactly (a normalise / ``F.grid_sample`` round trip costs an ulp).
-The bilinear taps are a plain gather of the four window corners; the JAX
-package's packed-window gather is a TPU layout of the same function.
+The bilinear taps have three formulations (``impl``): ``"plain"`` is a
+gather of the four window corners; ``"take"`` and ``"fused"`` are the JAX
+package's packed-window sampler, which packs the image into a table of
+``2 x 2gp x C`` windows and reads ONE table row for each output pixel,
+through the hand-written kernels of
+:mod:`vsrlab_tpu_torch.ops.packed_gather` (``"take"``: the row gather, the
+weights and the fold in torch, as the JAX package ships it; ``"fused"``:
+one kernel for all three).
 
 Conventions: images ``(N, H, W, C)``, grids ``(N, Ho, Wo, 2)`` with
 normalised ``(x, y)`` in [-1, 1], flows ``(N, H, W, 2)`` with pixel
@@ -16,6 +22,11 @@ displacements ``(dx, dy)``. Compute is fp32; results come back in
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
+
+from vsrlab_tpu_torch.ops.packed_gather import fold_window, packed_bilinear, packed_row_gather
+
+SAMPLER_IMPLS = ("plain", "take", "fused")
 
 
 def _unnormalize(coord, size: int, align_corners: bool):
@@ -54,6 +65,78 @@ def _pad_coords(ix, iy, h: int, w: int, padding_mode: str, align_corners: bool):
     return ix, iy
 
 
+def _window_group(c: int, n_idx: int = 0, itemsize: int = 4) -> int:
+    """x-positions packed into one table row: about 32 elements of
+    ``4*gp*C`` a row, and ``gp`` halves until the gathered-window tensor
+    (``n_idx`` rows) fits 1 GiB (the JAX package's heuristic)."""
+    gp = max(1, min(8, 32 // max(c, 1)))
+    while gp > 1 and n_idx * 4 * gp * c * itemsize > 1 << 30:
+        gp //= 2
+    return gp
+
+
+def packed_table(x: torch.Tensor, gp: int) -> torch.Tensor:
+    """The packed-window table of ``x`` ``(N, H, W, C)``: ``(N, (H-1)*(Wg-1),
+    4*gp*C)`` in ``x.dtype``, ``Wg = ceil(W/gp)``. Row ``(y, g)`` holds image
+    rows ``y, y+1`` x x-groups ``g, g+1`` as ``(2, 2gp, C)``; columns past
+    ``W`` are zero."""
+    n, h, w, c = x.shape
+    wp = -(-w // gp) * gp
+    if wp != w:
+        x = F.pad(x, (0, 0, 0, wp - w))
+    xp = x.reshape(n, h, wp // gp, gp * c)
+    xp2 = torch.cat([xp[:, :, :-1], xp[:, :, 1:]], -1)
+    xp4 = torch.cat([xp2[:, :-1], xp2[:, 1:]], -1)
+    return xp4.reshape(n, -1, 4 * gp * c)
+
+
+def packed_fields(ix, iy, h: int, w: int, gp: int, padding_mode: str):
+    """Per-pixel operands of the packed sampler for padded fp32 coordinates
+    ``ix``, ``iy`` ``(N, ...)``: ``(idx, rx0, py0, wx0, wx1, wy0, wy1)``,
+    each ``(N, P)``. ``idx`` names the table row, ``rx0`` / ``py0`` the
+    slot of the first corner inside its window (int32), the weights are
+    per axis (fp32). In ``zeros`` mode an axis weight is zero where its
+    corner lies outside the image: the valid region is a box, so per-axis
+    masks equal per-corner masks."""
+    n = ix.shape[0]
+    wg = -(-w // gp)
+    x0f, y0f = torch.floor(ix), torch.floor(iy)
+    wx1, wy1 = ix - x0f, iy - y0f
+    wx0, wy0 = 1.0 - wx1, 1.0 - wy1
+    if padding_mode == "zeros":
+        zero = torch.zeros_like(wx0)
+        wx0 = torch.where((x0f >= 0) & (x0f <= w - 1), wx0, zero)
+        wx1 = torch.where((x0f + 1 >= 0) & (x0f + 1 <= w - 1), wx1, zero)
+        wy0 = torch.where((y0f >= 0) & (y0f <= h - 1), wy0, zero)
+        wy1 = torch.where((y0f + 1 >= 0) & (y0f + 1 <= h - 1), wy1, zero)
+    # the float clamp bounds the int cast; a corner outside its window's
+    # slots carries exactly zero weight
+    x0c = x0f.clamp(-1.0, w).int()
+    y0c = y0f.clamp(-1.0, h).int()
+    y0i = y0c.clamp(0, h - 2)
+    g0 = torch.clamp(torch.div(x0c.clamp(0, w - 2), gp, rounding_mode="floor"), max=wg - 2)
+    fields = (y0i * (wg - 1) + g0, x0c - g0 * gp, y0c - y0i, wx0, wx1, wy0, wy1)
+    return tuple(f.reshape(n, -1).contiguous() for f in fields)
+
+
+def _bilinear_packed(x, ix, iy, padding_mode: str, window_group: int | None, impl: str):
+    """Bilinear sampling through the packed-window table and the kernels
+    of :mod:`~vsrlab_tpu_torch.ops.packed_gather`, in ``x.dtype``; ``None``
+    when the shape cannot host a 2-row, 2-group window (the caller falls
+    back to the four-corner gather, as the JAX package does)."""
+    n, h, w, c = x.shape
+    gp = window_group or _window_group(c, ix.numel(), x.element_size())
+    if h < 2 or -(-w // gp) < 2:
+        return None
+    xf = packed_table(x, gp)
+    fields = packed_fields(ix, iy, h, w, gp, padding_mode)
+    if impl == "fused":
+        out = packed_bilinear(xf, *fields, c)
+    else:
+        out = fold_window(packed_row_gather(xf, fields[0]), *fields[1:], c)
+    return out.reshape(*ix.shape, c)
+
+
 def sample_pixel_coords(
     x: torch.Tensor,
     ix: torch.Tensor,
@@ -61,11 +144,25 @@ def sample_pixel_coords(
     mode: str = "bilinear",
     padding_mode: str = "zeros",
     align_corners: bool = False,
+    window_group: int | None = None,
+    impl: str | None = None,
 ) -> torch.Tensor:
     """Sample ``x`` ``(N, H, W, C)`` at continuous pixel coordinates
-    ``ix``, ``iy`` ``(N, Ho, Wo)`` (no [-1, 1] round trip)."""
+    ``ix``, ``iy`` ``(N, Ho, Wo)`` (no [-1, 1] round trip).
+
+    ``impl`` picks the bilinear formulation: ``"plain"`` / ``None`` the
+    four-corner gather, ``"take"`` / ``"fused"`` the packed-window sampler
+    with ``window_group`` x-positions a table row (``None``: the
+    heuristic), forward-only.
+    """
     n, h, w, c = x.shape
+    if impl not in (None, *SAMPLER_IMPLS):
+        raise ValueError(f"unknown sampler formulation: {impl}")
     ix, iy = _pad_coords(ix.float(), iy.float(), h, w, padding_mode, align_corners)
+    if mode == "bilinear" and impl in ("take", "fused"):
+        out = _bilinear_packed(x.contiguous(), ix, iy, padding_mode, window_group, impl)
+        if out is not None:
+            return out
     x_flat = x.reshape(n, h * w, c).float()
 
     def corner(idx_y, idx_x, weight):
@@ -129,7 +226,10 @@ def flow_warp(
     With ``align_corners=False`` the torch reference's normalise (size-1
     convention) / unnormalise (align_corners=False) round trip is not an
     identity, so it is reproduced; with ``True`` it is, and is skipped.
-    ``nearest4`` is not ported yet.
+    ``nearest4`` returns the four nearest taps stacked on channels,
+    ``(N, H, W, 4*C)``, in the order (floor, floor), (floor, ceil),
+    (ceil, floor), (ceil, ceil) of (x, y); ``ceil`` equals ``floor`` at an
+    exact integer, and in ``zeros`` mode each tap has its own validity.
     """
     _, h, w, _ = x.shape
     ys, xs = torch.meshgrid(
@@ -142,4 +242,9 @@ def flow_warp(
     if not align_corners:
         vx = _unnormalize(2.0 * vx / max(w - 1, 1) - 1.0, w, False)
         vy = _unnormalize(2.0 * vy / max(h - 1, 1) - 1.0, h, False)
+    if interpolation == "nearest4":
+        taps = ((torch.floor(vx), torch.floor(vy)), (torch.floor(vx), torch.ceil(vy)),
+                (torch.ceil(vx), torch.floor(vy)), (torch.ceil(vx), torch.ceil(vy)))
+        return torch.cat([sample_pixel_coords(x, tx, ty, "nearest", padding_mode, align_corners)
+                          for tx, ty in taps], -1)
     return sample_pixel_coords(x, vx, vy, interpolation, padding_mode, align_corners)
