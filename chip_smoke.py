@@ -17,7 +17,8 @@ Phases, in order; any failure exits non-zero:
    versions at the alignment shape (180 images of 128x128x10, two
    x-positions a row: table ``(180, 8001, 80)``, 16384 pixels an image)
    with realistic coordinates (pixel + N(0, 3) residue) and with uniformly
-   random ones, and at a ragged ``(3, 9, 13, 5)``.
+   random ones, at a ragged ``(3, 9, 13, 5)``, and at images smaller than
+   one window (8x8x4 with 8 x-positions a row; one row; one column).
 3. The RealBasicVSR path: RealBasicVSR 4x at the headline configuration (mid 64,
    30 residual blocks, 20 cleaning blocks, 3 steps, bf16), weights from a
    seeded ``torch.Generator``, serving 180x320 -> 720x1280 requests through
@@ -38,24 +39,27 @@ Phases, in order; any failure exits non-zero:
    ``make_forward`` with the fused sampler kernel and once with the row
    gather kernel. The wrappers count their launches by shape: each request
    must make 126 (7 stages x 2 directions x 9 taps) at the four alignment
-   scales, which also shows that no call fell back to the four-corner
-   sampler. Then shapes and finite values, both outputs against the plain
+   scales: every sampler call went through a kernel. Then shapes and finite values, both outputs against the plain
    sampler's and an fp32 run (the same gate), the frames/s of the request
    with each sampler, a torch.profiler breakdown of the fused one by
    kernel, and its device time by module class (CUDA events around every
    forward of WindowAttention, MlpGEGLU, FlowGuidedDeformAlign and
    LayerNorm; SpyNet, the convs and the glue between them are the rest).
    Then the default TinyVRT (8 channels an offset group) on a 6-frame
-   64x64 request under the same launch-count and deviation gates, and a
-   96x96 clip through ``tiled_forward`` (four 64x64 tiles).
+   64x64 request under the same launch-count and deviation gates, a
+   96x96 clip through ``tiled_forward`` (four 64x64 tiles), and a TinyVRT
+   of 4 channels an offset group (8 x-positions a row) on a 32x32 request,
+   whose 8x8 stage is one x-group wide: its table is zero-padded to one
+   window and goes through the kernel like the rest (both kernel samplers
+   are also held against the four-corner one at that stage's shape).
 5. Each kernel at every input shape its path gave it: bf16 against
    the plain version (2e-2), then its time, the plain version's and one
    library call's (the residual pair: two bf16 channels_last ``F.conv2d``
    plus ReLU and the add; the row gather: one ``index_select`` of the
    flattened table; the fused sampler has none; timed only), with CUDA
    events, median of 20 samples after warm-up. Beside the fused sampler's
-   rows: the torch ops that build its table and fields, and the four-corner
-   sampler on the same images.
+   rows: the torch ops that build its table and fields, the four-corner
+   sampler and one ``F.grid_sample`` call on the same images (timed only).
 6. One JSON line ``{"kernels": [...]}``: per kernel its main-path launches
    and, summed over those launches (per-launch time at each shape times
    that shape's count), ``ms``, ``plain_ms``, ``library_ms`` and
@@ -94,7 +98,8 @@ PACKED_KERNELS = {
     "packed_bilinear": (f"{PROBE}:278", []),
 }
 # (images, H, W, channels a group, x-positions a row); the first is the probe's shape
-PACKED_CHECKS = ((180, 128, 128, 10, 2), (3, 9, 13, 5, 2))
+PACKED_CHECKS = ((180, 128, 128, 10, 2), (3, 9, 13, 5, 2), (24, 8, 8, 4, 8), (2, 1, 5, 3, 2),
+                 (2, 4, 1, 4, 8))
 VRT_CLIP = (1, 16, 256, 256, 3)
 VRT_SCALES = (1, 2, 4, 8, 4, 2, 1)
 VRT_GROUPS, VRT_CG, VRT_GP = 12, 10, 2
@@ -312,6 +317,7 @@ def time_packed_kernel(name, launches_by_shape, device):
     version and per-launch times. Returns the largest error and one row
     per shape."""
     import torch
+    import torch.nn.functional as F
 
     from vsrlab_tpu_torch.ops import packed_gather as pg
     from vsrlab_tpu_torch.ops.warp import packed_fields, packed_table, sample_pixel_coords
@@ -354,9 +360,16 @@ def time_packed_kernel(name, launches_by_shape, device):
                 lambda: packed_fields(ix, iy, h, w, VRT_GP, "zeros"), 3)
             row["four_corner_ms"] = cuda_ms(
                 lambda: sample_pixel_coords(x, ix, iy, padding_mode="zeros"), 3)
+            # the library's sampler on the same images and coordinates, in
+            # its own layout (NCHW, normalised grid); timed only
+            xc = x.permute(0, 3, 1, 2).contiguous()
+            grid = torch.stack([2 * ix / (w - 1) - 1, 2 * iy / (h - 1) - 1], -1).bfloat16()
+            row["grid_sample_ms"] = cuda_ms(
+                lambda: F.grid_sample(xc, grid, "bilinear", "zeros", align_corners=True), 3)
             log(f"  {'':17s} around it: table {row['table_ms']:.4f} ms, fields "
-                f"{row['fields_ms']:.4f} ms; four-corner sampler {row['four_corner_ms']:.4f} ms")
-            del x, ix, iy
+                f"{row['fields_ms']:.4f} ms; four-corner sampler {row['four_corner_ms']:.4f} ms; "
+                f"F.grid_sample {row['grid_sample_ms']:.4f} ms")
+            del x, ix, iy, xc, grid
         rows.append(row)
         del xf, fields
     return err, rows
@@ -426,7 +439,8 @@ def expected_vrt_launches(clip_shape, scales=VRT_SCALES, groups=VRT_GROUPS, cg=V
     want = collections.Counter()
     for s in scales:
         hs, ws = h // s, w // s
-        want[(b * (t - 1) * groups, (hs - 1) * (-(-ws // gp) - 1), 4 * gp * cg, hs * ws)] += 18
+        rows = (max(hs, 2) - 1) * (max(-(-ws // gp), 2) - 1)
+        want[(b * (t - 1) * groups, rows, 4 * gp * cg, hs * ws)] += 18
     return want
 
 
@@ -490,6 +504,7 @@ def tiny_vrt_phase(device, card) -> None:
     from vsrlab_tpu_torch.evaluation.tiled import tiled_forward
     from vsrlab_tpu_torch.nn.blocks import set_sampler_impl
     from vsrlab_tpu_torch.ops import packed_gather as pg
+    from vsrlab_tpu_torch.ops.warp import sample_pixel_coords
 
     shape = (1, 6, 64, 64, 3)
     model = build_vrt(torch.bfloat16, tiny=True)
@@ -531,6 +546,43 @@ def tiny_vrt_phase(device, card) -> None:
             or pg.packed_bilinear.launches != 4 * sum(want.values())):
         raise AssertionError("tiled_forward: wrong shape, non-finite or not 4 tiles")
 
+    # 4 channels an offset group: 8 x-positions a row, so the 8x8 stage is
+    # one x-group wide and its table is padded to one window
+    shape = (1, 4, 32, 32, 3)
+    kw = dict(tiny=True, window_size=(2, 4, 4), deformable_groups=8)
+    model = build_vrt(torch.bfloat16, **kw)
+    forward = make_forward(model, device)
+    clip = torch.rand(shape, generator=g)
+    pg.reset_launch_counts()
+    fused = forward(clip)
+    got = pg.packed_bilinear.launches_by_shape.copy()
+    want = expected_vrt_launches(shape, scales=(1, 2, 4, 2, 1), groups=8, cg=4, gp=8)
+    log(f"  TinyVRT, 4 channels a group, {shape}: packed_bilinear launches by "
+        f"(N, R, Wrow, P): {dict(got)}")
+    if got != want or (24, 7, 128, 64) not in got or pg.packed_row_gather.launches:
+        raise AssertionError(f"TinyVRT: launches {dict(got)} != expected {dict(want)}")
+    if tuple(fused.shape) != (1, 4, 128, 128, 3) or not bool(torch.isfinite(fused).all()):
+        raise AssertionError(f"TinyVRT: shape {tuple(fused.shape)} or non-finite")
+    # the request's gate hardly sees its smallest stage, so the sampler is
+    # also held against the four-corner one at that stage's shape
+    x = torch.randn((24, 8, 8, 4), generator=g).to(device, torch.bfloat16)
+    ix, iy = (torch.rand((2, 24, 8, 8), generator=g) * 11 - 2).to(device)
+    want = sample_pixel_coords(x, ix, iy, impl="plain").float()
+    for impl, wrapper in (("fused", pg.packed_bilinear), ("take", pg.packed_row_gather)):
+        before = wrapper.launches_by_shape[(24, 7, 128, 64)]
+        err = (sample_pixel_coords(x, ix, iy, impl=impl).float() - want).abs()
+        ok = bool((err <= TOL["bf16"] * (1 + want.abs())).all())
+        log(f"  {impl} sampler on 24 images of 8x8x4 (one padded window a row): "
+            f"max|{impl}-plain| = {float(err.max()):.3e} {'ok' if ok else 'FAIL'}")
+        if not ok or wrapper.launches_by_shape[(24, 7, 128, 64)] != before + 1:
+            raise AssertionError(f"{impl} sampler disagrees or launched no kernel at 8x8x4")
+    set_sampler_impl(model, "plain")
+    plain = forward(clip).float()
+    model32 = build_vrt(None, **kw)
+    model32.load_state_dict(model.state_dict())
+    set_sampler_impl(model32, "plain")
+    gate_samplers({"fused": fused}, plain, make_forward(model32, device)(clip).float())
+
 
 def vrt_phase(device, card):
     """Phase 4. Returns each packed-gather kernel's launches by shape."""
@@ -560,8 +612,8 @@ def vrt_phase(device, card):
             f"{float(out.max()):.3f}]")
         for name, by_shape in res["calls"][impl].items():
             log(f"  {impl} request, {name} launches by (N, R, Wrow, P): {dict(by_shape)}")
-            # all 126 sampler calls at their expected shapes: none took the
-            # four-corner fallback, and the other kernel was not launched
+            # all 126 sampler calls at their expected shapes, and the other
+            # kernel was not launched
             if by_shape != (want if name == kernel else {}):
                 raise AssertionError(f"{impl}: {name} launches {dict(by_shape)} != expected "
                                      f"{dict(want) if name == kernel else {}}")

@@ -110,15 +110,25 @@ def test_packed_kernels_match_plain(cuda, dtype, tol, shape):
                                rtol=tol, atol=tol)
 
 
+# (H, W, C, window_group): the last three hold no whole window (one x-group,
+# one row, one column) and sample a table padded to one
+@pytest.mark.parametrize("size", [(12, 18, 10, 2), (8, 8, 4, None), (1, 5, 3, 2), (4, 1, 4, None)])
 @pytest.mark.parametrize("impl", ["take", "fused"])
-def test_packed_sampler_matches_four_corner_on_the_card(cuda, impl):
+def test_packed_sampler_matches_four_corner_on_the_card(cuda, impl, size):
+    h, w, c, gp = size
     g = torch.Generator().manual_seed(1)
-    x = torch.randn((4, 12, 18, 10), generator=g).to(cuda)
-    ix = (torch.rand((4, 12, 18), generator=g) * 21 - 2).to(cuda)
-    iy = (torch.rand((4, 12, 18), generator=g) * 15 - 2).to(cuda)
-    want = warp.sample_pixel_coords(x, ix, iy, window_group=2, impl="plain")
-    got = warp.sample_pixel_coords(x, ix, iy, window_group=2, impl=impl)
-    torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
+    x = torch.randn((4, h, w, c), generator=g).to(cuda)
+    ix = (torch.rand((4, 12, 18), generator=g) * (w + 3) - 2).to(cuda)
+    iy = (torch.rand((4, 12, 18), generator=g) * (h + 3) - 2).to(cuda)
+    wrapper = pg.packed_bilinear if impl == "fused" else pg.packed_row_gather
+    before = wrapper.launches
+    for padding_mode in ("zeros", "border"):
+        want = warp.sample_pixel_coords(x, ix, iy, padding_mode=padding_mode, window_group=gp,
+                                        impl="plain")
+        got = warp.sample_pixel_coords(x, ix, iy, padding_mode=padding_mode, window_group=gp,
+                                       impl=impl)
+        torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
+    assert wrapper.launches == before + 2
 
 
 def test_packed_kernels_refuse_what_they_do_not_take(cuda):

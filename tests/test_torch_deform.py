@@ -41,11 +41,12 @@ def _t(*arrays):
 
 # (N, H, W, C, window_group): gp=2 rows as the alignment uses them, one with
 # a width that is no multiple of gp (padded table); the heuristic's gp (8
-# at C=3); a shape that cannot host a window (C=4: gp=8, one x-group),
-# where both packages fall back to the four-corner gather; and the
-# narrowest one that can (two x-groups after padding)
-SAMPLER_CASES = [(3, 9, 13, 5, 2), (2, 16, 16, 10, 2), (2, 7, 10, 3, None), (2, 8, 8, 4, None),
-                 (2, 6, 3, 10, 2)]
+# at C=3); the narrowest shape that holds a window (two x-groups after
+# padding); and shapes that hold none (C=4: gp=8, one x-group; one row; one
+# column; one pixel), which the JAX package gives to its four-corner gather
+# and the port to the same kernels over a table zero-padded to one window
+SAMPLER_CASES = [(3, 9, 13, 5, 2), (2, 16, 16, 10, 2), (2, 7, 10, 3, None), (2, 6, 3, 10, 2),
+                 (2, 8, 8, 4, None), (2, 1, 5, 3, 2), (2, 4, 1, 4, None), (1, 1, 1, 2, None)]
 
 
 @pytest.mark.parametrize("impl", IMPLS)
@@ -62,20 +63,29 @@ def test_sample_pixel_coords_matches_jax(rng, case, padding_mode, impl):
 
 
 def test_packed_sampler_takes_the_fallback_only_where_jax_does(rng, monkeypatch):
-    """The kernels' wrappers are reached exactly when the JAX sampler packs."""
+    """Only the JAX sampler has a four-corner fallback: the port reaches a
+    kernel wrapper at every shape, those included, with the same values."""
     calls = []
-    real = warp.packed_bilinear
-    monkeypatch.setattr(warp, "packed_bilinear",
-                        lambda *a: calls.append(a[0].shape) or real(*a))
-    for n, h, w, c, gp in SAMPLER_CASES:
+    real = {name: getattr(warp, name) for name in ("packed_bilinear", "packed_row_gather")}
+    for name, fn in real.items():
+        monkeypatch.setattr(warp, name,
+                            lambda *a, fn=fn, name=name: calls.append((name, tuple(a[0].shape)))
+                            or fn(*a))
+    tables = [(3, 48, 40), (2, 105, 80), (2, 6, 96), (2, 5, 80), (2, 7, 128), (2, 2, 24),
+              (2, 3, 128), (1, 1, 64)]
+    fell_back = []
+    for (n, h, w, c, gp), table in zip(SAMPLER_CASES, tables, strict=True):
         x = rng.standard_normal((n, h, w, c)).astype(np.float32)
         ix, iy = _coords(rng, n, 4, 5, h, w)
-        before = len(calls)
-        warp.sample_pixel_coords(*_t(x, ix, iy), window_group=gp, impl="fused")
-        packs = jwarp._bilinear_packed(jnp.asarray(x), jnp.asarray(ix), jnp.asarray(iy),
-                                       "zeros", gp) is not None
-        assert (len(calls) - before == 1) == packs, (n, h, w, c, gp)
-    assert [tuple(s) for s in calls] == [(3, 48, 40), (2, 105, 80), (2, 6, 96), (2, 5, 80)]
+        jx, jy = jnp.asarray(ix), jnp.asarray(iy)
+        fell_back.append(jwarp._bilinear_packed(jnp.asarray(x), jx, jy, "zeros", gp) is None)
+        want = np.asarray(jwarp.sample_pixel_coords(jnp.asarray(x), jx, jy, window_group=gp))
+        for impl, wrapper in (("fused", "packed_bilinear"), ("take", "packed_row_gather")):
+            del calls[:]
+            got = warp.sample_pixel_coords(*_t(x, ix, iy), window_group=gp, impl=impl)
+            assert calls == [(wrapper, table)], (n, h, w, c, gp)
+            np.testing.assert_allclose(got.numpy(), want, atol=ATOL, rtol=0)
+    assert fell_back == [False] * 4 + [True] * 4
 
 
 @pytest.mark.parametrize("padding_mode", ["zeros", "border", "reflection"])
@@ -164,7 +174,7 @@ def _deform_operands(rng, n, h, w, cin, cout, groups, spread):
 
 
 # (N, H, W, Cin, Cout, G): Cg = 10 and 8 take gp=2 rows (the packed branch);
-# Cg = 4 at 8x8 gives gp = 8, one x-group, so the four-corner fallback runs
+# Cg = 4 at 8x8 gives gp = 8, one x-group: the table is padded to one window
 DEFORM_CASES = [(2, 9, 12, 20, 6, 2), (1, 8, 8, 8, 8, 1), (2, 8, 8, 8, 5, 2)]
 
 

@@ -218,8 +218,9 @@ def _check_model(model, x, want, out_shape):
 
 def test_tiny_vrt_matches_jax(rng):
     """TinyVRT at tests/test_vrt.py's configuration: 4 channels a group,
-    so the 32x32 and 16x16 stages pack (gp = 8) and the 8x8 stage takes the
-    four-corner fallback."""
+    so the 32x32 and 16x16 stages pack (gp = 8) and the 8x8 stage, one
+    x-group wide, samples a table padded to one window (the JAX model takes
+    its four-corner gather there)."""
     kw = dict(upscale=4, window_size=(2, 4, 4), depths=(2,) * 7, embed_dims=(8,) * 7,
               num_heads=(2,) * 7, deformable_groups=2)
     model, x, want = _model_pair(jvrt.TinyVRT, vrt.TinyVRT, kw, (1, 4, 32, 32, 3), rng)

@@ -76,15 +76,16 @@ def _window_group(c: int, n_idx: int = 0, itemsize: int = 4) -> int:
 
 
 def packed_table(x: torch.Tensor, gp: int) -> torch.Tensor:
-    """The packed-window table of ``x`` ``(N, H, W, C)``: ``(N, (H-1)*(Wg-1),
-    4*gp*C)`` in ``x.dtype``, ``Wg = ceil(W/gp)``. Row ``(y, g)`` holds image
-    rows ``y, y+1`` x x-groups ``g, g+1`` as ``(2, 2gp, C)``; columns past
-    ``W`` are zero."""
+    """The packed-window table of ``x`` ``(N, H, W, C)``: ``(N, (Hp-1)*(Wg-1),
+    4*gp*C)`` in ``x.dtype``, ``Hp = max(H, 2)``, ``Wg = max(ceil(W/gp), 2)``.
+    Row ``(y, g)`` holds image rows ``y, y+1`` x x-groups ``g, g+1`` as
+    ``(2, 2gp, C)``; rows past ``H`` and columns past ``W`` are zero, so an
+    image too small for one window is padded up to one."""
     n, h, w, c = x.shape
-    wp = -(-w // gp) * gp
-    if wp != w:
-        x = F.pad(x, (0, 0, 0, wp - w))
-    xp = x.reshape(n, h, wp // gp, gp * c)
+    hp, wp = max(h, 2), max(-(-w // gp), 2) * gp
+    if (hp, wp) != (h, w):
+        x = F.pad(x, (0, 0, 0, wp - w, 0, hp - h))
+    xp = x.reshape(n, hp, wp // gp, gp * c)
     xp2 = torch.cat([xp[:, :, :-1], xp[:, :, 1:]], -1)
     xp4 = torch.cat([xp2[:, :-1], xp2[:, 1:]], -1)
     return xp4.reshape(n, -1, 4 * gp * c)
@@ -97,9 +98,10 @@ def packed_fields(ix, iy, h: int, w: int, gp: int, padding_mode: str):
     slot of the first corner inside its window (int32), the weights are
     per axis (fp32). In ``zeros`` mode an axis weight is zero where its
     corner lies outside the image: the valid region is a box, so per-axis
-    masks equal per-corner masks."""
+    masks equal per-corner masks. The table's zero padding (see
+    :func:`packed_table`) is only ever addressed with zero weight."""
     n = ix.shape[0]
-    wg = -(-w // gp)
+    wg = max(-(-w // gp), 2)
     x0f, y0f = torch.floor(ix), torch.floor(iy)
     wx1, wy1 = ix - x0f, iy - y0f
     wx0, wy0 = 1.0 - wx1, 1.0 - wy1
@@ -113,21 +115,21 @@ def packed_fields(ix, iy, h: int, w: int, gp: int, padding_mode: str):
     # slots carries exactly zero weight
     x0c = x0f.clamp(-1.0, w).int()
     y0c = y0f.clamp(-1.0, h).int()
-    y0i = y0c.clamp(0, h - 2)
-    g0 = torch.clamp(torch.div(x0c.clamp(0, w - 2), gp, rounding_mode="floor"), max=wg - 2)
+    y0i = y0c.clamp(0, max(h - 2, 0))
+    g0 = torch.clamp(torch.div(x0c.clamp(0, max(w - 2, 0)), gp, rounding_mode="floor"),
+                     max=wg - 2)
     fields = (y0i * (wg - 1) + g0, x0c - g0 * gp, y0c - y0i, wx0, wx1, wy0, wy1)
     return tuple(f.reshape(n, -1).contiguous() for f in fields)
 
 
 def _bilinear_packed(x, ix, iy, padding_mode: str, window_group: int | None, impl: str):
     """Bilinear sampling through the packed-window table and the kernels
-    of :mod:`~vsrlab_tpu_torch.ops.packed_gather`, in ``x.dtype``; ``None``
-    when the shape cannot host a 2-row, 2-group window (the caller falls
-    back to the four-corner gather, as the JAX package does)."""
+    of :mod:`~vsrlab_tpu_torch.ops.packed_gather`, in ``x.dtype``. Every
+    shape goes through the kernels: where the JAX package gives an image
+    of fewer than 2 rows or 2 x-groups to its four-corner gather, the
+    table here is zero-padded to one window instead."""
     n, h, w, c = x.shape
     gp = window_group or _window_group(c, ix.numel(), x.element_size())
-    if h < 2 or -(-w // gp) < 2:
-        return None
     xf = packed_table(x, gp)
     fields = packed_fields(ix, iy, h, w, gp, padding_mode)
     if impl == "fused":
@@ -153,16 +155,17 @@ def sample_pixel_coords(
     ``impl`` picks the bilinear formulation: ``"plain"`` / ``None`` the
     four-corner gather, ``"take"`` / ``"fused"`` the packed-window sampler
     with ``window_group`` x-positions a table row (``None``: the
-    heuristic), forward-only.
+    heuristic), forward-only, at every image size. ``"fused"`` is the one
+    to serve with; ``"take"`` is kept as the counterpart of the
+    formulation the JAX package ships (row gather kernel, weights and fold
+    in torch) and is slower than either of the others.
     """
     n, h, w, c = x.shape
     if impl not in (None, *SAMPLER_IMPLS):
         raise ValueError(f"unknown sampler formulation: {impl}")
     ix, iy = _pad_coords(ix.float(), iy.float(), h, w, padding_mode, align_corners)
     if mode == "bilinear" and impl in ("take", "fused"):
-        out = _bilinear_packed(x.contiguous(), ix, iy, padding_mode, window_group, impl)
-        if out is not None:
-            return out
+        return _bilinear_packed(x.contiguous(), ix, iy, padding_mode, window_group, impl)
     x_flat = x.reshape(n, h * w, c).float()
 
     def corner(idx_y, idx_x, weight):
