@@ -12,7 +12,10 @@ Phases, in order; any failure exits non-zero:
    at 2e-2 (``|a-b| <= tol + tol*|b|``): both residual-pair kernels
    (``taps``, ``im2col``) against ``residual_conv_pair_plain`` at
    ``(1,180,320,64)`` (a recurrence step), ``(10,180,320,64)`` (the
-   cleaner) and a ragged ``(2,13,21,64)``; both packed-gather kernels
+   cleaner), a ragged ``(2,13,21,64)`` and, in bf16, shapes that cross the
+   persistent kernels' tilings (one tile exactly, one pixel more, three
+   ragged frames that make three rounds of tiles), each launched three
+   times with bitwise-equal results; both packed-gather kernels
    (``packed_row_gather``, ``packed_bilinear``) against their plain
    versions at the alignment shape (180 images of 128x128x10, two
    x-positions a row: table ``(180, 8001, 80)``, 16384 pixels an image)
@@ -30,7 +33,8 @@ Phases, in order; any failure exits non-zero:
    window's kernel output against the plain version's and an fp32 run
    (``rest`` with the state ``first`` returned; gate: twice the plain bf16
    run's deviation from fp32), the frames/s of a 10-frame and a 20-frame
-   request, and a torch.profiler breakdown of the 10-frame one.
+   request, and a torch.profiler breakdown of the 10-frame one (device ms
+   of the request and of the pair kernels inside it, beside its frames/s).
 4. The VRT path: VRT 4x at the paper configuration (13 depths, 120 x 7 +
    180 x 6 channels, 6 heads, 12 offset groups, window (6, 8, 8), bf16),
    weights from the same kind of generator with the zero-initialised offset
@@ -57,7 +61,11 @@ Phases, in order; any failure exits non-zero:
    library call's (the residual pair: two bf16 channels_last ``F.conv2d``
    plus ReLU and the add; the row gather: one ``index_select`` of the
    flattened table; the fused sampler has none; timed only), with CUDA
-   events, median of 20 samples after warm-up. Beside the fused sampler's
+   events, median of 20 samples after warm-up. The residual pair's three
+   times are device times: 20 calls captured in a CUDA graph and replayed
+   (a launch from Python takes longer than the kernel runs at batch 1),
+   with the time of the same calls made one by one beside them, each
+   kernel's share of its bound and its tile plan. Beside the fused sampler's
    rows: the torch ops that build its table and fields, the four-corner
    sampler and one ``F.grid_sample`` call on the same images (timed only).
 6. One JSON line ``{"kernels": [...]}``: per kernel its main-path launches
@@ -78,6 +86,10 @@ import sys
 import time
 
 CHECK_SHAPES = ((1, 180, 320, 64), (10, 180, 320, 64), (2, 13, 21, 64))
+# bf16 only: one tile of each tiling exactly, one pixel more in H and W, and
+# three ragged frames that make three rounds of the taps kernel's deep tiles
+EDGE_SHAPES = ((1, 15, 30, 64), (1, 16, 31, 64), (1, 7, 30, 64), (1, 8, 16, 64), (1, 9, 17, 64),
+               (3, 121, 151, 64))
 TOL = {"fp32": 1e-4, "bf16": 2e-2}
 # residual pairs per forward of one 10-frame window: 2 directions x 10
 # steps x 30 blocks, and 3 cleaning steps x 20 blocks
@@ -149,6 +161,36 @@ def cuda_ms(fn, reps: int, samples: int = 20, warmup: int = 3) -> float:
     return statistics.median(times)
 
 
+def graph_ms(fn, calls: int = 20, samples: int = 20) -> float:
+    """Median device ms of one ``fn()``: ``calls`` of them captured in a CUDA
+    graph, the graph replayed ``samples`` times between events. Unlike
+    :func:`cuda_ms` it holds no time of the Python that launches."""
+    import torch
+
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):  # warm-up off the default stream, as capture needs
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(stream)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(calls):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(samples):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        graph.replay()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / calls)
+    return statistics.median(times)
+
+
 def bound(shape) -> tuple[float, str]:
     """Least time (ms) for one bf16 pair: FLOPs over peak vs bytes over HBM rate."""
     b, h, w, c = shape
@@ -158,20 +200,25 @@ def bound(shape) -> tuple[float, str]:
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
-def check_pair(fn, ops, tol, label) -> float:
-    """max |fn - plain| on ``ops``; raises beyond ``tol + tol*|plain|``."""
+def check_pair(fn, ops, tol, label, repeats: int = 1) -> float:
+    """max |fn - plain| on ``ops``; raises beyond ``tol + tol*|plain|``, and
+    when one of ``repeats`` launches differs from the first in any bit."""
     import torch
 
     from vsrlab_tpu_torch.ops.residual_pair import residual_conv_pair_plain
 
-    got, want = fn(*ops).float(), residual_conv_pair_plain(*ops).float()
+    first = fn(*ops)
+    same = all(torch.equal(fn(*ops), first) for _ in range(repeats - 1))
+    got, want = first.float(), residual_conv_pair_plain(*ops).float()
     err = (got - want).abs()
     ok = bool(torch.isfinite(got).all()) and bool((err <= tol + tol * want.abs()).all())
     e = float(err.max())
     log(f"  {label}: max|kernel-plain| = {e:.3e} (tol {tol} + {tol}*|plain|) "
-        f"{'ok' if ok else 'FAIL'}")
-    if not ok:
-        raise AssertionError(f"{label} disagrees with the plain version")
+        f"{'ok' if ok else 'FAIL'}"
+        + (f", {repeats} launches bitwise {'equal' if same else 'DIFFERENT'}"
+           if repeats > 1 else ""))
+    if not ok or not same:
+        raise AssertionError(f"{label} disagrees with the plain version or with itself")
     return e
 
 
@@ -185,23 +232,28 @@ def check_kernels(device):
     for form in KERNELS:
         errs[form] = {}
         for dname, dtype in (("fp32", torch.float32), ("bf16", torch.bfloat16)):
+            shapes = CHECK_SHAPES + (EDGE_SHAPES if dname == "bf16" else ())
             errs[form][dname] = max(
                 check_pair(PAIR_IMPLS[form], pair_operands(shape, dtype, i, device),
-                           TOL[dname], f"{form:6s} {dname} {shape}")
-                for i, shape in enumerate(CHECK_SHAPES))
+                           TOL[dname], f"{form:6s} {dname} {shape}",
+                           repeats=3 if dname == "bf16" else 1)
+                for i, shape in enumerate(shapes))
     return errs
 
 
 def time_kernel(form, launches_by_shape, device):
-    """Phase 4 for one kernel: at each shape the main path gave it, a bf16
-    check against the plain version and per-launch times. Returns the
-    largest error and one row per shape."""
+    """Phase 5 for one kernel: at each shape the main path gave it, a bf16
+    check against the plain version and per-launch device times (graph
+    replay), the time of eager calls from Python beside the kernel's.
+    Returns the largest error and one row per shape."""
     import torch
     import torch.nn.functional as F
 
-    from vsrlab_tpu_torch.ops.residual_pair import PAIR_IMPLS, residual_conv_pair_plain
+    from vsrlab_tpu_torch.ops.residual_pair import (
+        PAIR_IMPLS, pair_tile_plan, residual_conv_pair_plain)
 
     fn, err, rows = PAIR_IMPLS[form], 0.0, []
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
     for shape, n in sorted(launches_by_shape.items()):
         x, w1, b1, w2, b2 = ops = pair_operands(shape, torch.bfloat16, 7, device)
         err = max(err, check_pair(fn, ops, TOL["bf16"], f"{form:6s} bf16 {shape}"))
@@ -216,19 +268,27 @@ def time_kernel(form, launches_by_shape, device):
 
         reps = 10 if shape[0] < 10 else 3
         b_ms, b_by = bound(shape)
+        plan = pair_tile_plan(shape, form, sms)
         row = {
             "shape": list(shape),
             "launches": n,
-            "ms": cuda_ms(lambda: fn(*ops), reps),
-            "plain_ms": cuda_ms(lambda: residual_conv_pair_plain(*ops), reps),
-            "library_ms": cuda_ms(library, reps),
+            "ms": graph_ms(lambda: fn(*ops)),
+            "plain_ms": graph_ms(lambda: residual_conv_pair_plain(*ops)),
+            "library_ms": graph_ms(library),
             "bound_ms": b_ms,
             "bound_by": b_by,
+            "eager_ms": cuda_ms(lambda: fn(*ops), reps),
+            "library_eager_ms": cuda_ms(library, reps),
+            "tile": plan["tile"], "tiles": plan["tiles"], "rounds": plan["rounds"],
         }
+        row["share_of_bound"] = b_ms / row["ms"]
         rows.append(row)
-        log(f"  {form:6s} bf16 {shape} x{n}: kernel {row['ms']:.4f} ms, plain "
-            f"{row['plain_ms']:.4f} ms, library {row['library_ms']:.4f} ms, "
-            f"bound {b_ms:.4f} ms ({b_by})")
+        log(f"  {form:6s} bf16 {shape} x{n}: kernel {row['ms']:.4f} ms "
+            f"({100 * row['share_of_bound']:.1f} % of its bound, {b_ms:.4f} ms by {b_by}; "
+            f"{plan['tiles']} {plan['tile']} tiles, {plan['rounds']} rounds), plain "
+            f"{row['plain_ms']:.4f} ms, library {row['library_ms']:.4f} ms; called one by one "
+            f"from Python: kernel {row['eager_ms']:.4f} ms, library "
+            f"{row['library_eager_ms']:.4f} ms")
     return err, rows
 
 
@@ -850,8 +910,12 @@ def realbasicvsr_phase(device, card):
         f"20-frame clip as 2 windows {fps['windowed20']:.2f} (median of 5, host clock, "
         "input upload included)")
     log(json.dumps({"fps": fps, "card": card}))
-    log(json.dumps({"profile_clip10": profile_request(requests["clip10"][1],
-                                                      10 / fps["clip10"])}))
+    prof = profile_request(requests["clip10"][1], 10 / fps["clip10"])
+    if "own_kernels_ms" in prof:
+        log(f"  clip10: {fps['clip10']:.2f} frames/s is {prof['wall_ms']:.2f} ms a request on the "
+            f"host's clock; on the device {prof['device_ms']:.2f} ms, of which the residual "
+            f"pair's kernels {prof['own_kernels_ms']:.2f} ms (torch.profiler, one request)")
+    log(json.dumps({"profile_clip10": prof}))
     return res["launches_by_shape"]
 
 

@@ -15,6 +15,8 @@ torch = pytest.importorskip("torch")
 from vsrlab_tpu_torch.ops import packed_gather as pg  # noqa: E402
 from vsrlab_tpu_torch.ops import warp  # noqa: E402
 from vsrlab_tpu_torch.ops.residual_pair import (  # noqa: E402
+    PAIR_TILES,
+    pair_tile_plan,
     residual_conv_pair,
     residual_conv_pair_im2col,
     residual_conv_pair_plain,
@@ -76,6 +78,59 @@ def test_kernel_refuses_what_it_does_not_take(cuda, wrapper):
     with pytest.raises(ValueError, match="C=64"):
         wrapper(x8, w8, b8, w8, b8)
     assert wrapper.launches == before
+
+
+def _edge_shapes():
+    """Shapes that cross the bf16 kernels' tilings: for each tile, exactly
+    one; one pixel more in H and in W; fewer tiles than SMs; more than two
+    rounds of tiles on a 132-SM card; three ragged frames, small and large."""
+    shapes = []
+    for th, tw in PAIR_TILES.values():
+        shapes += [(1, th, tw, 64), (1, th + 1, tw + 1, 64), (1, 3 * th, 2 * tw, 64)]
+    # the last two make more wide tiles than a card has SMs: the deep tile, ragged
+    return sorted(set(shapes)) + [(3, 23, 37, 64), (2, 150, 256, 64), (3, 121, 151, 64)]
+
+
+@pytest.mark.parametrize("wrapper,formulation", [(residual_conv_pair, "taps"),
+                                                 (residual_conv_pair_im2col, "im2col")])
+@pytest.mark.parametrize("shape", _edge_shapes())
+def test_bf16_kernel_at_tile_edges_is_right_and_repeats_bitwise(cuda, wrapper, formulation, shape):
+    x, w1, b1, w2, b2 = _operands(shape, torch.bfloat16, cuda, seed=5)
+    # large values on the image's border: a wrong halo, a missed zero of the
+    # padding or a stale slot of the staged intermediate shows
+    x[:, 0], x[:, -1], x[:, :, 0], x[:, :, -1] = 8.0, -8.0, 6.0, -6.0
+    ops = (x, w1, b1, w2, b2)
+    want = residual_conv_pair_plain(*ops).float()
+    runs = [wrapper(*ops) for _ in range(3)]
+    torch.cuda.synchronize()
+    assert torch.equal(runs[0], runs[1]) and torch.equal(runs[0], runs[2])
+    torch.testing.assert_close(runs[0].float(), want, rtol=2e-2, atol=2e-2)
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    plan = pair_tile_plan(shape, formulation, sms)
+    assert plan["ctas"] <= sms and plan["rounds"] * plan["ctas"] >= plan["tiles"]
+
+
+@pytest.mark.parametrize("formulation", ["taps", "im2col"])
+def test_edge_shapes_cover_the_tiling_cases(cuda, formulation):
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    plans = [pair_tile_plan(s, formulation, sms) for s in _edge_shapes()]
+    assert any(p["tiles"] == 1 for p in plans)
+    assert any(1 < p["tiles"] < sms for p in plans)
+    assert any(p["rounds"] > 2 for p in plans)
+    if formulation == "taps":
+        assert {p["tile"] for p in plans} == {"taps_wide", "taps_deep"}
+
+
+def test_taps_kernel_follows_a_weight_written_in_place(cuda):
+    """The kernel's own weight order is laid out once for each weight
+    tensor: a write to the tensor must reach the next launch."""
+    ops = list(_operands((1, 20, 40, 64), torch.bfloat16, cuda, seed=6))
+    residual_conv_pair(*ops)
+    ops[1].mul_(-1.5)
+    ops[3].add_(0.01)
+    got = residual_conv_pair(*ops)
+    torch.testing.assert_close(got.float(), residual_conv_pair_plain(*ops).float(),
+                               rtol=2e-2, atol=2e-2)
 
 
 def _packed_operands(n, h, w, c, gp, dtype, device, seed=0):

@@ -20,6 +20,10 @@ from vsrlab_tpu.ops.pallas_conv import (  # noqa: E402
     residual_conv_pair_xla,
 )
 from vsrlab_tpu_torch.ops.residual_pair import (  # noqa: E402
+    PAIR_TILES,
+    _packed,
+    pack_weight_fragments,
+    pair_tile_plan,
     reset_launch_counts,
     residual_conv_pair,
     residual_conv_pair_im2col,
@@ -119,3 +123,75 @@ def test_wrapper_refuses_bad_shapes(rng, bad):
         x = x[0]
     with pytest.raises(ValueError):
         residual_conv_pair(x, w1, b1, w2, b2)
+
+
+def test_pack_weight_fragments_matches_the_hwio_original(rng):
+    """Every register of every lane, against its definition from the HWIO
+    weights: the pair (ci, ci + 1) of one output channel, low half first."""
+    w = torch.from_numpy(rng.standard_normal((3, 3, 64, 64)).astype(np.float32)).bfloat16()
+    packed = pack_weight_fragments(w)
+    assert packed.shape == (36, 4, 32, 4) and packed.dtype == torch.int32
+    assert packed.is_contiguous()
+    bits = w.reshape(9, 64, 64).view(torch.int16).numpy().astype(np.int64) & 0xFFFF
+    got = packed.numpy().astype(np.int64) & 0xFFFFFFFF
+    for step in range(36):
+        tap, kc = divmod(step, 4)
+        for wq in range(4):
+            for lane in range(32):
+                g, t = divmod(lane, 4)
+                for r in range(4):
+                    co = 16 * wq + g + 8 * (r & 1)
+                    ci = 16 * kc + 2 * t + 8 * (r >> 1)
+                    want = bits[tap, ci, co] | (bits[tap, ci + 1, co] << 16)
+                    assert got[step, wq, lane, r] == want, (step, wq, lane, r)
+
+
+def test_pack_weight_fragments_refuses_other_weights():
+    with pytest.raises(ValueError):
+        pack_weight_fragments(torch.zeros((3, 3, 64, 64)))            # not bf16
+    with pytest.raises(ValueError):
+        pack_weight_fragments(torch.zeros((3, 3, 8, 8)).bfloat16())   # not C = 64
+
+
+def test_packed_weights_are_laid_out_once_and_again_after_a_write(rng):
+    w = torch.from_numpy(rng.standard_normal((3, 3, 64, 64)).astype(np.float32)).bfloat16()
+    first = _packed(w)
+    assert _packed(w) is first
+    w.mul_(2)
+    again = _packed(w)
+    assert again is not first
+    torch.testing.assert_close(again, pack_weight_fragments(w), rtol=0, atol=0)
+    other = w.clone()
+    assert _packed(other) is not again
+    with torch.inference_mode():  # no version counter there: laid out once
+        frozen = w * 1
+        assert _packed(frozen) is _packed(frozen)
+        torch.testing.assert_close(_packed(frozen), pack_weight_fragments(frozen), rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("formulation", ["taps", "im2col"])
+@pytest.mark.parametrize("shape", [(1, 180, 320, 64), (2, 180, 320, 64), (10, 180, 320, 64),
+                                   (2, 13, 21, 64), (1, 1, 1, 64), (3, 31, 61, 64)])
+def test_pair_tile_plan_matches_a_brute_force_count(formulation, shape):
+    sms = 132
+    plan = pair_tile_plan(shape, formulation, sms)
+    th, tw = plan["size"]
+    assert PAIR_TILES[plan["tile"]] == (th, tw)
+    b, h, w, _ = shape
+    # every pixel of every frame lies in exactly one tile
+    tiles = {(n, r // th, c // tw) for n in range(b) for r in range(h) for c in range(w)}
+    assert plan["tiles"] == len(tiles)
+    assert plan["ctas"] == min(len(tiles), sms)
+    # CTA i takes tiles i, i + ctas, ...
+    rounds = max(len(range(i, len(tiles), plan["ctas"])) for i in range(plan["ctas"]))
+    assert plan["rounds"] == rounds
+    if formulation == "taps":
+        wide = b * -(-h // 15) * -(-w // 30)
+        assert plan["tile"] == ("taps_wide" if wide <= sms else "taps_deep")
+        if plan["tile"] == "taps_wide":
+            assert plan["rounds"] == 1
+
+
+def test_pair_tile_plan_refuses_the_plain_formulation():
+    with pytest.raises(ValueError):
+        pair_tile_plan((1, 8, 8, 64), "plain", 132)

@@ -24,6 +24,12 @@ on an input that requires grad. Each wrapper counts its kernel launches
 in its ``launches`` attribute, and by input shape in ``launches_by_shape``
 (a ``Counter`` of ``(B, H, W, C)``); :func:`reset_launch_counts` zeroes
 both.
+
+The bf16 kernels run a persistent grid, one CTA a streaming multiprocessor
+at most, each walking over image tiles; :func:`pair_tile_plan` says which
+tile a launch gets and how many rounds it makes. The ``taps`` kernel keeps
+the weights in registers and takes them in its own order
+(:func:`pack_weight_fragments`, laid out once for each weight tensor).
 """
 
 from __future__ import annotations
@@ -31,6 +37,7 @@ from __future__ import annotations
 import collections
 import ctypes
 import functools
+import weakref
 
 import torch
 import torch.nn.functional as F
@@ -97,6 +104,72 @@ def _check(x, w1, b1, w2, b2):
         raise ValueError("residual_conv_pair: empty input")
 
 
+# Output tile (rows, columns) of each bf16 kernel, as csrc/residual_pair.cu
+# has them: ``taps`` takes the wide tile where that gives every CTA one tile
+# at most, else the deep one; ``im2col`` has one.
+PAIR_TILES = {"taps_wide": (15, 30), "taps_deep": (7, 30), "im2col": (8, 16)}
+
+
+def pair_tile_plan(shape, formulation: str, sms: int) -> dict:
+    """How a bf16 launch of ``formulation`` on ``(B, H, W, C)`` is cut up on
+    a device of ``sms`` multiprocessors: the tile's name and size, the
+    number of tiles and CTAs, and the rounds the busiest CTA makes."""
+    b, h, w, _ = shape
+
+    def count(tile):
+        return b * -(-h // tile[0]) * -(-w // tile[1])
+
+    if formulation == "im2col":
+        name = "im2col"
+    elif formulation == "taps":
+        name = "taps_wide" if count(PAIR_TILES["taps_wide"]) <= sms else "taps_deep"
+    else:
+        raise ValueError(f"no kernel for formulation {formulation!r}")
+    tiles = count(PAIR_TILES[name])
+    ctas = min(tiles, sms)
+    return {"tile": name, "size": PAIR_TILES[name], "tiles": tiles, "ctas": ctas,
+            "rounds": -(-tiles // ctas)}
+
+
+def pack_weight_fragments(w):
+    """HWIO bf16 weights ``(3, 3, 64, 64)`` in the order the ``taps`` kernel
+    loads them: int32 ``(36, 4, 32, 4)``.
+
+    The kernel computes each tap transposed, ``W_tap^T`` (output channel x
+    input channel) times the pixels, and keeps ``W_tap^T`` in registers as
+    the tensor cores' A operand, 16 input channels (one ``step = tap*4 +
+    kc``) at a time. Element ``[step, wq, 4*g + t, r]`` is what register
+    ``r`` of lane ``4*g + t`` of warp ``wq`` holds at that step: the pair
+    ``w[tap, ci, co], w[tap, ci + 1, co]`` (low half first) with
+    ``co = 16*wq + g + 8*(r & 1)`` and ``ci = 16*kc + 2*t + 8*(r >> 1)``.
+    """
+    if tuple(w.shape) != (3, 3, C, C) or w.dtype != torch.bfloat16:
+        raise ValueError(f"expected bf16 (3, 3, {C}, {C}) weights, got {w.dtype} {tuple(w.shape)}")
+    # ci = 16*kc + 8*r1 + 2*t + e, co = 16*wq + 8*r0 + g, r = 2*r1 + r0
+    v = w.reshape(9, 4, 2, 4, 2, 4, 2, 8)  # tap, kc, r1, t, e, wq, r0, g
+    v = v.permute(0, 1, 5, 7, 3, 2, 6, 4).contiguous()  # tap, kc, wq, g, t, r1, r0, e
+    return v.view(torch.int32).reshape(36, 4, 32, 4)
+
+
+_packed_cache: dict = {}
+
+
+def _packed(w):
+    """:func:`pack_weight_fragments` of ``w``, laid out once for each weight
+    tensor and again when it has been written to since. A tensor made in
+    inference mode carries no version counter: it is laid out once (the
+    modules of this package make new operand tensors when a parameter
+    changes, and never write to one)."""
+    key = id(w)
+    version = None if w.is_inference() else w._version
+    hit = _packed_cache.get(key)
+    if hit is not None and hit[0]() is w and hit[1] == version:
+        return hit[2]
+    packed = pack_weight_fragments(w)
+    _packed_cache[key] = (weakref.ref(w, lambda _: _packed_cache.pop(key, None)), version, packed)
+    return packed
+
+
 @functools.cache
 def _lib() -> ctypes.CDLL:
     """The kernel library (built at first use), its signatures declared."""
@@ -117,6 +190,8 @@ def _launch(formulation, x, w1, b1, w2, b2):
     out = torch.empty_like(x)
     b, h, w, _ = x.shape
     stream = torch.cuda.current_stream(x.device).cuda_stream
+    if (formulation, x.dtype) == ("taps", torch.bfloat16):
+        w1, w2 = _packed(w1), _packed(w2)  # the kernel's register order
     rc = getattr(lib, _FUNCS[(formulation, x.dtype)])(
         x.data_ptr(), w1.data_ptr(), b1.data_ptr(), w2.data_ptr(),
         b2.data_ptr(), out.data_ptr(), b, h, w, x.device.index, stream,
