@@ -2,6 +2,8 @@
 """Smoke run of vsrlab_tpu_torch (the PyTorch / CUDA port) on one NVIDIA GPU.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --pair-times [TREE]   # only the residual pair's device
+                                                # times, for the package in TREE
 
 Phases, in order; any failure exits non-zero:
 
@@ -65,7 +67,9 @@ Phases, in order; any failure exits non-zero:
    times are device times: 20 calls captured in a CUDA graph and replayed
    (a launch from Python takes longer than the kernel runs at batch 1),
    with the time of the same calls made one by one beside them, each
-   kernel's share of its bound and its tile plan. Beside the fused sampler's
+   kernel's share of its bound and the tiling the library gives the launch.
+   Then the host's time for one batch-1 launch, split: the library's two
+   entries, the checks, the wrappers, the module's call. Beside the fused sampler's
    rows: the torch ops that build its table and fields, the four-corner
    sampler and one ``F.grid_sample`` call on the same images (timed only).
 6. One JSON line ``{"kernels": [...]}``: per kernel its main-path launches
@@ -79,7 +83,9 @@ Phases, in order; any failure exits non-zero:
 from __future__ import annotations
 
 import concurrent.futures
+import functools
 import json
+import os
 import statistics
 import subprocess
 import sys
@@ -250,13 +256,17 @@ def time_kernel(form, launches_by_shape, device):
     import torch.nn.functional as F
 
     from vsrlab_tpu_torch.ops.residual_pair import (
-        PAIR_IMPLS, pair_tile_plan, residual_conv_pair_plain)
+        PAIR_IMPLS, pack_weight_fragments, pair_launch_plan, residual_conv_pair_plain)
 
-    fn, err, rows = PAIR_IMPLS[form], 0.0, []
-    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    err, rows = 0.0, []
     for shape, n in sorted(launches_by_shape.items()):
         x, w1, b1, w2, b2 = ops = pair_operands(shape, torch.bfloat16, 7, device)
-        err = max(err, check_pair(fn, ops, TOL["bf16"], f"{form:6s} bf16 {shape}"))
+        err = max(err, check_pair(PAIR_IMPLS[form], ops, TOL["bf16"], f"{form:6s} bf16 {shape}"))
+        if form == "taps":  # timed as the model calls it: the weights' kernel order laid out once
+            fragments = pack_weight_fragments(w1), pack_weight_fragments(w2)
+            fn = functools.partial(PAIR_IMPLS[form], *ops, fragments=fragments)
+        else:
+            fn = functools.partial(PAIR_IMPLS[form], *ops)
         xc = x.permute(0, 3, 1, 2)  # channels_last NCHW view
         wc1, wc2 = (w.permute(3, 2, 0, 1).contiguous(memory_format=torch.channels_last)
                     for w in (w1, w2))
@@ -268,28 +278,113 @@ def time_kernel(form, launches_by_shape, device):
 
         reps = 10 if shape[0] < 10 else 3
         b_ms, b_by = bound(shape)
-        plan = pair_tile_plan(shape, form, sms)
         row = {
             "shape": list(shape),
             "launches": n,
-            "ms": graph_ms(lambda: fn(*ops)),
+            "ms": graph_ms(fn),
             "plain_ms": graph_ms(lambda: residual_conv_pair_plain(*ops)),
             "library_ms": graph_ms(library),
             "bound_ms": b_ms,
             "bound_by": b_by,
-            "eager_ms": cuda_ms(lambda: fn(*ops), reps),
+            "eager_ms": cuda_ms(fn, reps),
             "library_eager_ms": cuda_ms(library, reps),
-            "tile": plan["tile"], "tiles": plan["tiles"], "rounds": plan["rounds"],
         }
         row["share_of_bound"] = b_ms / row["ms"]
         rows.append(row)
+        plan = pair_launch_plan(form, shape, device)  # the library's own account, not measured
         log(f"  {form:6s} bf16 {shape} x{n}: kernel {row['ms']:.4f} ms "
             f"({100 * row['share_of_bound']:.1f} % of its bound, {b_ms:.4f} ms by {b_by}; "
-            f"{plan['tiles']} {plan['tile']} tiles, {plan['rounds']} rounds), plain "
-            f"{row['plain_ms']:.4f} ms, library {row['library_ms']:.4f} ms; called one by one "
-            f"from Python: kernel {row['eager_ms']:.4f} ms, library "
+            f"{plan['tiles']} tiles of {plan['tile'][0]}x{plan['tile'][1]}, {plan['rounds']} "
+            f"rounds), plain {row['plain_ms']:.4f} ms, library {row['library_ms']:.4f} ms; called "
+            f"one by one from Python: kernel {row['eager_ms']:.4f} ms, library "
             f"{row['library_eager_ms']:.4f} ms")
     return err, rows
+
+
+def host_us(fn, calls: int = 300) -> float:
+    """Host microseconds one ``fn()`` takes to return (it waits for nothing
+    on the device), median of 5 runs of ``calls``."""
+    import torch
+
+    times = []
+    for _ in range(5):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            fn()
+        times.append((time.perf_counter() - t0) / calls * 1e6)
+        torch.cuda.synchronize()
+    return statistics.median(times)
+
+
+def pair_host_split(device) -> dict:
+    """Phase 5: where the host's time for one batch-1 bf16 pair launch goes.
+    The two entries of the library differ on the host by the two tensor
+    maps that ``taps`` encodes a launch; the module's call adds its cache
+    look-up, the bare wrapper's the layout of the weights."""
+    import torch
+
+    from vsrlab_tpu_torch.nn.blocks import ResidualConv
+    from vsrlab_tpu_torch.ops import residual_pair as rp
+
+    shape = (1, 180, 320, 64)
+    x, w1, b1, w2, b2 = ops = pair_operands(shape, torch.bfloat16, 7, device)
+    fragments = rp.pack_weight_fragments(w1), rp.pack_weight_fragments(w2)
+    out, lib = torch.empty_like(x), rp._lib()
+    stream = torch.cuda.current_stream(device).cuda_stream
+
+    def entry(form, wa, wb):
+        fn = getattr(lib, rp._FUNCS[(form, torch.bfloat16)])
+        args = (x.data_ptr(), wa.data_ptr(), b1.data_ptr(), wb.data_ptr(), b2.data_ptr(),
+                out.data_ptr(), *shape[:3], x.device.index or 0, stream)
+        return lambda: fn(*args)
+
+    unit = ResidualConv(64, dtype=torch.bfloat16).to(device)
+    with torch.inference_mode():
+        split = {
+            "entry_taps": host_us(entry("taps", *fragments)),
+            "entry_im2col": host_us(entry("im2col", w1, w2)),
+            "checks": host_us(lambda: rp._check(*ops)),
+            "wrapper_taps": host_us(lambda: rp.residual_conv_pair(*ops, fragments=fragments)),
+            "wrapper_taps_laying_out": host_us(lambda: rp.residual_conv_pair(*ops)),
+            "wrapper_im2col": host_us(lambda: rp.residual_conv_pair_im2col(*ops)),
+            "module_taps": host_us(lambda: unit(x, "taps")),
+        }
+    split["tensor_maps"] = split["entry_taps"] - split["entry_im2col"]
+    log(f"  host time of one batch-1 pair launch, us: the library's entry {split['entry_taps']:.1f} "
+        f"(taps) and {split['entry_im2col']:.1f} (im2col), so the two tensor maps "
+        f"{split['tensor_maps']:.1f}; the checks {split['checks']:.1f}; the wrapper "
+        f"{split['wrapper_taps']:.1f} (taps, fragments given), "
+        f"{split['wrapper_taps_laying_out']:.1f} (taps, laying the weights out), "
+        f"{split['wrapper_im2col']:.1f} (im2col); ResidualConv's call {split['module_taps']:.1f}")
+    log(json.dumps({"pair_host_us": split}))
+    return split
+
+
+def pair_times(tree: str) -> int:
+    """``--pair-times [TREE]``: only the residual pair's device time a launch
+    (graph replay of ``ResidualConv``'s call, bf16) at the main path's
+    shapes, for the package in TREE (default: this checkout). Two trees of
+    the port are compared by one such run each, one after the other on one card."""
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is False", file=sys.stderr)
+        return 1
+    sys.path.insert(0, os.path.abspath(tree))
+    from vsrlab_tpu_torch.nn.blocks import ResidualConv
+
+    device = torch.device("cuda")
+    log(card_line())
+    unit = ResidualConv(64, dtype=torch.bfloat16).to(device)
+    times = {}
+    with torch.inference_mode():
+        for form, batches in (("taps", (1, 2, 10, 20)), ("im2col", (1, 10))):
+            for b in batches:
+                x = pair_operands((b, 180, 320, 64), torch.bfloat16, 7, device)[0]
+                times[f"{form} B={b}"] = graph_ms(lambda: unit(x, form))
+    log(json.dumps({"pair_times_ms": times, "tree": tree}))
+    return 0
 
 
 def packed_operands(n, h, w, c, gp, dtype, realistic, seed, device):
@@ -970,6 +1065,7 @@ def main() -> int:
         kernels.append({"name": name, "route": "cuda", "source": PACKED_SOURCE,
                         "replaces": replaces, "also_replaces": also,
                         **kernel_summary(rows, err, packed_errs[name])})
+    pair_host_split(device)
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu",
                                            "kind": torch.cuda.get_device_name(0),
@@ -978,4 +1074,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--pair-times"]:
+        sys.exit(pair_times(sys.argv[2] if len(sys.argv) > 2 else os.path.dirname(__file__)))
     sys.exit(main())

@@ -14,9 +14,10 @@ torch = pytest.importorskip("torch")
 
 from vsrlab_tpu_torch.ops import packed_gather as pg  # noqa: E402
 from vsrlab_tpu_torch.ops import warp  # noqa: E402
+from vsrlab_tpu_torch.nn.blocks import ResidualConv  # noqa: E402
 from vsrlab_tpu_torch.ops.residual_pair import (  # noqa: E402
-    PAIR_TILES,
-    pair_tile_plan,
+    pack_weight_fragments,
+    pair_launch_plan,
     residual_conv_pair,
     residual_conv_pair_im2col,
     residual_conv_pair_plain,
@@ -81,18 +82,22 @@ def test_kernel_refuses_what_it_does_not_take(cuda, wrapper):
 
 
 def _edge_shapes():
-    """Shapes that cross the bf16 kernels' tilings: for each tile, exactly
-    one; one pixel more in H and in W; fewer tiles than SMs; more than two
-    rounds of tiles on a 132-SM card; three ragged frames, small and large."""
+    """Shapes that cross the bf16 kernels' tilings (15x30 and 7x30 for taps,
+    8x16 for im2col, which test_edge_shapes_cover_the_tiling_cases holds
+    against the library's own plan): for each tile, exactly one; one pixel
+    more in H and in W; fewer tiles than SMs; more than two rounds of tiles
+    on a 132-SM card; three ragged frames, small and large."""
     shapes = []
-    for th, tw in PAIR_TILES.values():
+    for th, tw in ((15, 30), (7, 30), (8, 16)):
         shapes += [(1, th, tw, 64), (1, th + 1, tw + 1, 64), (1, 3 * th, 2 * tw, 64)]
     # the last two make more wide tiles than a card has SMs: the deep tile, ragged
     return sorted(set(shapes)) + [(3, 23, 37, 64), (2, 150, 256, 64), (3, 121, 151, 64)]
 
 
-@pytest.mark.parametrize("wrapper,formulation", [(residual_conv_pair, "taps"),
-                                                 (residual_conv_pair_im2col, "im2col")])
+FORMULATIONS = [(residual_conv_pair, "taps"), (residual_conv_pair_im2col, "im2col")]
+
+
+@pytest.mark.parametrize("wrapper,formulation", FORMULATIONS)
 @pytest.mark.parametrize("shape", _edge_shapes())
 def test_bf16_kernel_at_tile_edges_is_right_and_repeats_bitwise(cuda, wrapper, formulation, shape):
     x, w1, b1, w2, b2 = _operands(shape, torch.bfloat16, cuda, seed=5)
@@ -105,32 +110,86 @@ def test_bf16_kernel_at_tile_edges_is_right_and_repeats_bitwise(cuda, wrapper, f
     torch.cuda.synchronize()
     assert torch.equal(runs[0], runs[1]) and torch.equal(runs[0], runs[2])
     torch.testing.assert_close(runs[0].float(), want, rtol=2e-2, atol=2e-2)
+
+
+@pytest.mark.parametrize("formulation", ["taps", "im2col"])
+@pytest.mark.parametrize("shape", _edge_shapes() + [(1, 180, 320, 64), (2, 180, 320, 64),
+                                                    (10, 180, 320, 64), (1, 1, 1, 64)])
+def test_launch_plan_matches_a_brute_force_count(cuda, formulation, shape):
+    """The plan the library's entry makes, against a count of the tiles
+    that hold a pixel and of the tiles each CTA walks over."""
     sms = torch.cuda.get_device_properties(cuda).multi_processor_count
-    plan = pair_tile_plan(shape, formulation, sms)
-    assert plan["ctas"] <= sms and plan["rounds"] * plan["ctas"] >= plan["tiles"]
+    plan = pair_launch_plan(formulation, shape, cuda)
+    th, tw = plan["tile"]
+    b, h, w, _ = shape
+    tiles = {(n, r // th, c // tw) for n in range(b) for r in range(h) for c in range(w)}
+    assert plan["tiles"] == len(tiles)
+    assert plan["ctas"] == min(len(tiles), sms)
+    rounds = max(len(range(i, len(tiles), plan["ctas"])) for i in range(plan["ctas"]))
+    assert plan["rounds"] == rounds
+    if formulation == "taps":  # the wide tile exactly where it gives every CTA one tile
+        wide = b * -(-h // 15) * -(-w // 30)
+        assert plan["tile"] == ((15, 30) if wide <= sms else (7, 30))
+    else:
+        assert plan["tile"] == (8, 16)
 
 
 @pytest.mark.parametrize("formulation", ["taps", "im2col"])
 def test_edge_shapes_cover_the_tiling_cases(cuda, formulation):
     sms = torch.cuda.get_device_properties(cuda).multi_processor_count
-    plans = [pair_tile_plan(s, formulation, sms) for s in _edge_shapes()]
+    plans = [pair_launch_plan(formulation, s, cuda) for s in _edge_shapes()]
     assert any(p["tiles"] == 1 for p in plans)
     assert any(1 < p["tiles"] < sms for p in plans)
     assert any(p["rounds"] > 2 for p in plans)
+    # exactly one tile, and one pixel more each way, for every tile in use
+    for th, tw in {p["tile"] for p in plans}:
+        assert (1, th, tw, 64) in _edge_shapes() and (1, th + 1, tw + 1, 64) in _edge_shapes()
     if formulation == "taps":
-        assert {p["tile"] for p in plans} == {"taps_wide", "taps_deep"}
+        assert len({p["tile"] for p in plans}) == 2
 
 
-def test_taps_kernel_follows_a_weight_written_in_place(cuda):
-    """The kernel's own weight order is laid out once for each weight
-    tensor: a write to the tensor must reach the next launch."""
-    ops = list(_operands((1, 20, 40, 64), torch.bfloat16, cuda, seed=6))
-    residual_conv_pair(*ops)
-    ops[1].mul_(-1.5)
-    ops[3].add_(0.01)
-    got = residual_conv_pair(*ops)
-    torch.testing.assert_close(got.float(), residual_conv_pair_plain(*ops).float(),
-                               rtol=2e-2, atol=2e-2)
+def test_launch_plan_refuses_what_has_no_kernel(cuda):
+    with pytest.raises(ValueError):
+        pair_launch_plan("plain", (1, 8, 8, 64), cuda)
+    with pytest.raises(RuntimeError):
+        pair_launch_plan("taps", (0, 8, 8, 64), cuda)
+
+
+@pytest.mark.parametrize("inference", [False, True])
+@pytest.mark.parametrize("fragments", [False, True])
+def test_taps_kernel_follows_a_weight_written_in_place(cuda, inference, fragments):
+    """The wrapper lays the kernel's weight order out on every call: a write
+    to a weight reaches the next launch, also for tensors made in inference
+    mode. Fragments the caller hands in are what the kernel reads."""
+    with torch.inference_mode(inference):
+        ops = list(_operands((1, 20, 40, 64), torch.bfloat16, cuda, seed=6))
+        residual_conv_pair(*ops)
+        ops[1].mul_(-1.5)
+        ops[3].add_(0.01)
+        given = (pack_weight_fragments(ops[1]), pack_weight_fragments(ops[3])) if fragments else None
+        got = residual_conv_pair(*ops, fragments=given)
+        torch.testing.assert_close(got.float(), residual_conv_pair_plain(*ops).float(),
+                                   rtol=2e-2, atol=2e-2)
+
+
+@pytest.mark.parametrize("inference", [False, True])
+@pytest.mark.parametrize("impl", ["taps", "im2col"])
+def test_residual_conv_on_the_card_follows_its_parameters(cuda, impl, inference):
+    """The module's cached operands and fragments: the kernel's result is the
+    plain version's on the same parameters, before and after a write."""
+    torch.manual_seed(3)
+    unit = ResidualConv(64, dtype=torch.bfloat16).to(cuda)
+    x = torch.randn((2, 20, 40, 64), device=cuda)
+    for step in range(2):
+        with torch.inference_mode(inference):
+            got, want = unit(x, impl), unit(x, "plain")
+        assert got.dtype == torch.bfloat16
+        torch.testing.assert_close(got.float(), want.float(), rtol=2e-2, atol=2e-2)
+        with torch.no_grad():
+            unit.conv1.weight.mul_(-1.25)
+            unit.conv2.bias.add_(0.5)
+    launched = residual_conv_pair if impl == "taps" else residual_conv_pair_im2col
+    assert launched.launches_by_shape[(2, 20, 40, 64)] >= 2
 
 
 def _packed_operands(n, h, w, c, gp, dtype, device, seed=0):

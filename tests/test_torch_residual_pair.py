@@ -19,11 +19,9 @@ from vsrlab_tpu.ops.pallas_conv import (  # noqa: E402
     residual_conv_pair_im2col as pallas_im2col,
     residual_conv_pair_xla,
 )
+from vsrlab_tpu_torch.nn.blocks import ResidualConv  # noqa: E402
 from vsrlab_tpu_torch.ops.residual_pair import (  # noqa: E402
-    PAIR_TILES,
-    _packed,
     pack_weight_fragments,
-    pair_tile_plan,
     reset_launch_counts,
     residual_conv_pair,
     residual_conv_pair_im2col,
@@ -153,45 +151,63 @@ def test_pack_weight_fragments_refuses_other_weights():
         pack_weight_fragments(torch.zeros((3, 3, 8, 8)).bfloat16())   # not C = 64
 
 
-def test_packed_weights_are_laid_out_once_and_again_after_a_write(rng):
+@pytest.mark.parametrize("tap", range(9))
+def test_pack_weight_fragments_keeps_each_tap_in_its_own_steps(rng, tap):
+    """The kernel takes tap ``t`` from steps ``4t .. 4t + 3``: a change to
+    that tap's weights changes those steps, every word of them, and no other."""
     w = torch.from_numpy(rng.standard_normal((3, 3, 64, 64)).astype(np.float32)).bfloat16()
-    first = _packed(w)
-    assert _packed(w) is first
-    w.mul_(2)
-    again = _packed(w)
-    assert again is not first
-    torch.testing.assert_close(again, pack_weight_fragments(w), rtol=0, atol=0)
-    other = w.clone()
-    assert _packed(other) is not again
-    with torch.inference_mode():  # no version counter there: laid out once
-        frozen = w * 1
-        assert _packed(frozen) is _packed(frozen)
-        torch.testing.assert_close(_packed(frozen), pack_weight_fragments(frozen), rtol=0, atol=0)
+    changed = w.clone()
+    changed[tap // 3, tap % 3] += 1.0
+    differs = (pack_weight_fragments(w) != pack_weight_fragments(changed)).reshape(9, -1)
+    assert bool(differs[tap].all())
+    assert not bool(differs[[t for t in range(9) if t != tap]].any())
 
 
-@pytest.mark.parametrize("formulation", ["taps", "im2col"])
-@pytest.mark.parametrize("shape", [(1, 180, 320, 64), (2, 180, 320, 64), (10, 180, 320, 64),
-                                   (2, 13, 21, 64), (1, 1, 1, 64), (3, 31, 61, 64)])
-def test_pair_tile_plan_matches_a_brute_force_count(formulation, shape):
-    sms = 132
-    plan = pair_tile_plan(shape, formulation, sms)
-    th, tw = plan["size"]
-    assert PAIR_TILES[plan["tile"]] == (th, tw)
-    b, h, w, _ = shape
-    # every pixel of every frame lies in exactly one tile
-    tiles = {(n, r // th, c // tw) for n in range(b) for r in range(h) for c in range(w)}
-    assert plan["tiles"] == len(tiles)
-    assert plan["ctas"] == min(len(tiles), sms)
-    # CTA i takes tiles i, i + ctas, ...
-    rounds = max(len(range(i, len(tiles), plan["ctas"])) for i in range(plan["ctas"]))
-    assert plan["rounds"] == rounds
-    if formulation == "taps":
-        wide = b * -(-h // 15) * -(-w // 30)
-        assert plan["tile"] == ("taps_wide" if wide <= sms else "taps_deep")
-        if plan["tile"] == "taps_wide":
-            assert plan["rounds"] == 1
+def _unit(rng):
+    unit = ResidualConv(64)
+    with torch.no_grad():
+        for p in unit.parameters():
+            p.copy_(torch.from_numpy(rng.standard_normal(tuple(p.shape)).astype(np.float32)) * 0.1)
+    return unit
 
 
-def test_pair_tile_plan_refuses_the_plain_formulation():
-    with pytest.raises(ValueError):
-        pair_tile_plan((1, 8, 8, 64), "plain", 132)
+def test_residual_conv_fragments_are_those_of_its_bf16_operands(rng):
+    unit = _unit(rng)
+    w1, _, w2, _ = unit.pair_operands(torch.bfloat16)
+    f1, f2 = unit.pair_fragments()
+    torch.testing.assert_close(f1, pack_weight_fragments(w1), rtol=0, atol=0)
+    torch.testing.assert_close(f2, pack_weight_fragments(w2), rtol=0, atol=0)
+    # HWIO operands of the module's OIHW parameters
+    torch.testing.assert_close(w1, unit.conv1.weight.detach().permute(2, 3, 1, 0).bfloat16(),
+                               rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("inference", [False, True])
+@pytest.mark.parametrize("change", ["none", "written", "replaced", "other_dtype"])
+def test_residual_conv_fragments_follow_the_parameters(rng, change, inference):
+    """Laid out once, and again when a parameter was written in place or
+    replaced or the operands were rebuilt for another compute type, also
+    where the operands are made in inference mode (no version counter on
+    them: the cache is keyed on the parameters)."""
+    unit = _unit(rng)
+    with torch.inference_mode(inference):
+        first = unit.pair_fragments()
+        assert unit.pair_fragments() is first
+    with torch.no_grad():
+        if change == "written":
+            unit.conv2.weight.mul_(-1.5)
+        elif change == "replaced":
+            unit.conv1.weight = torch.nn.Parameter(unit.conv1.weight.detach() + 0.25)
+    with torch.inference_mode(inference):
+        if change == "other_dtype":
+            unit.pair_operands(torch.float32)
+        again = unit.pair_fragments()
+        if change == "none":
+            assert again is first
+            return
+        assert again is not first
+        w1, _, w2, _ = unit.pair_operands(torch.bfloat16)
+        torch.testing.assert_close(again[0], pack_weight_fragments(w1), rtol=0, atol=0)
+        torch.testing.assert_close(again[1], pack_weight_fragments(w2), rtol=0, atol=0)
+        assert torch.equal(again[0], first[0]) == (change != "replaced")
+        assert torch.equal(again[1], first[1]) == (change != "written")

@@ -65,7 +65,8 @@
 // except that the bf16 taps entry takes them as the register fragments of
 // ops/residual_pair.py pack_weight_fragments. It launches on the given device
 // and stream, does not synchronise, allocates nothing and returns
-// cudaGetLastError() (0 on success).
+// cudaGetLastError() (0 on success). vsr_residual_pair_plan reports the tile
+// and grid a bf16 launch would get, by the rule the entries themselves use.
 
 #include <cuda.h>
 #include <cuda_bf16.h>
@@ -1005,24 +1006,47 @@ int sm_count(int device) {
   return cached[device];
 }
 
-// The im2col kernel on a persistent grid: one CTA an SM at most, each walking
-// over the tiles blockIdx.x, blockIdx.x + gridDim.x, ...
-template <int TH, int TW, class K>
-int launch_persistent(K kernel, size_t smem, const void* x, const void* w1, const void* b1,
-                      const void* w2, const void* b2, void* out, int B, int H, int W, int device,
-                      void* stream) {
+// How a bf16 launch is cut up: the output tile, the tiles of a frame and of
+// the launch, and the CTAs of the persistent grid: one an SM at most, CTA i
+// walking over the tiles i, i + grid, ... (grid 0: a launch that is refused).
+struct Plan {
+  int th, tw, tiles_x, tiles_y, ntiles, grid;
+};
+
+template <int TH, int TW>
+Plan plan_tiles(int B, int H, int W, int device) {
+  Plan p = {TH, TW, (W + TW - 1) / TW, (H + TH - 1) / TH, 0, 0};
+  const int sms = sm_count(device);
+  const long long ntiles = static_cast<long long>(B) * p.tiles_x * p.tiles_y;
+  if (sms <= 0 || B <= 0 || H <= 0 || W <= 0 || ntiles > 0x7fffffffLL - sms) return p;
+  p.ntiles = static_cast<int>(ntiles);
+  p.grid = p.ntiles < sms ? p.ntiles : sms;
+  return p;
+}
+
+// taps: wide tiles where they give every CTA one tile at most, else deep ones
+Plan plan_taps(int B, int H, int W, int device) {
+  const Plan wide = plan_tiles<TapsWide::TH, TapsWide::TW>(B, H, W, device);
+  if (wide.grid > 0 && wide.ntiles == wide.grid) return wide;
+  return plan_tiles<TapsDeep::TH, TapsDeep::TW>(B, H, W, device);
+}
+
+Plan plan_im2col(int B, int H, int W, int device) {
+  return plan_tiles<I2C_TH, I2C_TW>(B, H, W, device);
+}
+
+// The im2col kernel on its persistent grid.
+template <class K>
+int launch_persistent(K kernel, size_t smem, const Plan& p, const void* x, const void* w1,
+                      const void* b1, const void* w2, const void* b2, void* out, int H, int W,
+                      int device, void* stream) {
+  if (p.grid <= 0) return static_cast<int>(cudaErrorInvalidValue);
   cudaError_t err = prepare(kernel, smem, device);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const int sms = sm_count(device);
-  if (sms <= 0) return static_cast<int>(cudaErrorInvalidDevice);
-  const int tiles_x = (W + TW - 1) / TW, tiles_y = (H + TH - 1) / TH;
-  const long long ntiles = static_cast<long long>(B) * tiles_x * tiles_y;
-  if (ntiles <= 0 || ntiles > 0x7fffffffLL - sms) return static_cast<int>(cudaErrorInvalidValue);
-  const int grid = ntiles < sms ? static_cast<int>(ntiles) : sms;
-  kernel<<<grid, NTHREADS, smem, static_cast<cudaStream_t>(stream)>>>(
+  kernel<<<p.grid, NTHREADS, smem, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const bf16*>(x), static_cast<const bf16*>(w1), static_cast<const float*>(b1),
       static_cast<const bf16*>(w2), static_cast<const float*>(b2), static_cast<bf16*>(out), H, W,
-      tiles_x, tiles_y, static_cast<int>(ntiles));
+      p.tiles_x, p.tiles_y, p.ntiles);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -1045,18 +1069,15 @@ TensorMapEncodeTiled tensor_map_encoder() {
 // The taps kernel: a tensor map over x as (B, H, W, C) whose box is one x
 // tile, then the persistent grid.
 template <class G>
-int launch_taps(const void* x, const void* w1, const void* b1, const void* w2, const void* b2,
-                void* out, int B, int H, int W, int device, void* stream) {
+int launch_taps(const Plan& p, const void* x, const void* w1, const void* b1, const void* w2,
+                const void* b2, void* out, int B, int H, int W, int device, void* stream) {
+  if (p.grid <= 0) return static_cast<int>(cudaErrorInvalidValue);
   auto kernel = pair_taps_kernel<G>;
   cudaError_t err = prepare(kernel, G::SMEM, device);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const int sms = sm_count(device);
   const TensorMapEncodeTiled encode = tensor_map_encoder();
-  if (sms <= 0 || encode == nullptr) return static_cast<int>(cudaErrorInvalidDevice);
-  const int tiles_x = (W + G::TW - 1) / G::TW, tiles_y = (H + G::TH - 1) / G::TH;
-  const long long ntiles = static_cast<long long>(B) * tiles_x * tiles_y;
-  if (ntiles <= 0 || ntiles > 0x7fffffffLL - sms) return static_cast<int>(cudaErrorInvalidValue);
-  if (G::XBUF < 3 && ntiles > sms) return static_cast<int>(cudaErrorInvalidValue);
+  if (encode == nullptr) return static_cast<int>(cudaErrorInvalidDevice);
+  if (G::XBUF < 3 && p.ntiles > p.grid) return static_cast<int>(cudaErrorInvalidValue);
   CUtensorMap xmap;
   const cuuint64_t dims[4] = {C, static_cast<cuuint64_t>(W), static_cast<cuuint64_t>(H),
                               static_cast<cuuint64_t>(B)};
@@ -1073,11 +1094,10 @@ int launch_taps(const void* x, const void* w1, const void* b1, const void* w2, c
              CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
              CU_TENSOR_MAP_L2_PROMOTION_NONE, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) != CUDA_SUCCESS)
     return static_cast<int>(cudaErrorInvalidValue);
-  const int grid = ntiles < sms ? static_cast<int>(ntiles) : sms;
-  kernel<<<grid, NTHREADS, G::SMEM, static_cast<cudaStream_t>(stream)>>>(
+  kernel<<<p.grid, NTHREADS, G::SMEM, static_cast<cudaStream_t>(stream)>>>(
       xmap, omap, static_cast<const uint4*>(w1), static_cast<const float*>(b1),
-      static_cast<const uint4*>(w2), static_cast<const float*>(b2), H, W, tiles_x, tiles_y,
-      static_cast<int>(ntiles));
+      static_cast<const uint4*>(w2), static_cast<const float*>(b2), H, W, p.tiles_x, p.tiles_y,
+      p.ntiles);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -1088,12 +1108,10 @@ extern "C" {
 int vsr_residual_pair_taps_bf16(const void* x, const void* w1, const void* b1, const void* w2,
                                 const void* b2, void* out, int B, int H, int W, int device,
                                 void* stream) {
-  // wide tiles where they give every CTA one tile at most
-  const long long wide = static_cast<long long>(B) * ((H + TapsWide::TH - 1) / TapsWide::TH) *
-                         ((W + TapsWide::TW - 1) / TapsWide::TW);
-  if (wide <= sm_count(device))
-    return launch_taps<TapsWide>(x, w1, b1, w2, b2, out, B, H, W, device, stream);
-  return launch_taps<TapsDeep>(x, w1, b1, w2, b2, out, B, H, W, device, stream);
+  const Plan p = plan_taps(B, H, W, device);
+  if (p.th == TapsWide::TH)
+    return launch_taps<TapsWide>(p, x, w1, b1, w2, b2, out, B, H, W, device, stream);
+  return launch_taps<TapsDeep>(p, x, w1, b1, w2, b2, out, B, H, W, device, stream);
 }
 
 int vsr_residual_pair_im2col_bf16(const void* x, const void* w1, const void* b1,
@@ -1104,8 +1122,18 @@ int vsr_residual_pair_im2col_bf16(const void* x, const void* w1, const void* b1,
   constexpr size_t smem = 2 * WBYTES + static_cast<size_t>(G::NX) * PIXB +
                           (static_cast<size_t>(G::NY) * PIXB + 1023) / 1024 * 1024 +
                           NSLAB * SLAB + 8 * (2 * NSLAB + 1) + 8 + 1024;
-  return launch_persistent<I2C_TH, I2C_TW>(pair_im2col_kernel<I2C_TH, I2C_TW>, smem, x, w1, b1, w2,
-                                           b2, out, B, H, W, device, stream);
+  return launch_persistent(pair_im2col_kernel<I2C_TH, I2C_TW>, smem, plan_im2col(B, H, W, device),
+                           x, w1, b1, w2, b2, out, H, W, device, stream);
+}
+
+// What a bf16 launch of (B, H, W, 64) on `device` would be given, by the
+// entries' own rule: plan[0..3] = tile rows, tile columns, tiles, CTAs.
+// Launches nothing.
+int vsr_residual_pair_plan(int im2col, int B, int H, int W, int device, int* plan) {
+  const Plan p = im2col ? plan_im2col(B, H, W, device) : plan_taps(B, H, W, device);
+  if (p.grid <= 0) return static_cast<int>(cudaErrorInvalidValue);
+  plan[0] = p.th, plan[1] = p.tw, plan[2] = p.ntiles, plan[3] = p.grid;
+  return 0;
 }
 
 int vsr_residual_pair_fp32(const void* x, const void* w1, const void* b1, const void* w2,

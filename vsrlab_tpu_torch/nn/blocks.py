@@ -28,7 +28,12 @@ from torch import nn
 
 from vsrlab_tpu_torch.ops.deform import deform_conv2d
 from vsrlab_tpu_torch.ops.pixel_shuffle import pixel_shuffle
-from vsrlab_tpu_torch.ops.residual_pair import PAIR_IMPLS
+from vsrlab_tpu_torch.ops.residual_pair import (
+    C as PAIR_C,
+    PAIR_IMPLS,
+    pack_weight_fragments,
+    residual_conv_pair,
+)
 from vsrlab_tpu_torch.ops.warp import SAMPLER_IMPLS
 
 
@@ -118,16 +123,17 @@ class ConvLeaky(nn.Module):
 class ResidualConv(nn.Module):
     """``x + conv2(relu(conv1(x)))``, computed by the fused residual pair.
 
-    The pair's operands (HWIO weights in the compute type, fp32 biases) are
-    laid out once and reused until a parameter changes, moves or the
-    compute type differs.
+    The pair's operands (HWIO weights in the compute type, fp32 biases, and
+    for the bf16 ``taps`` kernel its own order of the weights) are laid out
+    once and reused until a parameter changes, moves or the compute type
+    differs.
     """
 
     def __init__(self, features: int = 64, dtype=None):
         super().__init__()
         self.conv1 = Conv2d(features, features, 3, 1, 1, dtype=dtype)
         self.conv2 = Conv2d(features, features, 3, 1, 1, dtype=dtype)
-        self._pair_cache: tuple | None = None
+        self._pair_cache: list | None = None  # [key, operands, fragments]
 
     def pair_operands(self, dtype: torch.dtype):
         """``(w1, b1, w2, b2)`` in the kernel's layout for compute ``dtype``."""
@@ -142,12 +148,25 @@ class ResidualConv(nn.Module):
                     w2.permute(2, 3, 1, 0).to(dtype).contiguous(),
                     b2.float().contiguous(),
                 )
-            self._pair_cache = (key, ops)
+            self._pair_cache = [key, ops, None]
         return self._pair_cache[1]
+
+    def pair_fragments(self):
+        """The bf16 operands' weights in the ``taps`` kernel's order, cached
+        with the operands they are laid out from."""
+        w1, _, w2, _ = self.pair_operands(torch.bfloat16)
+        if self._pair_cache[2] is None:
+            self._pair_cache[2] = (pack_weight_fragments(w1), pack_weight_fragments(w2))
+        return self._pair_cache[2]
 
     def forward(self, x, impl: str = "taps"):
         dt = self.conv1.compute_dtype(x)
-        return PAIR_IMPLS[impl](x.to(dt).contiguous(), *self.pair_operands(dt))
+        x, ops = x.to(dt).contiguous(), self.pair_operands(dt)
+        if impl == "taps" and x.is_cuda and dt == torch.bfloat16 and x.shape[-1] == PAIR_C:
+            # the cache now holds the bf16 operands: their fragments lie beside them
+            return residual_conv_pair(x, *ops,
+                                      fragments=self._pair_cache[2] or self.pair_fragments())
+        return PAIR_IMPLS[impl](x, *ops)
 
 
 class ResidualBlock(nn.Module):

@@ -26,10 +26,12 @@ in its ``launches`` attribute, and by input shape in ``launches_by_shape``
 both.
 
 The bf16 kernels run a persistent grid, one CTA a streaming multiprocessor
-at most, each walking over image tiles; :func:`pair_tile_plan` says which
-tile a launch gets and how many rounds it makes. The ``taps`` kernel keeps
-the weights in registers and takes them in its own order
-(:func:`pack_weight_fragments`, laid out once for each weight tensor).
+at most, each walking over image tiles; :func:`pair_launch_plan` asks the
+library which tile and grid a launch gets. The ``taps`` kernel keeps the
+weights in registers and takes them in its own order
+(:func:`pack_weight_fragments`): :func:`residual_conv_pair` lays them out
+on every call unless the caller hands them in as ``fragments``, as
+``ResidualConv`` does from the cache that holds its operands.
 """
 
 from __future__ import annotations
@@ -37,7 +39,6 @@ from __future__ import annotations
 import collections
 import ctypes
 import functools
-import weakref
 
 import torch
 import torch.nn.functional as F
@@ -104,33 +105,6 @@ def _check(x, w1, b1, w2, b2):
         raise ValueError("residual_conv_pair: empty input")
 
 
-# Output tile (rows, columns) of each bf16 kernel, as csrc/residual_pair.cu
-# has them: ``taps`` takes the wide tile where that gives every CTA one tile
-# at most, else the deep one; ``im2col`` has one.
-PAIR_TILES = {"taps_wide": (15, 30), "taps_deep": (7, 30), "im2col": (8, 16)}
-
-
-def pair_tile_plan(shape, formulation: str, sms: int) -> dict:
-    """How a bf16 launch of ``formulation`` on ``(B, H, W, C)`` is cut up on
-    a device of ``sms`` multiprocessors: the tile's name and size, the
-    number of tiles and CTAs, and the rounds the busiest CTA makes."""
-    b, h, w, _ = shape
-
-    def count(tile):
-        return b * -(-h // tile[0]) * -(-w // tile[1])
-
-    if formulation == "im2col":
-        name = "im2col"
-    elif formulation == "taps":
-        name = "taps_wide" if count(PAIR_TILES["taps_wide"]) <= sms else "taps_deep"
-    else:
-        raise ValueError(f"no kernel for formulation {formulation!r}")
-    tiles = count(PAIR_TILES[name])
-    ctas = min(tiles, sms)
-    return {"tile": name, "size": PAIR_TILES[name], "tiles": tiles, "ctas": ctas,
-            "rounds": -(-tiles // ctas)}
-
-
 def pack_weight_fragments(w):
     """HWIO bf16 weights ``(3, 3, 64, 64)`` in the order the ``taps`` kernel
     loads them: int32 ``(36, 4, 32, 4)``.
@@ -151,25 +125,6 @@ def pack_weight_fragments(w):
     return v.view(torch.int32).reshape(36, 4, 32, 4)
 
 
-_packed_cache: dict = {}
-
-
-def _packed(w):
-    """:func:`pack_weight_fragments` of ``w``, laid out once for each weight
-    tensor and again when it has been written to since. A tensor made in
-    inference mode carries no version counter: it is laid out once (the
-    modules of this package make new operand tensors when a parameter
-    changes, and never write to one)."""
-    key = id(w)
-    version = None if w.is_inference() else w._version
-    hit = _packed_cache.get(key)
-    if hit is not None and hit[0]() is w and hit[1] == version:
-        return hit[2]
-    packed = pack_weight_fragments(w)
-    _packed_cache[key] = (weakref.ref(w, lambda _: _packed_cache.pop(key, None)), version, packed)
-    return packed
-
-
 @functools.cache
 def _lib() -> ctypes.CDLL:
     """The kernel library (built at first use), its signatures declared."""
@@ -180,18 +135,40 @@ def _lib() -> ctypes.CDLL:
         fn = getattr(lib, name)
         fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
+    lib.vsr_residual_pair_plan.argtypes = [ctypes.c_int] * 5 + [ctypes.POINTER(ctypes.c_int)]
+    lib.vsr_residual_pair_plan.restype = ctypes.c_int
     lib.vsr_cuda_error_string.argtypes = [ctypes.c_int]
     lib.vsr_cuda_error_string.restype = ctypes.c_char_p
     return lib
 
 
-def _launch(formulation, x, w1, b1, w2, b2):
+def pair_launch_plan(formulation: str, shape, device) -> dict:
+    """The tiling a bf16 launch of ``formulation`` on ``(B, H, W, 64)`` gets
+    on CUDA ``device``, as the library's entry would choose it: the output
+    tile ``(rows, columns)``, the number of tiles, the CTAs of the persistent
+    grid and the rounds the busiest CTA makes. Launches nothing."""
+    if formulation not in ("taps", "im2col"):
+        raise ValueError(f"no kernel for formulation {formulation!r}")
+    lib = _lib()
+    b, h, w, _ = shape
+    plan = (ctypes.c_int * 4)()
+    index = torch.device(device).index
+    index = torch.cuda.current_device() if index is None else index
+    rc = lib.vsr_residual_pair_plan(formulation == "im2col", b, h, w, index, plan)
+    if rc != 0:
+        raise RuntimeError(f"no launch plan for {tuple(shape)}: "
+                           f"{lib.vsr_cuda_error_string(rc).decode()}")
+    th, tw, tiles, ctas = plan
+    return {"tile": (th, tw), "tiles": tiles, "ctas": ctas, "rounds": -(-tiles // ctas)}
+
+
+def _launch(formulation, x, w1, b1, w2, b2, fragments=None):
     lib = _lib()
     out = torch.empty_like(x)
     b, h, w, _ = x.shape
     stream = torch.cuda.current_stream(x.device).cuda_stream
-    if (formulation, x.dtype) == ("taps", torch.bfloat16):
-        w1, w2 = _packed(w1), _packed(w2)  # the kernel's register order
+    if (formulation, x.dtype) == ("taps", torch.bfloat16):  # the kernel's register order
+        w1, w2 = fragments or (pack_weight_fragments(w1), pack_weight_fragments(w2))
     rc = getattr(lib, _FUNCS[(formulation, x.dtype)])(
         x.data_ptr(), w1.data_ptr(), b1.data_ptr(), w2.data_ptr(),
         b2.data_ptr(), out.data_ptr(), b, h, w, x.device.index, stream,
@@ -205,12 +182,17 @@ def _launch(formulation, x, w1, b1, w2, b2):
     return out
 
 
-def residual_conv_pair(x, w1, b1, w2, b2):
-    """Fused pair, nine shifted K=64 products per conv (CUDA ``taps`` kernel)."""
+def residual_conv_pair(x, w1, b1, w2, b2, *, fragments=None):
+    """Fused pair, nine shifted K=64 products per conv (CUDA ``taps`` kernel).
+
+    ``fragments``, where given, is ``(pack_weight_fragments(w1),
+    pack_weight_fragments(w2))`` as the caller laid them out from these very
+    weights; the bf16 kernel then reads them and the call lays out nothing.
+    """
     _check(x, w1, b1, w2, b2)
     if x.device.type == "cpu":
         return residual_conv_pair_plain(x, w1, b1, w2, b2)
-    return _launch("taps", x, w1, b1, w2, b2)
+    return _launch("taps", x, w1, b1, w2, b2, fragments)
 
 
 def residual_conv_pair_im2col(x, w1, b1, w2, b2):
