@@ -108,16 +108,23 @@ KERNELS = {
 }
 SOURCE = "vsrlab_tpu_torch/csrc/residual_pair.cu"
 PEAK_FP32_FLOPS = 67e12  # H100 SXM fp32 outside the tensor cores
-PACKED_SOURCE = "vsrlab_tpu_torch/csrc/packed_gather.cu"
 PROBE = "scripts/bench_pallas_deform_gather.py"
-PACKED_KERNELS = {
+# name -> (source, the TPU kernel it replaces, TPU kernels of the same function)
+VRT_KERNELS = {
+    "bilinear_sample": ("vsrlab_tpu_torch/csrc/bilinear_sample.cu", f"{PROBE}:278", []),
     # pallas_loop, pallas_blk and pallas_take compute one function
-    "packed_row_gather": (f"{PROBE}:149", [f"{PROBE}:202", f"{PROBE}:237"]),
-    "packed_bilinear": (f"{PROBE}:278", []),
+    "packed_row_gather": ("vsrlab_tpu_torch/csrc/packed_gather.cu", f"{PROBE}:149",
+                          [f"{PROBE}:202", f"{PROBE}:237"]),
 }
 # (images, H, W, channels a group, x-positions a row); the first is the probe's shape
 PACKED_CHECKS = ((180, 128, 128, 10, 2), (3, 9, 13, 5, 2), (24, 8, 8, 4, 8), (2, 1, 5, 3, 2),
                  (2, 4, 1, 4, 8))
+# (images, H, W, C): the alignment's 128x128 stage, a row pitch that is no
+# multiple of 16 bytes (W = 13), C = 4, C = 3 (the generic path), one row,
+# one column, one pixel
+SAMPLER_CHECKS = ((180, 128, 128, 10), (3, 9, 13, 10), (24, 8, 8, 4), (3, 9, 13, 3),
+                  (2, 1, 5, 10), (2, 4, 1, 4), (1, 1, 1, 10))
+SAMPLER_KINDS = ("realistic", "uniform", "far", "nonfinite")
 VRT_CLIP = (1, 16, 256, 256, 3)
 VRT_SCALES = (1, 2, 4, 8, 4, 2, 1)
 VRT_GROUPS, VRT_CG, VRT_GP = 12, 10, 2
@@ -387,147 +394,361 @@ def pair_times(tree: str) -> int:
     return 0
 
 
+def realistic_operands(n, h, w, c, dtype, seed, device):
+    """``n`` images ``(h, w, c)`` ~ N(0, 1) in ``dtype`` and the alignment's
+    kind of sample coordinates ``(n, h, w)`` fp32: the pixel grid plus an
+    N(0, 3) residue, so neighbouring pixels read neighbouring pixels. Every
+    sampler yardstick at one image size runs on these same operands."""
+    import torch
+
+    g = torch.Generator().manual_seed(seed)
+    x = torch.randn((n, h, w, c), generator=g).to(device, dtype)
+    ys, xs = torch.meshgrid(torch.arange(h), torch.arange(w), indexing="ij")
+    ix = xs[None] + torch.randn((n, h, w), generator=g) * 3.0
+    iy = ys[None] + torch.randn((n, h, w), generator=g) * 3.0
+    return x, ix.to(device), iy.to(device)
+
+
+def sampler_coords(n, h, w, kind, seed, device):
+    """Sample coordinates ``(n, h*w)`` fp32 of one ``kind``: ``realistic``
+    (see :func:`realistic_operands`), ``uniform`` over the image and a
+    2-pixel margin, ``far`` (uniform over three image sizes on each side:
+    most corners outside, a CTA's corner box as large as the image) or
+    ``nonfinite`` (realistic, with +-inf, NaN and +-1e30 among them).
+    Returns the coordinates and, for ``nonfinite``, the mask of samples
+    that must come out 0."""
+    import torch
+
+    g = torch.Generator().manual_seed(seed)
+    if kind in ("realistic", "nonfinite"):
+        _, ix, iy = realistic_operands(n, h, w, 1, torch.float32, seed, "cpu")
+    else:
+        lo, span = (-2.0, 3.0) if kind == "uniform" else (-3.0 * max(w, h), 6.0 * max(w, h))
+        ix = torch.rand((n, h, w), generator=g) * (w + span) + lo
+        iy = torch.rand((n, h, w), generator=g) * (h + span) + lo
+    ix, iy = ix.reshape(n, -1).contiguous(), iy.reshape(n, -1).contiguous()
+    bad = None
+    if kind == "nonfinite":
+        special = torch.tensor([float("inf"), float("-inf"), float("nan"), 1e30, -1e30])
+        ix.view(-1)[::7] = special.repeat(ix.numel() // 35 + 1)[: ix.view(-1)[::7].numel()]
+        iy.view(-1)[3::11] = special.flip(0).repeat(iy.numel() // 55 + 1)[
+            : iy.view(-1)[3::11].numel()]
+        bad = ~(torch.isfinite(ix) & torch.isfinite(iy) & (ix.abs() < 1e29) & (iy.abs() < 1e29))
+        bad = bad.to(device)
+    return ix.to(device), iy.to(device), bad
+
+
+def check_sampler(x, ix, iy, zeros, tol, label, bad=None) -> float:
+    """max |kernel - plain| of ``bilinear_sample``; raises beyond ``tol +
+    tol*|plain|``, on a non-finite output, when one of three launches differs
+    from the first in any bit, or where ``bad`` marks a sample that must be 0."""
+    import torch
+
+    from vsrlab_tpu_torch.ops import bilinear_sample as bs
+
+    first = bs.bilinear_sample(x, ix, iy, zeros)
+    same = all(torch.equal(bs.bilinear_sample(x, ix, iy, zeros), first) for _ in range(2))
+    want = bs.bilinear_sample_plain(x, ix, iy, zeros).float()
+    torch.cuda.synchronize()
+    got = first.float()
+    err = (got - want).abs()
+    ok = bool(torch.isfinite(got).all()) and bool((err <= tol + tol * want.abs()).all())
+    if bad is not None:
+        ok = ok and bool((got[bad] == 0).all())
+    e = float(err.max())
+    log(f"  {label}: max|kernel-plain| = {e:.3e} (tol {tol}) {'ok' if ok else 'FAIL'}, "
+        f"3 launches bitwise {'equal' if same else 'DIFFERENT'}")
+    if not ok or not same:
+        raise AssertionError(f"{label} disagrees with the plain version or with itself")
+    return e
+
+
+def check_sampler_kernel(device) -> dict:
+    """Phase 2 for ``bilinear_sample``. Returns ``{"fp32": err, "bf16": err}``."""
+    import torch
+
+    from vsrlab_tpu_torch.ops.warp import _pad_coords
+
+    errs = {}
+    for dname, dtype in (("fp32", torch.float32), ("bf16", torch.bfloat16)):
+        for i, (n, h, w, c) in enumerate(SAMPLER_CHECKS):
+            x = torch.randn((n, h, w, c), generator=torch.Generator().manual_seed(i))
+            x = x.to(device, dtype)
+            for kind in SAMPLER_KINDS:
+                ix, iy, bad = sampler_coords(n, h, w, kind, i, device)
+                label = f"bilinear_sample {dname} {(n, h, w, c)} {kind:9s}"
+                e = check_sampler(x, ix, iy, True, TOL[dname], label + " zeros ", bad)
+                if kind != "nonfinite":  # border: the coordinates clamped first, no mask
+                    bx, by = _pad_coords(ix, iy, h, w, "border", True)
+                    e = max(e, check_sampler(x, bx, by, False, TOL[dname], label + " border"))
+                errs[dname] = max(errs.get(dname, 0.0), e)
+            del x
+    return errs
+
+
 def packed_operands(n, h, w, c, gp, dtype, realistic, seed, device):
-    """The packed sampler's operands for ``n`` random images ``(h, w, c)``:
-    the table and the seven per-pixel fields, from coordinates that are
-    the pixel grid plus an N(0, 3) residue (``realistic``: neighbouring
-    pixels read neighbouring rows) or uniform over the image and a
-    2-pixel margin outside it."""
+    """The row gather's operands for ``n`` random images ``(h, w, c)``: the
+    packed table and the per-pixel fields, from realistic coordinates (see
+    :func:`realistic_operands`) or from ones uniform over the image and a
+    2-pixel margin."""
     import torch
 
     from vsrlab_tpu_torch.ops.warp import packed_fields, packed_table
 
-    g = torch.Generator().manual_seed(seed)
-    x = torch.randn((n, h, w, c), generator=g).to(device, dtype)
     if realistic:
-        ys, xs = torch.meshgrid(torch.arange(h), torch.arange(w), indexing="ij")
-        ix = xs[None] + torch.randn((n, h, w), generator=g) * 3.0
-        iy = ys[None] + torch.randn((n, h, w), generator=g) * 3.0
+        x, ix, iy = realistic_operands(n, h, w, c, dtype, seed, device)
     else:
-        ix = torch.rand((n, h, w), generator=g) * (w + 3) - 2
-        iy = torch.rand((n, h, w), generator=g) * (h + 3) - 2
-    fields = packed_fields(ix.to(device), iy.to(device), h, w, gp, "zeros")
-    return packed_table(x, gp), fields
+        g = torch.Generator().manual_seed(seed)
+        x = torch.randn((n, h, w, c), generator=g).to(device, dtype)
+        ix = (torch.rand((n, h, w), generator=g) * (w + 3) - 2).to(device)
+        iy = (torch.rand((n, h, w), generator=g) * (h + 3) - 2).to(device)
+    return packed_table(x, gp), packed_fields(ix, iy, h, w, gp, "zeros")
 
 
-def check_packed(name, xf, fields, c, tol, label) -> float:
-    """max |kernel - plain| of one packed-gather kernel; raises beyond
-    ``tol + tol*|plain|`` (the row gather moves bits: it must be exact)."""
+def check_gather(xf, idx, label) -> float:
+    """The row gather moves bits: it must equal its plain version exactly."""
     import torch
 
     from vsrlab_tpu_torch.ops import packed_gather as pg
 
-    if name == "packed_row_gather":
-        got, want, tol = pg.packed_row_gather(xf, fields[0]), \
-            pg.packed_row_gather_plain(xf, fields[0]), 0.0
-    else:
-        got, want = pg.packed_bilinear(xf, *fields, c), pg.packed_bilinear_plain(xf, *fields, c)
+    got, want = pg.packed_row_gather(xf, idx), pg.packed_row_gather_plain(xf, idx)
     torch.cuda.synchronize()
-    err = (got.float() - want.float()).abs()
-    ok = bool(torch.isfinite(got).all()) and bool((err <= tol + tol * want.float().abs()).all())
-    e = float(err.max())
-    log(f"  {label}: max|kernel-plain| = {e:.3e} (tol {tol}) {'ok' if ok else 'FAIL'}")
+    ok = torch.equal(got, want)
+    log(f"  {label}: {'equal' if ok else 'DIFFERENT'}")
     if not ok:
         raise AssertionError(f"{label} disagrees with the plain version")
-    return e
+    return 0.0
 
 
-def check_packed_kernels(device):
-    """Phase 2 for the packed-gather kernels. Returns ``{name: {"fp32": err, "bf16": err}}``."""
+def check_gather_kernel(device) -> dict:
+    """Phase 2 for ``packed_row_gather``. Returns ``{"fp32": err, "bf16": err}``."""
     import torch
 
-    errs = {name: {} for name in PACKED_KERNELS}
     for dname, dtype in (("fp32", torch.float32), ("bf16", torch.bfloat16)):
         for n, h, w, c, gp in PACKED_CHECKS:
             for realistic in (True, False):
                 xf, fields = packed_operands(n, h, w, c, gp, dtype, realistic, 3, device)
-                for name in PACKED_KERNELS:
-                    label = (f"{name:17s} {dname} {tuple(xf.shape)} x {fields[0].shape[1]} "
-                             f"{'realistic' if realistic else 'random'}")
-                    e = check_packed(name, xf, fields, c, TOL[dname], label)
-                    errs[name][dname] = max(errs[name].get(dname, 0.0), e)
+                check_gather(xf, fields[0], f"packed_row_gather {dname} {tuple(xf.shape)} x "
+                             f"{fields[0].shape[1]} {'realistic' if realistic else 'random'}")
                 del xf, fields
-    return errs
+    return {"fp32": 0.0, "bf16": 0.0}
 
 
-def packed_bound(name, shape, itemsize=2) -> tuple[float, str]:
-    """Least time (ms) for one launch at ``shape`` ``(N, R, Wrow, P)``: the
-    table and every per-pixel field read once, the output written once,
-    over the HBM rate, against the fused fold's 8 fp32 operations for each
-    output element."""
-    n, r, wrow, p = shape
-    table = n * r * wrow * itemsize
-    if name == "packed_row_gather":
-        nbytes, flops = table + n * p * 4 + n * p * wrow * itemsize, 0
+def sampler_bound(name, shape, itemsize=2) -> tuple[float, str]:
+    """Least time (ms) of one launch, the larger of its bytes over the HBM
+    rate and its operations over the fp32 rate:
+
+    * ``bilinear_sample``, shape ``(N, H, W, C, P)``: the image read once,
+      8 bytes of coordinates a pixel, the output written once,
+      ``N * (H*W*C*itemsize + 8*P + P*C*itemsize)`` bytes, against
+      ``8 * N*P*C`` FLOP (four weighted corners an output element);
+    * ``packed_row_gather``, shape ``(N, R, Wrow, P)``: the table read once,
+      4 bytes of index a pixel, the rows written once, no arithmetic.
+    """
+    if name == "bilinear_sample":
+        n, h, w, c, p = shape
+        nbytes = n * (h * w * c * itemsize + 8 * p + p * c * itemsize)
+        flops = 8 * n * p * c
     else:
-        c = wrow // (4 * VRT_GP)
-        nbytes, flops = table + 7 * n * p * 4 + n * p * c * itemsize, 8 * n * p * c
+        n, r, wrow, p = shape
+        nbytes, flops = n * (r * wrow * itemsize + 4 * p + p * wrow * itemsize), 0
     t_ops, t_bytes = flops / PEAK_FP32_FLOPS * 1e3, nbytes / PEAK_BYTES * 1e3
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
-def time_packed_kernel(name, launches_by_shape, device):
-    """Phase 5 for one packed-gather kernel: at each shape the VRT path
-    gave it (bf16, realistic coordinates), a check against the plain
-    version and per-launch times. Returns the largest error and one row
-    per shape."""
+def time_sampler(launches_by_shape, device):
+    """Phase 5 for ``bilinear_sample``: at each shape the VRT path gave it
+    (bf16, realistic coordinates), a check against the plain version, then
+    device times by CUDA-graph replay of the kernel, the plain version and
+    one ``F.grid_sample`` call (NCHW, the normalised grid, align_corners,
+    zeros; timed only) on the same operands. Returns the largest error and
+    one row per shape."""
     import torch
     import torch.nn.functional as F
 
-    from vsrlab_tpu_torch.ops import packed_gather as pg
-    from vsrlab_tpu_torch.ops.warp import packed_fields, packed_table, sample_pixel_coords
+    from vsrlab_tpu_torch.ops import bilinear_sample as bs
 
     err, rows = 0.0, []
+    for shape, count in sorted(launches_by_shape.items()):
+        n, h, w, c, p = shape
+        x, ix, iy = realistic_operands(n, h, w, c, torch.bfloat16, h, device)
+        fx, fy = ix.reshape(n, -1), iy.reshape(n, -1)
+        err = max(err, check_sampler(x, fx, fy, True, TOL["bf16"],
+                                     f"bilinear_sample bf16 {shape}"))
+        xc = x.permute(0, 3, 1, 2).contiguous()
+        grid = torch.stack([2 * ix / (w - 1) - 1, 2 * iy / (h - 1) - 1], -1).bfloat16()
+        b_ms, b_by = sampler_bound("bilinear_sample", shape)
+        row = {"shape": list(shape), "launches": count,
+               "ms": graph_ms(lambda: bs.bilinear_sample(x, fx, fy, True)),
+               "plain_ms": graph_ms(lambda: bs.bilinear_sample_plain(x, fx, fy, True), calls=3),
+               "library_ms": graph_ms(
+                   lambda: F.grid_sample(xc, grid, "bilinear", "zeros", align_corners=True)),
+               "bound_ms": b_ms, "bound_by": b_by}
+        row["share_of_bound"] = b_ms / row["ms"]
+        log(f"  bilinear_sample   bf16 {shape} x{count}: kernel {row['ms']:.4f} ms "
+            f"({100 * row['share_of_bound']:.1f} % of its bound, {b_ms:.4f} ms by {b_by}), plain "
+            f"{row['plain_ms']:.4f} ms, F.grid_sample {row['library_ms']:.4f} ms (graph replay)")
+        rows.append(row)
+        del x, ix, iy, fx, fy, xc, grid
+    return err, rows
+
+
+def time_gather(launches_by_shape, device):
+    """Phase 5 for ``packed_row_gather``: at each shape the VRT path gave it
+    (bf16, the same realistic operands as :func:`time_sampler` at that image
+    size), a check against the plain version, then device times by
+    CUDA-graph replay of the kernel, the plain version and one
+    ``index_select`` of the flattened table (timed only), and beside them
+    the torch ops of the ``take`` route that build the table and the fields.
+    Returns the largest error and one row per shape."""
+    import torch
+
+    from vsrlab_tpu_torch.ops import packed_gather as pg
+    from vsrlab_tpu_torch.ops.warp import packed_fields, packed_table
+
+    rows = []
     for shape, count in sorted(launches_by_shape.items()):
         n, r, wrow, p = shape
         h = w = int(round(p ** 0.5))
         c = wrow // (4 * VRT_GP)
-        xf, fields = packed_operands(n, h, w, c, VRT_GP, torch.bfloat16, True, 7, device)
-        if tuple(xf.shape) != (n, r, wrow) or fields[0].shape[1] != p:
+        x, ix, iy = realistic_operands(n, h, w, c, torch.bfloat16, h, device)
+        xf, fields = packed_table(x, VRT_GP), packed_fields(ix, iy, h, w, VRT_GP, "zeros")
+        idx = fields[0]
+        if tuple(xf.shape) != (n, r, wrow) or idx.shape[1] != p:
             raise AssertionError(f"cannot rebuild the operands of shape {shape}")
-        err = max(err, check_packed(name, xf, fields, c, TOL["bf16"], f"{name:17s} bf16 {shape}"))
-        library_ms = None
-        if name == "packed_row_gather":
-            idx = fields[0]
-            flat = xf.reshape(-1, wrow)
-            lin = (idx.long() + torch.arange(n, device=device)[:, None] * r).reshape(-1)
-            fn, plain = (lambda: pg.packed_row_gather(xf, idx)), \
-                (lambda: pg.packed_row_gather_plain(xf, idx))
-            library_ms = cuda_ms(lambda: flat.index_select(0, lin), 3)
-        else:
-            fn, plain = (lambda: pg.packed_bilinear(xf, *fields, c)), \
-                (lambda: pg.packed_bilinear_plain(xf, *fields, c))
-        b_ms, b_by = packed_bound(name, shape)
-        row = {"shape": list(shape), "launches": count, "ms": cuda_ms(fn, 3),
-               "plain_ms": cuda_ms(plain, 3), "library_ms": library_ms,
-               "bound_ms": b_ms, "bound_by": b_by}
-        lib = "none" if library_ms is None else f"{library_ms:.4f} ms"
-        log(f"  {name:17s} bf16 {shape} x{count}: kernel {row['ms']:.4f} ms, plain "
-            f"{row['plain_ms']:.4f} ms, library {lib}, bound {b_ms:.4f} ms ({b_by})")
-        if name == "packed_bilinear":
-            # what surrounds the kernel in the sampler, and the four-corner
-            # sampler it stands in for, on the same images and coordinates
-            x = torch.randn((n, h, w, c), device=device).bfloat16()
-            ix = torch.rand((n, h, w), device=device) * (w - 1)
-            iy = torch.rand((n, h, w), device=device) * (h - 1)
-            row["table_ms"] = cuda_ms(lambda: packed_table(x, VRT_GP), 3)
-            row["fields_ms"] = cuda_ms(
-                lambda: packed_fields(ix, iy, h, w, VRT_GP, "zeros"), 3)
-            row["four_corner_ms"] = cuda_ms(
-                lambda: sample_pixel_coords(x, ix, iy, padding_mode="zeros"), 3)
-            # the library's sampler on the same images and coordinates, in
-            # its own layout (NCHW, normalised grid); timed only
-            xc = x.permute(0, 3, 1, 2).contiguous()
-            grid = torch.stack([2 * ix / (w - 1) - 1, 2 * iy / (h - 1) - 1], -1).bfloat16()
-            row["grid_sample_ms"] = cuda_ms(
-                lambda: F.grid_sample(xc, grid, "bilinear", "zeros", align_corners=True), 3)
-            log(f"  {'':17s} around it: table {row['table_ms']:.4f} ms, fields "
-                f"{row['fields_ms']:.4f} ms; four-corner sampler {row['four_corner_ms']:.4f} ms; "
-                f"F.grid_sample {row['grid_sample_ms']:.4f} ms")
-            del x, ix, iy, xc, grid
+        check_gather(xf, idx, f"packed_row_gather bf16 {shape}")
+        flat = xf.reshape(-1, wrow)
+        lin = (idx.long() + torch.arange(n, device=device)[:, None] * r).reshape(-1)
+        b_ms, b_by = sampler_bound("packed_row_gather", shape)
+        row = {"shape": list(shape), "launches": count,
+               "ms": graph_ms(lambda: pg.packed_row_gather(xf, idx)),
+               "plain_ms": graph_ms(lambda: pg.packed_row_gather_plain(xf, idx), calls=3),
+               "library_ms": graph_ms(lambda: flat.index_select(0, lin)),
+               "bound_ms": b_ms, "bound_by": b_by,
+               "table_ms": graph_ms(lambda: packed_table(x, VRT_GP), calls=5),
+               "fields_ms": graph_ms(lambda: packed_fields(ix, iy, h, w, VRT_GP, "zeros"),
+                                     calls=5)}
+        row["share_of_bound"] = b_ms / row["ms"]
+        log(f"  packed_row_gather bf16 {shape} x{count}: kernel {row['ms']:.4f} ms "
+            f"({100 * row['share_of_bound']:.1f} % of its bound, {b_ms:.4f} ms by {b_by}), plain "
+            f"{row['plain_ms']:.4f} ms, index_select {row['library_ms']:.4f} ms; the take "
+            f"route's table {row['table_ms']:.4f} ms and fields {row['fields_ms']:.4f} ms "
+            "(graph replay)")
         rows.append(row)
-        del xf, fields
-    return err, rows
+        del x, ix, iy, xf, fields, idx, flat, lin
+    return 0.0, rows
+
+
+def sampler_times(tree: str) -> int:
+    """``--sampler-times [TREE]``: only the device time of the ``fused``
+    sampler's whole route (``sample_pixel_coords(impl="fused")``, everything
+    it runs on the card) at the VRT request's four image sizes, bf16, on
+    realistic coordinates, by graph replay, for the package in TREE (default:
+    this checkout). Two trees of the port are compared by one such run each,
+    one after the other on one card."""
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is False", file=sys.stderr)
+        return 1
+    sys.path.insert(0, os.path.abspath(tree))
+    from vsrlab_tpu_torch.ops.warp import sample_pixel_coords
+
+    device = torch.device("cuda")
+    log(card_line())
+    n = VRT_CLIP[0] * (VRT_CLIP[1] - 1) * VRT_GROUPS
+    times = {}
+    for s in sorted(set(VRT_SCALES), reverse=True):
+        h, w = VRT_CLIP[2] // s, VRT_CLIP[3] // s
+        x, ix, iy = realistic_operands(n, h, w, VRT_CG, torch.bfloat16, h, device)
+        times[f"{h}x{w}"] = graph_ms(
+            lambda: sample_pixel_coords(x, ix, iy, window_group=VRT_GP, impl="fused"), calls=5)
+        del x, ix, iy
+    log(json.dumps({"sampler_route_ms": times, "tree": tree}))
+    return 0
+
+
+def tile_fit(ix, iy, h, w, c, itemsize=2, tile=(16, 32), budget=48 * 1024) -> float:
+    """Share of the sampler kernel's tiles (``tile`` output rows x columns of
+    the ``(h, w)`` sample grid) whose corner box (the rows and the 16-byte
+    words of the columns their corners lie in, clamped into the image) fits
+    ``budget`` bytes: the staged variant's rule."""
+    import torch
+    import torch.nn.functional as F
+
+    n = ix.shape[0]
+    wp = c * itemsize // 4
+    fx = torch.floor(ix).nan_to_num(0.0).reshape(n, h, w)
+    fy = torch.floor(iy).nan_to_num(0.0).reshape(n, h, w)
+    sx = fx.clamp(0, w - 1).clamp(max=w - 2)
+    ya, yb = fy.clamp(0, h - 1), (fy + 1).clamp(0, h - 1)
+    th, tw = tile
+
+    def reduce(v, fn, fill):
+        v = F.pad(v, (0, -w % tw, 0, -h % th), value=fill)
+        return fn(v.reshape(n, v.shape[1] // th, th, v.shape[2] // tw, tw), (2, 4))
+
+    rows = reduce(yb, torch.amax, -1.0) - reduce(ya, torch.amin, float(h)) + 1
+    cols = reduce(sx, torch.amax, -1.0) + 2 - reduce(sx, torch.amin, float(w))
+    pitch = torch.floor((cols * wp * 4 + 30) / 16)
+    return float((rows * pitch * 16 <= budget).float().mean())
+
+
+def sampler_variants() -> int:
+    """``--sampler-variants``: the sampler kernel's direct and staged
+    variants at the VRT request's four image sizes, on the coordinates the
+    request itself hands the sampler (its first call at each size) and on
+    realistic ones: device ms by graph replay, the share of tiles whose
+    corner box fits the staged variant's shared memory, the coordinates'
+    distance from the pixel grid, and whether the variants agree bitwise."""
+    import torch
+
+    from vsrlab_tpu_torch.evaluation.harness import make_forward
+    from vsrlab_tpu_torch.ops import bilinear_sample as bs
+    from vsrlab_tpu_torch.ops import warp
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is False", file=sys.stderr)
+        return 1
+    device = torch.device("cuda")
+    card = card_line()
+    log(card)
+    seen, real = {}, warp.bilinear_sample
+
+    def capture(x, ix, iy, zeros):
+        seen.setdefault((*x.shape, ix.shape[1]), (x.clone(), ix.clone(), iy.clone(), zeros))
+        return real(x, ix, iy, zeros)
+
+    warp.bilinear_sample = capture
+    model = build_vrt(torch.bfloat16, img_size=VRT_CLIP[1:4])
+    make_forward(model, device)(torch.rand(VRT_CLIP, generator=torch.Generator().manual_seed(2)))
+    warp.bilinear_sample = real
+    del model
+    torch.cuda.empty_cache()
+    rows = {}
+    for key, (x, ix, iy, zeros) in sorted(seen.items()):
+        n, h, w, c, p = key
+        _, rx, ry = realistic_operands(n, h, w, c, torch.bfloat16, h, device)
+        gx = torch.arange(p, device=device) % w
+        for kind, (cx, cy) in (("vrt", (ix, iy)), ("realistic", (rx.reshape(n, -1),
+                                                                   ry.reshape(n, -1)))):
+            direct = bs.bilinear_sample(x, cx, cy, zeros, _variant="direct_")
+            staged = bs.bilinear_sample(x, cx, cy, zeros)
+            residue = (cx - gx).abs()
+            row = {"direct_ms": graph_ms(
+                       lambda: bs.bilinear_sample(x, cx, cy, zeros, _variant="direct_")),
+                   "staged_ms": graph_ms(lambda: bs.bilinear_sample(x, cx, cy, zeros)),
+                   "tiles_that_fit": tile_fit(cx, cy, h, w, c),
+                   "bitwise_equal": bool(torch.equal(direct, staged)),
+                   "x_residue_mean": float(residue.mean()),
+                   "x_residue_p99": float(torch.quantile(residue.flatten()[:2**24].float(),
+                                                         0.99))}
+            row["bound_ms"] = sampler_bound("bilinear_sample", key)[0]
+            rows[f"{h}x{w} {kind}"] = row
+            log(f"  {h}x{w} {kind}: {row}")
+            del direct, staged, residue
+    log(json.dumps({"sampler_variants": rows, "card": card}))
+    return 0
 
 
 def module_breakdown(model, request, classes) -> dict:
@@ -584,38 +805,59 @@ def build_vrt(dtype, tiny=False, **kw):
     return model
 
 
-def expected_vrt_launches(clip_shape, scales=VRT_SCALES, groups=VRT_GROUPS, cg=VRT_CG,
+def expected_vrt_launches(clip_shape, kernel, scales=VRT_SCALES, groups=VRT_GROUPS, cg=VRT_CG,
                           gp=VRT_GP):
-    """Sampler launches of one VRT forward by ``(N, R, Wrow, P)``: at every
-    stage 2 directions x 9 taps over ``B*(T-1)*groups`` images."""
+    """Sampler launches of one VRT forward through ``kernel``: at every
+    stage 2 directions x 9 taps over ``B*(T-1)*groups`` images, keyed as the
+    wrapper counts them: ``(N, H, W, C, P)`` for ``bilinear_sample``,
+    ``(N, R, Wrow, P)`` for ``packed_row_gather``."""
     import collections
 
     b, t, h, w, _ = clip_shape
+    n = b * (t - 1) * groups
     want = collections.Counter()
     for s in scales:
         hs, ws = h // s, w // s
-        rows = (max(hs, 2) - 1) * (max(-(-ws // gp), 2) - 1)
-        want[(b * (t - 1) * groups, rows, 4 * gp * cg, hs * ws)] += 18
+        if kernel == "bilinear_sample":
+            want[(n, hs, ws, cg, hs * ws)] += 18
+        else:
+            rows = (max(hs, 2) - 1) * (max(-(-ws // gp), 2) - 1)
+            want[(n, rows, 4 * gp * cg, hs * ws)] += 18
     return want
+
+
+def vrt_wrappers() -> dict:
+    """The VRT path's kernel wrappers by name."""
+    from vsrlab_tpu_torch.ops import bilinear_sample as bs
+    from vsrlab_tpu_torch.ops import packed_gather as pg
+
+    return {"bilinear_sample": bs.bilinear_sample, "packed_row_gather": pg.packed_row_gather}
+
+
+def reset_vrt_counts() -> None:
+    from vsrlab_tpu_torch.ops import bilinear_sample as bs
+    from vsrlab_tpu_torch.ops import packed_gather as pg
+
+    bs.reset_launch_counts()
+    pg.reset_launch_counts()
 
 
 def run_vrt_path(model, clip, device):
     """Phase 4's served requests: one ``make_forward`` request over ``clip``
     with the fused sampler kernel, then one with the row gather kernel.
-    Returns both outputs and each packed-gather kernel's launches by shape,
-    per request; the residual pair's count is read too (it must stay 0)."""
+    Returns both outputs and each sampler kernel's launches by shape, per
+    request; the residual pair's count is read too (it must stay 0)."""
     from vsrlab_tpu_torch.evaluation.harness import make_forward
     from vsrlab_tpu_torch.nn.blocks import set_sampler_impl
-    from vsrlab_tpu_torch.ops import packed_gather as pg
     from vsrlab_tpu_torch.ops import residual_pair as rp
 
-    wrappers = {"packed_row_gather": pg.packed_row_gather, "packed_bilinear": pg.packed_bilinear}
+    wrappers = vrt_wrappers()
 
     def counts():
         return {name: fn.launches_by_shape.copy() for name, fn in wrappers.items()}
 
     forward = make_forward(model, device)
-    pg.reset_launch_counts()
+    reset_vrt_counts()
     rp.reset_launch_counts()
     seen, calls, out = counts(), {}, {}
     for impl in ("fused", "take"):
@@ -658,20 +900,22 @@ def tiny_vrt_phase(device, card) -> None:
     from vsrlab_tpu_torch.evaluation.harness import make_forward
     from vsrlab_tpu_torch.evaluation.tiled import tiled_forward
     from vsrlab_tpu_torch.nn.blocks import set_sampler_impl
-    from vsrlab_tpu_torch.ops import packed_gather as pg
     from vsrlab_tpu_torch.ops.warp import sample_pixel_coords
+
+    sampler, gather = vrt_wrappers().values()
 
     shape = (1, 6, 64, 64, 3)
     model = build_vrt(torch.bfloat16, tiny=True)
     forward = make_forward(model, device)
     g = torch.Generator().manual_seed(3)
     clip = torch.rand(shape, generator=g)
-    pg.reset_launch_counts()
+    reset_vrt_counts()
     fused = forward(clip)
-    got = pg.packed_bilinear.launches_by_shape.copy()
-    want = expected_vrt_launches(shape, scales=(1, 2, 4, 2, 1), groups=4, cg=8)
-    log(f"  TinyVRT {shape}: packed_bilinear launches by (N, R, Wrow, P): {dict(got)}")
-    if got != want or pg.packed_row_gather.launches:
+    got = sampler.launches_by_shape.copy()
+    want = expected_vrt_launches(shape, "bilinear_sample", scales=(1, 2, 4, 2, 1), groups=4,
+                                 cg=8)
+    log(f"  TinyVRT {shape}: bilinear_sample launches by (N, H, W, C, P): {dict(got)}")
+    if got != want or gather.launches:
         raise AssertionError(f"TinyVRT: launches {dict(got)} != expected {dict(want)}")
     if tuple(fused.shape) != (1, 6, 256, 256, 3) or not bool(torch.isfinite(fused).all()):
         raise AssertionError(f"TinyVRT: shape {tuple(fused.shape)} or non-finite")
@@ -692,29 +936,31 @@ def tiny_vrt_phase(device, card) -> None:
     log(json.dumps({"tiny_vrt_fps": shape[1] / statistics.median(times), "card": card}))
 
     big = torch.rand((1, 6, 96, 96, 3), generator=g)
-    pg.reset_launch_counts()
+    reset_vrt_counts()
     out = tiled_forward(forward, big, tile=(64, 64), overlap=16)
-    tiles = pg.packed_bilinear.launches // sum(want.values())
+    tiles = sampler.launches // sum(want.values())
     log(f"  tiled_forward (1, 6, 96, 96, 3), 64x64 tiles, overlap 16: {tuple(out.shape)}, "
-        f"{tiles} tiles, {pg.packed_bilinear.launches} sampler launches")
+        f"{tiles} tiles, {sampler.launches} sampler launches")
     if (tuple(out.shape) != (1, 6, 384, 384, 3) or not bool(torch.isfinite(out).all())
-            or pg.packed_bilinear.launches != 4 * sum(want.values())):
+            or sampler.launches != 4 * sum(want.values())):
         raise AssertionError("tiled_forward: wrong shape, non-finite or not 4 tiles")
 
-    # 4 channels an offset group: 8 x-positions a row, so the 8x8 stage is
+    # 4 channels an offset group: C = 4 for the sampler kernel, and 8
+    # x-positions a table row for the row gather, so that the 8x8 stage is
     # one x-group wide and its table is padded to one window
     shape = (1, 4, 32, 32, 3)
     kw = dict(tiny=True, window_size=(2, 4, 4), deformable_groups=8)
     model = build_vrt(torch.bfloat16, **kw)
     forward = make_forward(model, device)
     clip = torch.rand(shape, generator=g)
-    pg.reset_launch_counts()
+    reset_vrt_counts()
     fused = forward(clip)
-    got = pg.packed_bilinear.launches_by_shape.copy()
-    want = expected_vrt_launches(shape, scales=(1, 2, 4, 2, 1), groups=8, cg=4, gp=8)
-    log(f"  TinyVRT, 4 channels a group, {shape}: packed_bilinear launches by "
-        f"(N, R, Wrow, P): {dict(got)}")
-    if got != want or (24, 7, 128, 64) not in got or pg.packed_row_gather.launches:
+    got = sampler.launches_by_shape.copy()
+    want = expected_vrt_launches(shape, "bilinear_sample", scales=(1, 2, 4, 2, 1), groups=8,
+                                 cg=4)
+    log(f"  TinyVRT, 4 channels a group, {shape}: bilinear_sample launches by "
+        f"(N, H, W, C, P): {dict(got)}")
+    if got != want or (24, 8, 8, 4, 64) not in got or gather.launches:
         raise AssertionError(f"TinyVRT: launches {dict(got)} != expected {dict(want)}")
     if tuple(fused.shape) != (1, 4, 128, 128, 3) or not bool(torch.isfinite(fused).all()):
         raise AssertionError(f"TinyVRT: shape {tuple(fused.shape)} or non-finite")
@@ -723,13 +969,14 @@ def tiny_vrt_phase(device, card) -> None:
     x = torch.randn((24, 8, 8, 4), generator=g).to(device, torch.bfloat16)
     ix, iy = (torch.rand((2, 24, 8, 8), generator=g) * 11 - 2).to(device)
     want = sample_pixel_coords(x, ix, iy, impl="plain").float()
-    for impl, wrapper in (("fused", pg.packed_bilinear), ("take", pg.packed_row_gather)):
-        before = wrapper.launches_by_shape[(24, 7, 128, 64)]
+    for impl, wrapper, key in (("fused", sampler, (24, 8, 8, 4, 64)),
+                               ("take", gather, (24, 7, 128, 64))):
+        before = wrapper.launches_by_shape[key]
         err = (sample_pixel_coords(x, ix, iy, impl=impl).float() - want).abs()
         ok = bool((err <= TOL["bf16"] * (1 + want.abs())).all())
-        log(f"  {impl} sampler on 24 images of 8x8x4 (one padded window a row): "
+        log(f"  {impl} sampler on 24 images of 8x8x4 (take: one padded window a row): "
             f"max|{impl}-plain| = {float(err.max()):.3e} {'ok' if ok else 'FAIL'}")
-        if not ok or wrapper.launches_by_shape[(24, 7, 128, 64)] != before + 1:
+        if not ok or wrapper.launches_by_shape[key] != before + 1:
             raise AssertionError(f"{impl} sampler disagrees or launched no kernel at 8x8x4")
     set_sampler_impl(model, "plain")
     plain = forward(clip).float()
@@ -740,7 +987,7 @@ def tiny_vrt_phase(device, card) -> None:
 
 
 def vrt_phase(device, card):
-    """Phase 4. Returns each packed-gather kernel's launches by shape."""
+    """Phase 4. Returns each sampler kernel's launches by shape."""
     import torch
 
     from vsrlab_tpu_torch.evaluation.harness import make_forward
@@ -756,9 +1003,9 @@ def vrt_phase(device, card):
     log(f"  served 2 requests in {time.perf_counter() - t0:.2f} s (first use included), "
         f"peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     want_shape = (VRT_CLIP[0], VRT_CLIP[1], 4 * VRT_CLIP[2], 4 * VRT_CLIP[3], 3)
-    uses = {"fused": "packed_bilinear", "take": "packed_row_gather"}
-    want = expected_vrt_launches(VRT_CLIP)
+    uses = {"fused": "bilinear_sample", "take": "packed_row_gather"}
     for impl, kernel in uses.items():
+        want = expected_vrt_launches(VRT_CLIP, kernel)
         out = res[impl]
         if tuple(out.shape) != want_shape or not bool(torch.isfinite(out).all()):
             raise AssertionError(f"{impl}: shape {tuple(out.shape)} (want {want_shape}) "
@@ -766,7 +1013,7 @@ def vrt_phase(device, card):
         log(f"  {impl}: {tuple(out.shape)} finite, range [{float(out.min()):.3f}, "
             f"{float(out.max()):.3f}]")
         for name, by_shape in res["calls"][impl].items():
-            log(f"  {impl} request, {name} launches by (N, R, Wrow, P): {dict(by_shape)}")
+            log(f"  {impl} request, {name} launches by shape: {dict(by_shape)}")
             # all 126 sampler calls at their expected shapes, and the other
             # kernel was not launched
             if by_shape != (want if name == kernel else {}):
@@ -805,7 +1052,7 @@ def vrt_phase(device, card):
         "upload included)")
     log(json.dumps({"vrt_fps": fps, "card": card}))
     log(json.dumps({"profile_vrt_fused": profile_request(
-        lambda: forward(clip), seconds["fused"], ours=("packed_",))}))
+        lambda: forward(clip), seconds["fused"], ours=("bilinear_sample",))}))
     from vsrlab_tpu_torch.models.vrt import FlowGuidedDeformAlign, MlpGEGLU, WindowAttention
     from vsrlab_tpu_torch.nn.blocks import LayerNorm
 
@@ -1033,7 +1280,7 @@ def main() -> int:
     log(card)
     # one nvcc for each source, started together
     with concurrent.futures.ThreadPoolExecutor() as pool:
-        libs = list(pool.map(load, ("residual_pair", "packed_gather")))
+        libs = list(pool.map(load, ("residual_pair", "packed_gather", "bilinear_sample")))
     for lib in libs:
         log(f"  kernels built in {lib.build_seconds:.1f} s -> {lib.path.name}")
         for line in lib.log.splitlines():
@@ -1042,14 +1289,15 @@ def main() -> int:
 
     log("phase 2: kernels against their plain version")
     errs = check_kernels(device)
-    packed_errs = check_packed_kernels(device)
+    vrt_errs = {"bilinear_sample": check_sampler_kernel(device),
+                "packed_row_gather": check_gather_kernel(device)}
 
     log("phase 3: RealBasicVSR path (4x, mid 64, 30+20 blocks, bf16)")
     pair_launches = realbasicvsr_phase(device, card)
     torch.cuda.empty_cache()
 
     log("phase 4: VRT path (4x, paper configuration, 16x256x256 request, bf16)")
-    packed_launches = vrt_phase(device, card)
+    vrt_launches = vrt_phase(device, card)
     torch.cuda.empty_cache()
     tiny_vrt_phase(device, card)
     torch.cuda.empty_cache()
@@ -1060,11 +1308,11 @@ def main() -> int:
         err, rows = time_kernel(form, pair_launches[form], device)
         kernels.append({"name": name, "route": "cuda", "source": SOURCE, "replaces": replaces,
                         **kernel_summary(rows, err, errs[form])})
-    for name, (replaces, also) in PACKED_KERNELS.items():
-        err, rows = time_packed_kernel(name, packed_launches[name], device)
-        kernels.append({"name": name, "route": "cuda", "source": PACKED_SOURCE,
-                        "replaces": replaces, "also_replaces": also,
-                        **kernel_summary(rows, err, packed_errs[name])})
+    timers = {"bilinear_sample": time_sampler, "packed_row_gather": time_gather}
+    for name, (source, replaces, also) in VRT_KERNELS.items():
+        err, rows = timers[name](vrt_launches[name], device)
+        kernels.append({"name": name, "route": "cuda", "source": source, "replaces": replaces,
+                        "also_replaces": also, **kernel_summary(rows, err, vrt_errs[name])})
     pair_host_split(device)
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu",
@@ -1074,6 +1322,11 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    tree = sys.argv[2] if len(sys.argv) > 2 else os.path.dirname(__file__)
     if sys.argv[1:2] == ["--pair-times"]:
-        sys.exit(pair_times(sys.argv[2] if len(sys.argv) > 2 else os.path.dirname(__file__)))
+        sys.exit(pair_times(tree))
+    if sys.argv[1:2] == ["--sampler-times"]:
+        sys.exit(sampler_times(tree))
+    if sys.argv[1:2] == ["--sampler-variants"]:
+        sys.exit(sampler_variants())
     sys.exit(main())

@@ -1,6 +1,6 @@
-"""vsrlab_tpu_torch's CUDA kernels on the card (the residual pair and the
-packed gather): agreement with the plain version at ragged shapes, the
-launch counter, and the wrapper's refusals.
+"""vsrlab_tpu_torch's CUDA kernels on the card (the residual pair, the
+bilinear sampler and the packed row gather): agreement with the plain
+version at ragged shapes, the launch counter, and the wrappers' refusals.
 
 Skips without a CUDA device. On a machine with a card and no JAX, run
 without the JAX test configuration:
@@ -12,6 +12,7 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from vsrlab_tpu_torch.ops import bilinear_sample as bs  # noqa: E402
 from vsrlab_tpu_torch.ops import packed_gather as pg  # noqa: E402
 from vsrlab_tpu_torch.ops import warp  # noqa: E402
 from vsrlab_tpu_torch.nn.blocks import ResidualConv  # noqa: E402
@@ -207,25 +208,77 @@ def _packed_operands(n, h, w, c, gp, dtype, device, seed=0):
 PACKED_SHAPES = [(3, 9, 13, 10, 2), (2, 7, 10, 3, 1), (5, 16, 16, 8, 2)]
 
 
-@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4), (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("shape", PACKED_SHAPES)
-def test_packed_kernels_match_plain(cuda, dtype, tol, shape):
+def test_packed_kernels_match_plain(cuda, dtype, shape):
     xf, fields = _packed_operands(*shape, dtype, cuda)
     key = (*xf.shape, fields[0].shape[1])
-    before = (pg.packed_row_gather.launches_by_shape[key], pg.packed_bilinear.launches_by_shape[key])
+    before = pg.packed_row_gather.launches_by_shape[key]
     rows = pg.packed_row_gather(xf, fields[0])
-    out = pg.packed_bilinear(xf, *fields, shape[3])
     torch.cuda.synchronize()
-    assert pg.packed_row_gather.launches_by_shape[key] == before[0] + 1
-    assert pg.packed_bilinear.launches_by_shape[key] == before[1] + 1
-    assert rows.dtype == dtype and out.dtype == dtype
+    assert pg.packed_row_gather.launches_by_shape[key] == before + 1
+    assert rows.dtype == dtype
     assert torch.equal(rows, pg.packed_row_gather_plain(xf, fields[0]))
-    torch.testing.assert_close(out.float(), pg.packed_bilinear_plain(xf, *fields, shape[3]).float(),
-                               rtol=tol, atol=tol)
 
 
-# (H, W, C, window_group): the last three hold no whole window (one x-group,
-# one row, one column) and sample a table padded to one
+def _sample_coords(n, h, w, kind, g):
+    """(N, H*W) coordinates: the pixel grid plus an N(0, 3) residue, uniform
+    over the image and a 2-pixel margin, or uniform over three image sizes
+    on each side (most corners outside)."""
+    if kind == "realistic":
+        ys, xs = torch.meshgrid(torch.arange(h), torch.arange(w), indexing="ij")
+        ix = xs[None] + torch.randn((n, h, w), generator=g) * 3.0
+        iy = ys[None] + torch.randn((n, h, w), generator=g) * 3.0
+    else:
+        lo, span = (-2.0, 3.0) if kind == "uniform" else (-3.0 * max(h, w), 6.0 * max(h, w))
+        ix = torch.rand((n, h, w), generator=g) * (w + span) + lo
+        iy = torch.rand((n, h, w), generator=g) * (h + span) + lo
+    return ix.reshape(n, -1), iy.reshape(n, -1)
+
+
+# (N, H, W, C): the alignment's shape, a row pitch that is no multiple of 16
+# bytes, C = 4, C = 3 (the generic path), one row, one column, one pixel
+SAMPLE_SHAPES = [(180, 32, 32, 10), (3, 9, 13, 10), (24, 8, 8, 4), (3, 9, 13, 3), (2, 1, 5, 10),
+                 (2, 4, 1, 4), (1, 1, 1, 10)]
+
+
+@pytest.mark.parametrize("kind", ["realistic", "uniform", "far"])
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4), (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("shape", SAMPLE_SHAPES)
+def test_bilinear_sample_matches_plain(cuda, dtype, tol, shape, kind):
+    g = torch.Generator().manual_seed(2)
+    x = torch.randn(shape, generator=g).to(cuda, dtype)
+    ix, iy = (t.to(cuda) for t in _sample_coords(*shape[:3], kind, g))
+    key = (*shape, ix.shape[1])
+    for zeros in (True, False):
+        if not zeros:
+            ix, iy = warp._pad_coords(ix, iy, shape[1], shape[2], "border", True)
+        before = bs.bilinear_sample.launches_by_shape[key]
+        got = bs.bilinear_sample(x, ix, iy, zeros)
+        again = bs.bilinear_sample(x, ix, iy, zeros)
+        torch.cuda.synchronize()
+        assert bs.bilinear_sample.launches_by_shape[key] == before + 2
+        assert got.dtype == dtype and got.shape == (*ix.shape, shape[3])
+        assert torch.equal(got, again)
+        torch.testing.assert_close(got.float(), bs.bilinear_sample_plain(x, ix, iy, zeros).float(),
+                                   rtol=tol, atol=tol)
+
+
+def test_bilinear_sample_non_finite_coordinates_give_zero(cuda):
+    x = torch.randn((2, 6, 8, 10), device=cuda).bfloat16()
+    bad = [float("inf"), float("-inf"), float("nan"), 1e30, -1e30]
+    ix = torch.tensor([bad + [3.5, float("nan"), 2.0]] * 2, device=cuda)
+    iy = torch.tensor([[2.0, float("nan"), float("inf"), -1e30, 1e30, 2.5, 1.0, float("inf")]] * 2,
+                      device=cuda)
+    got = bs.bilinear_sample(x, ix, iy, True).float()
+    assert (got[:, :5] == 0).all() and (got[:, 6:] == 0).all()
+    assert torch.isfinite(got).all()
+    torch.testing.assert_close(got, bs.bilinear_sample_plain(x, ix, iy, True).float(),
+                               rtol=2e-2, atol=2e-2)
+
+
+# (H, W, C, window_group): the last three hold no whole window for the
+# packed table (one x-group, one row, one column), which is padded to one
 @pytest.mark.parametrize("size", [(12, 18, 10, 2), (8, 8, 4, None), (1, 5, 3, 2), (4, 1, 4, None)])
 @pytest.mark.parametrize("impl", ["take", "fused"])
 def test_packed_sampler_matches_four_corner_on_the_card(cuda, impl, size):
@@ -234,7 +287,7 @@ def test_packed_sampler_matches_four_corner_on_the_card(cuda, impl, size):
     x = torch.randn((4, h, w, c), generator=g).to(cuda)
     ix = (torch.rand((4, 12, 18), generator=g) * (w + 3) - 2).to(cuda)
     iy = (torch.rand((4, 12, 18), generator=g) * (h + 3) - 2).to(cuda)
-    wrapper = pg.packed_bilinear if impl == "fused" else pg.packed_row_gather
+    wrapper = bs.bilinear_sample if impl == "fused" else pg.packed_row_gather
     before = wrapper.launches
     for padding_mode in ("zeros", "border"):
         want = warp.sample_pixel_coords(x, ix, iy, padding_mode=padding_mode, window_group=gp,
@@ -247,13 +300,21 @@ def test_packed_sampler_matches_four_corner_on_the_card(cuda, impl, size):
 
 def test_packed_kernels_refuse_what_they_do_not_take(cuda):
     xf, fields = _packed_operands(2, 6, 8, 4, 2, torch.bfloat16, cuda)
-    before = (pg.packed_row_gather.launches, pg.packed_bilinear.launches)
+    x = torch.randn((2, 6, 8, 4), device=cuda).bfloat16()
+    ix = torch.zeros((2, 48), device=cuda)
+    before = (pg.packed_row_gather.launches, bs.bilinear_sample.launches)
     with pytest.raises(ValueError, match="bf16 or fp32"):
         pg.packed_row_gather(xf.half(), fields[0])
     with pytest.raises(ValueError, match="contiguous"):
         pg.packed_row_gather(xf.transpose(1, 2), fields[0])
     with pytest.raises(ValueError, match="one CUDA device"):
         pg.packed_row_gather(xf, fields[0].cpu())
+    with pytest.raises(ValueError, match="bf16 or fp32"):
+        bs.bilinear_sample(x.half(), ix, ix, True)
+    with pytest.raises(ValueError, match="contiguous"):
+        bs.bilinear_sample(x.transpose(1, 2), ix, ix, True)
     with pytest.raises(ValueError, match="one CUDA device"):
-        pg.packed_bilinear(xf, *fields[:6], fields[6].cpu(), 4)
-    assert (pg.packed_row_gather.launches, pg.packed_bilinear.launches) == before
+        bs.bilinear_sample(x, ix, ix.cpu(), True)
+    with pytest.raises(ValueError, match="forward-only"):
+        bs.bilinear_sample(x, ix.clone().requires_grad_(), ix, True)
+    assert (pg.packed_row_gather.launches, bs.bilinear_sample.launches) == before

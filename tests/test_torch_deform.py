@@ -1,9 +1,10 @@
 """vsrlab_tpu_torch's sampler, packed gather and deformable conv against
 vsrlab_tpu on the CPU, in fp32, on seeded numpy inputs.
 
-On the CPU the packed-gather wrappers run their plain versions, so
-``impl="take"`` and ``"fused"`` test the packed table, the per-pixel
-fields and the fold that surround the CUDA kernels. Tolerances: 1e-5 where
+On the CPU the kernel wrappers run their plain versions, so
+``impl="take"`` tests the packed table, the per-pixel fields and the fold
+that surround the row gather kernel, and ``impl="fused"`` the function the
+sampler kernel computes. Tolerances: 1e-5 where
 both sides do the same fp32 arithmetic in another order, exact (0) for pure
 gathers.
 """
@@ -19,7 +20,7 @@ from vsrlab_tpu.ops import deform as jdeform  # noqa: E402
 from vsrlab_tpu.ops import warp as jwarp  # noqa: E402
 from vsrlab_tpu_torch import convert  # noqa: E402
 from vsrlab_tpu_torch.nn import blocks  # noqa: E402
-from vsrlab_tpu_torch.ops import deform, packed_gather, warp  # noqa: E402
+from vsrlab_tpu_torch.ops import bilinear_sample, deform, packed_gather, warp  # noqa: E402
 
 ATOL = 1e-5
 IMPLS = ("plain", "take", "fused")
@@ -44,7 +45,7 @@ def _t(*arrays):
 # at C=3); the narrowest shape that holds a window (two x-groups after
 # padding); and shapes that hold none (C=4: gp=8, one x-group; one row; one
 # column; one pixel), which the JAX package gives to its four-corner gather
-# and the port to the same kernels over a table zero-padded to one window
+# and the port to its kernels (``take`` over a table zero-padded to one window)
 SAMPLER_CASES = [(3, 9, 13, 5, 2), (2, 16, 16, 10, 2), (2, 7, 10, 3, None), (2, 6, 3, 10, 2),
                  (2, 8, 8, 4, None), (2, 1, 5, 3, 2), (2, 4, 1, 4, None), (1, 1, 1, 2, None)]
 
@@ -64,10 +65,12 @@ def test_sample_pixel_coords_matches_jax(rng, case, padding_mode, impl):
 
 def test_packed_sampler_takes_the_fallback_only_where_jax_does(rng, monkeypatch):
     """Only the JAX sampler has a four-corner fallback: the port reaches a
-    kernel wrapper at every shape, those included, with the same values."""
+    kernel wrapper at every shape, those included, with the same values.
+    ``fused`` hands the image itself to ``bilinear_sample`` and builds no
+    packed table and no per-pixel fields; ``take`` gathers table rows."""
     calls = []
-    real = {name: getattr(warp, name) for name in ("packed_bilinear", "packed_row_gather")}
-    for name, fn in real.items():
+    for name in ("bilinear_sample", "packed_row_gather", "packed_table", "packed_fields"):
+        fn = getattr(warp, name)
         monkeypatch.setattr(warp, name,
                             lambda *a, fn=fn, name=name: calls.append((name, tuple(a[0].shape)))
                             or fn(*a))
@@ -80,10 +83,12 @@ def test_packed_sampler_takes_the_fallback_only_where_jax_does(rng, monkeypatch)
         jx, jy = jnp.asarray(ix), jnp.asarray(iy)
         fell_back.append(jwarp._bilinear_packed(jnp.asarray(x), jx, jy, "zeros", gp) is None)
         want = np.asarray(jwarp.sample_pixel_coords(jnp.asarray(x), jx, jy, window_group=gp))
-        for impl, wrapper in (("fused", "packed_bilinear"), ("take", "packed_row_gather")):
+        for impl, expect in (("fused", [("bilinear_sample", (n, h, w, c))]),
+                             ("take", [("packed_table", (n, h, w, c)), ("packed_fields", (n, 4, 5)),
+                                       ("packed_row_gather", table)])):
             del calls[:]
             got = warp.sample_pixel_coords(*_t(x, ix, iy), window_group=gp, impl=impl)
-            assert calls == [(wrapper, table)], (n, h, w, c, gp)
+            assert calls == expect, (n, h, w, c, gp)
             np.testing.assert_allclose(got.numpy(), want, atol=ATOL, rtol=0)
     assert fell_back == [False] * 4 + [True] * 4
 
@@ -126,23 +131,6 @@ def test_packed_row_gather_matches_take_formula(rng, dtype):
         np.testing.assert_array_equal(got.float().numpy(), want)
 
 
-@pytest.mark.parametrize("padding_mode", ["zeros", "border"])
-def test_packed_bilinear_plain_matches_jax_bilinear_packed(rng, padding_mode):
-    """Table, fields and fold together are ``_bilinear_packed``."""
-    n, h, w, c, gp = 3, 10, 14, 6, 2
-    x = rng.standard_normal((n, h, w, c)).astype(np.float32)
-    ix, iy = _coords(rng, n, 6, 9, h, w)
-    jx, jy = jwarp._pad_coords(jnp.asarray(ix), jnp.asarray(iy), h, w, padding_mode, True)
-    want = jwarp._bilinear_packed(jnp.asarray(x), jx, jy, padding_mode, gp)
-    tx, ty = warp._pad_coords(*_t(ix, iy), h, w, padding_mode, True)
-    xf = warp.packed_table(torch.from_numpy(x), gp)
-    fields = warp.packed_fields(tx, ty, h, w, gp, padding_mode)
-    assert xf.shape == (n, (h - 1) * (w // gp - 1), 4 * gp * c)
-    for fn in (packed_gather.packed_bilinear, packed_gather.packed_bilinear_plain):
-        got = fn(xf, *fields, c).reshape(n, 6, 9, c)
-        np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=ATOL, rtol=0)
-
-
 def test_packed_wrappers_refuse_what_the_kernels_do_not_take(rng):
     xf, = _t(rng.standard_normal((2, 5, 16)).astype(np.float32))
     idx = torch.zeros((2, 3), dtype=torch.int32)
@@ -153,15 +141,15 @@ def test_packed_wrappers_refuse_what_the_kernels_do_not_take(rng):
         packed_gather.packed_row_gather(xf, idx[:1])
     with pytest.raises(ValueError, match="forward-only"):
         packed_gather.packed_row_gather(xf.clone().requires_grad_(), idx)
-    with pytest.raises(ValueError, match="4\\*gp\\*C"):
-        packed_gather.packed_bilinear(xf, idx, idx, idx, w, w, w, w, 3)
     with pytest.raises(ValueError, match="fp32"):
-        packed_gather.packed_bilinear(xf, idx, idx, idx, w.double(), w, w, w, 2)
+        bilinear_sample.bilinear_sample(torch.zeros(2, 3, 4, 2), w.double(), w, True)
+    with pytest.raises(ValueError, match=r"\(N, P\)"):
+        bilinear_sample.bilinear_sample(torch.zeros(2, 3, 4, 2), w[:1], w[:1], True)
     with pytest.raises(ValueError, match="unknown sampler"):
         warp.sample_pixel_coords(torch.zeros(1, 4, 4, 1), torch.zeros(1, 2, 2),
                                  torch.zeros(1, 2, 2), impl="cudnn")
     assert packed_gather.packed_row_gather.launches == 0  # CPU: no kernel ran
-    assert packed_gather.packed_bilinear.launches == 0
+    assert bilinear_sample.bilinear_sample.launches == 0
 
 
 def _deform_operands(rng, n, h, w, cin, cout, groups, spread):

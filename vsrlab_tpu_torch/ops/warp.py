@@ -5,13 +5,14 @@ Samples at PIXEL coordinates: :func:`flow_warp` adds the flow to the
 integer pixel grid and samples there directly, so an integer flow warps
 bit-exactly (a normalise / ``F.grid_sample`` round trip costs an ulp).
 The bilinear taps have three formulations (``impl``): ``"plain"`` is a
-gather of the four window corners; ``"take"`` and ``"fused"`` are the JAX
-package's packed-window sampler, which packs the image into a table of
-``2 x 2gp x C`` windows and reads ONE table row for each output pixel,
-through the hand-written kernels of
-:mod:`vsrlab_tpu_torch.ops.packed_gather` (``"take"``: the row gather, the
-weights and the fold in torch, as the JAX package ships it; ``"fused"``:
-one kernel for all three).
+gather of the four window corners in torch; ``"fused"`` is one
+hand-written kernel that reads the four corners straight from the
+channels-last image (:mod:`vsrlab_tpu_torch.ops.bilinear_sample`);
+``"take"`` is the JAX package's packed-window sampler, which packs the
+image into a table of ``2 x 2gp x C`` windows and reads ONE table row for
+each output pixel through the row gather kernel of
+:mod:`vsrlab_tpu_torch.ops.packed_gather`, with the weights and the fold
+in torch, as the JAX package ships it.
 
 Conventions: images ``(N, H, W, C)``, grids ``(N, Ho, Wo, 2)`` with
 normalised ``(x, y)`` in [-1, 1], flows ``(N, H, W, 2)`` with pixel
@@ -24,7 +25,8 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from vsrlab_tpu_torch.ops.packed_gather import fold_window, packed_bilinear, packed_row_gather
+from vsrlab_tpu_torch.ops.bilinear_sample import bilinear_sample
+from vsrlab_tpu_torch.ops.packed_gather import fold_window, packed_row_gather
 
 SAMPLER_IMPLS = ("plain", "take", "fused")
 
@@ -122,20 +124,18 @@ def packed_fields(ix, iy, h: int, w: int, gp: int, padding_mode: str):
     return tuple(f.reshape(n, -1).contiguous() for f in fields)
 
 
-def _bilinear_packed(x, ix, iy, padding_mode: str, window_group: int | None, impl: str):
-    """Bilinear sampling through the packed-window table and the kernels
-    of :mod:`~vsrlab_tpu_torch.ops.packed_gather`, in ``x.dtype``. Every
-    shape goes through the kernels: where the JAX package gives an image
-    of fewer than 2 rows or 2 x-groups to its four-corner gather, the
-    table here is zero-padded to one window instead."""
+def _bilinear_packed(x, ix, iy, padding_mode: str, window_group: int | None):
+    """Bilinear sampling through the packed-window table, the row gather
+    kernel of :mod:`~vsrlab_tpu_torch.ops.packed_gather` and the fold in
+    torch, in ``x.dtype``. Every shape goes through the kernel: where the
+    JAX package gives an image of fewer than 2 rows or 2 x-groups to its
+    four-corner gather, the table here is zero-padded to one window
+    instead."""
     n, h, w, c = x.shape
     gp = window_group or _window_group(c, ix.numel(), x.element_size())
     xf = packed_table(x, gp)
     fields = packed_fields(ix, iy, h, w, gp, padding_mode)
-    if impl == "fused":
-        out = packed_bilinear(xf, *fields, c)
-    else:
-        out = fold_window(packed_row_gather(xf, fields[0]), *fields[1:], c)
+    out = fold_window(packed_row_gather(xf, fields[0]), *fields[1:], c)
     return out.reshape(*ix.shape, c)
 
 
@@ -153,19 +153,24 @@ def sample_pixel_coords(
     ``ix``, ``iy`` ``(N, Ho, Wo)`` (no [-1, 1] round trip).
 
     ``impl`` picks the bilinear formulation: ``"plain"`` / ``None`` the
-    four-corner gather, ``"take"`` / ``"fused"`` the packed-window sampler
-    with ``window_group`` x-positions a table row (``None``: the
-    heuristic), forward-only, at every image size. ``"fused"`` is the one
-    to serve with; ``"take"`` is kept as the counterpart of the
-    formulation the JAX package ships (row gather kernel, weights and fold
-    in torch) and is slower than either of the others.
+    four-corner gather in torch; ``"fused"`` the sampler kernel on the
+    image itself, the one to serve with; ``"take"`` the packed-window
+    sampler with ``window_group`` x-positions a table row (``None``: the
+    heuristic), kept as the counterpart of the formulation the JAX package
+    ships (row gather kernel, weights and fold in torch) and slower than
+    either of the others. Both kernel formulations are forward-only and
+    take every image size; ``window_group`` affects ``"take"`` only.
     """
     n, h, w, c = x.shape
     if impl not in (None, *SAMPLER_IMPLS):
         raise ValueError(f"unknown sampler formulation: {impl}")
     ix, iy = _pad_coords(ix.float(), iy.float(), h, w, padding_mode, align_corners)
-    if mode == "bilinear" and impl in ("take", "fused"):
-        return _bilinear_packed(x.contiguous(), ix, iy, padding_mode, window_group, impl)
+    if mode == "bilinear" and impl == "fused":
+        out = bilinear_sample(x.contiguous(), ix.reshape(n, -1).contiguous(),
+                              iy.reshape(n, -1).contiguous(), padding_mode == "zeros")
+        return out.reshape(*ix.shape, c)
+    if mode == "bilinear" and impl == "take":
+        return _bilinear_packed(x.contiguous(), ix, iy, padding_mode, window_group)
     x_flat = x.reshape(n, h * w, c).float()
 
     def corner(idx_y, idx_x, weight):
