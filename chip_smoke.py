@@ -2,14 +2,17 @@
 """Smoke run of vsrlab_tpu_torch (the PyTorch / CUDA port) on one NVIDIA GPU.
 
     python3 chip_smoke.py
-    python3 chip_smoke.py --pair-times [TREE]   # only the residual pair's device
-                                                # times, for the package in TREE
+    python3 chip_smoke.py --pair-times [TREE]     # only the residual pair's device
+                                                  # times, for the package in TREE
+    python3 chip_smoke.py --sampler-times [TREE]  # only the fused sampler route's
+                                                  # device times, the same way
 
 Phases, in order; any failure exits non-zero:
 
 1. Device and build: the card's name and power limit (``nvidia-smi``), then
-   the kernel libraries (``residual_pair``, ``packed_gather``) built side by
-   side from ``vsrlab_tpu_torch/csrc`` (nvcc, sm_90a) into ``build/kernels/``.
+   the kernel libraries (``residual_pair``, ``packed_gather``,
+   ``bilinear_sample``) built side by side from ``vsrlab_tpu_torch/csrc``
+   (nvcc, sm_90a) into ``build/kernels/``.
 2. Kernels against their plain version, fp32 with TF32 off at 1e-4, bf16
    at 2e-2 (``|a-b| <= tol + tol*|b|``): both residual-pair kernels
    (``taps``, ``im2col``) against ``residual_conv_pair_plain`` at
@@ -17,12 +20,18 @@ Phases, in order; any failure exits non-zero:
    cleaner), a ragged ``(2,13,21,64)`` and, in bf16, shapes that cross the
    persistent kernels' tilings (one tile exactly, one pixel more, three
    ragged frames that make three rounds of tiles), each launched three
-   times with bitwise-equal results; both packed-gather kernels
-   (``packed_row_gather``, ``packed_bilinear``) against their plain
-   versions at the alignment shape (180 images of 128x128x10, two
-   x-positions a row: table ``(180, 8001, 80)``, 16384 pixels an image)
-   with realistic coordinates (pixel + N(0, 3) residue) and with uniformly
-   random ones, at a ragged ``(3, 9, 13, 5)``, and at images smaller than
+   times with bitwise-equal results; the sampler kernel
+   (``bilinear_sample``) against ``bilinear_sample_plain`` at the
+   alignment's 180 images of 128x128x10, a row pitch that is no multiple
+   of 16 bytes (9x13x10), C = 4, C = 3 (the generic path), one row, one
+   column and one pixel, on realistic coordinates (the pixel grid plus an
+   N(0, 3) residue), uniform ones, far ones (most corners outside) and, in
+   zeros mode, ones with +-inf, NaN and +-1e30 among them (the result must
+   be 0 there and finite everywhere), in zeros and border mode, three
+   launches bitwise equal; the row gather (``packed_row_gather``) against
+   its plain version, exactly, at the alignment shape (table ``(180,
+   8001, 80)``, 16384 pixels an image) with realistic and uniform
+   coordinates, at a ragged ``(3, 9, 13, 5)``, and at images smaller than
    one window (8x8x4 with 8 x-positions a row; one row; one column).
 3. The RealBasicVSR path: RealBasicVSR 4x at the headline configuration (mid 64,
    30 residual blocks, 20 cleaning blocks, 3 steps, bf16), weights from a
@@ -45,8 +54,9 @@ Phases, in order; any failure exits non-zero:
    ``make_forward`` with the fused sampler kernel and once with the row
    gather kernel. The wrappers count their launches by shape: each request
    must make 126 (7 stages x 2 directions x 9 taps) at the four alignment
-   scales: every sampler call went through a kernel. Then shapes and finite values, both outputs against the plain
-   sampler's and an fp32 run (the same gate), the frames/s of the request
+   scales (the sampler's keyed ``(180, h, w, 10, h*w)``): every sampler
+   call went through a kernel. Then shapes and finite values, both outputs
+   against the plain sampler's and an fp32 run (the same gate), the frames/s of the request
    with each sampler, a torch.profiler breakdown of the fused one by
    kernel, and its device time by module class (CUDA events around every
    forward of WindowAttention, MlpGEGLU, FlowGuidedDeformAlign and
@@ -54,24 +64,24 @@ Phases, in order; any failure exits non-zero:
    Then the default TinyVRT (8 channels an offset group) on a 6-frame
    64x64 request under the same launch-count and deviation gates, a
    96x96 clip through ``tiled_forward`` (four 64x64 tiles), and a TinyVRT
-   of 4 channels an offset group (8 x-positions a row) on a 32x32 request,
-   whose 8x8 stage is one x-group wide: its table is zero-padded to one
-   window and goes through the kernel like the rest (both kernel samplers
-   are also held against the four-corner one at that stage's shape).
+   of 4 channels an offset group on a 32x32 request (C = 4 for the sampler
+   kernel; both kernel samplers are also held against the four-corner one
+   at its 8x8 stage's shape, where the row gather's table, at 8 x-positions
+   a row, is zero-padded to one window).
 5. Each kernel at every input shape its path gave it: bf16 against
-   the plain version (2e-2), then its time, the plain version's and one
-   library call's (the residual pair: two bf16 channels_last ``F.conv2d``
-   plus ReLU and the add; the row gather: one ``index_select`` of the
-   flattened table; the fused sampler has none; timed only), with CUDA
-   events, median of 20 samples after warm-up. The residual pair's three
-   times are device times: 20 calls captured in a CUDA graph and replayed
-   (a launch from Python takes longer than the kernel runs at batch 1),
-   with the time of the same calls made one by one beside them, each
-   kernel's share of its bound and the tiling the library gives the launch.
-   Then the host's time for one batch-1 launch, split: the library's two
-   entries, the checks, the wrappers, the module's call. Beside the fused sampler's
-   rows: the torch ops that build its table and fields, the four-corner
-   sampler and one ``F.grid_sample`` call on the same images (timed only).
+   the plain version (2e-2), then its device time, the plain version's and
+   one library call's (the residual pair: two bf16 channels_last
+   ``F.conv2d`` plus ReLU and the add; the sampler: one ``F.grid_sample``,
+   NCHW, normalised grid, align_corners, zeros; the row gather: one
+   ``index_select`` of the flattened table; timed only), each by CUDA-graph
+   replay (calls captured in a graph, median of 20 replays: a launch from
+   Python takes longer than many of these kernels run), and each kernel's
+   share of its bound. The sampler and the row gather run on the same
+   realistic operands at each image size; beside the row gather, the
+   ``take`` route's table and fields. For the residual pair also the time
+   of the calls made one by one from Python and the tiling the library
+   gives the launch, then the host's time for one batch-1 launch, split:
+   the library's two entries, the checks, the wrappers, the module's call.
 6. One JSON line ``{"kernels": [...]}``: per kernel its main-path launches
    and, summed over those launches (per-launch time at each shape times
    that shape's count), ``ms``, ``plain_ms``, ``library_ms`` and
@@ -668,89 +678,6 @@ def sampler_times(tree: str) -> int:
     return 0
 
 
-def tile_fit(ix, iy, h, w, c, itemsize=2, tile=(16, 32), budget=48 * 1024) -> float:
-    """Share of the sampler kernel's tiles (``tile`` output rows x columns of
-    the ``(h, w)`` sample grid) whose corner box (the rows and the 16-byte
-    words of the columns their corners lie in, clamped into the image) fits
-    ``budget`` bytes: the staged variant's rule."""
-    import torch
-    import torch.nn.functional as F
-
-    n = ix.shape[0]
-    wp = c * itemsize // 4
-    fx = torch.floor(ix).nan_to_num(0.0).reshape(n, h, w)
-    fy = torch.floor(iy).nan_to_num(0.0).reshape(n, h, w)
-    sx = fx.clamp(0, w - 1).clamp(max=w - 2)
-    ya, yb = fy.clamp(0, h - 1), (fy + 1).clamp(0, h - 1)
-    th, tw = tile
-
-    def reduce(v, fn, fill):
-        v = F.pad(v, (0, -w % tw, 0, -h % th), value=fill)
-        return fn(v.reshape(n, v.shape[1] // th, th, v.shape[2] // tw, tw), (2, 4))
-
-    rows = reduce(yb, torch.amax, -1.0) - reduce(ya, torch.amin, float(h)) + 1
-    cols = reduce(sx, torch.amax, -1.0) + 2 - reduce(sx, torch.amin, float(w))
-    pitch = torch.floor((cols * wp * 4 + 30) / 16)
-    return float((rows * pitch * 16 <= budget).float().mean())
-
-
-def sampler_variants() -> int:
-    """``--sampler-variants``: the sampler kernel's direct and staged
-    variants at the VRT request's four image sizes, on the coordinates the
-    request itself hands the sampler (its first call at each size) and on
-    realistic ones: device ms by graph replay, the share of tiles whose
-    corner box fits the staged variant's shared memory, the coordinates'
-    distance from the pixel grid, and whether the variants agree bitwise."""
-    import torch
-
-    from vsrlab_tpu_torch.evaluation.harness import make_forward
-    from vsrlab_tpu_torch.ops import bilinear_sample as bs
-    from vsrlab_tpu_torch.ops import warp
-
-    if not torch.cuda.is_available():
-        print("chip_smoke: torch.cuda.is_available() is False", file=sys.stderr)
-        return 1
-    device = torch.device("cuda")
-    card = card_line()
-    log(card)
-    seen, real = {}, warp.bilinear_sample
-
-    def capture(x, ix, iy, zeros):
-        seen.setdefault((*x.shape, ix.shape[1]), (x.clone(), ix.clone(), iy.clone(), zeros))
-        return real(x, ix, iy, zeros)
-
-    warp.bilinear_sample = capture
-    model = build_vrt(torch.bfloat16, img_size=VRT_CLIP[1:4])
-    make_forward(model, device)(torch.rand(VRT_CLIP, generator=torch.Generator().manual_seed(2)))
-    warp.bilinear_sample = real
-    del model
-    torch.cuda.empty_cache()
-    rows = {}
-    for key, (x, ix, iy, zeros) in sorted(seen.items()):
-        n, h, w, c, p = key
-        _, rx, ry = realistic_operands(n, h, w, c, torch.bfloat16, h, device)
-        gx = torch.arange(p, device=device) % w
-        for kind, (cx, cy) in (("vrt", (ix, iy)), ("realistic", (rx.reshape(n, -1),
-                                                                   ry.reshape(n, -1)))):
-            direct = bs.bilinear_sample(x, cx, cy, zeros, _variant="direct_")
-            staged = bs.bilinear_sample(x, cx, cy, zeros)
-            residue = (cx - gx).abs()
-            row = {"direct_ms": graph_ms(
-                       lambda: bs.bilinear_sample(x, cx, cy, zeros, _variant="direct_")),
-                   "staged_ms": graph_ms(lambda: bs.bilinear_sample(x, cx, cy, zeros)),
-                   "tiles_that_fit": tile_fit(cx, cy, h, w, c),
-                   "bitwise_equal": bool(torch.equal(direct, staged)),
-                   "x_residue_mean": float(residue.mean()),
-                   "x_residue_p99": float(torch.quantile(residue.flatten()[:2**23].float(),
-                                                         0.99))}
-            row["bound_ms"] = sampler_bound("bilinear_sample", key)[0]
-            rows[f"{h}x{w} {kind}"] = row
-            log(f"  {h}x{w} {kind}: {row}")
-            del direct, staged, residue
-    log(json.dumps({"sampler_variants": rows, "card": card}))
-    return 0
-
-
 def module_breakdown(model, request, classes) -> dict:
     """Device ms of one ``request()`` by module class: CUDA events around
     every forward of the listed classes (which must not nest in each
@@ -1327,6 +1254,4 @@ if __name__ == "__main__":
         sys.exit(pair_times(tree))
     if sys.argv[1:2] == ["--sampler-times"]:
         sys.exit(sampler_times(tree))
-    if sys.argv[1:2] == ["--sampler-variants"]:
-        sys.exit(sampler_variants())
     sys.exit(main())

@@ -30,20 +30,37 @@
 // coordinates a pixel and writes the output once, and does about 8 FLOP an
 // output element: far below the ridge. At the alignment shape (180 images of
 // 256x256x10, bf16) that is 236 + 94 + 236 MB, 0.169 ms at 3.35 TB/s. The
-// corners of nearby pixels are nearby, so each image byte is asked for about
-// four times, from L1 or L2; the design keeps those re-reads cheap:
-//   * one thread an output pixel, all C channels in registers (C <= 16 on the
-//     fast path, instantiated for the channel counts a deformable group has
-//     here: 4, 8, 10, 16; any other C takes a generic loop over channels);
+// corners of nearby samples are nearby, so each image byte is asked for about
+// four times; those re-reads must come from L1, and the loads that carry them
+// must be few, since each load instruction of a warp costs the L1 one cycle
+// for every 128-byte line its threads touch. The design:
+//   * one thread an output pixel, all C channels in registers (the fast
+//     path, instantiated for the channel counts a deformable group has here:
+//     4, 8 and 10; any other C takes a generic loop over channels);
 //   * the two horizontally adjacent corners of a row are 2*C*itemsize
 //     contiguous bytes (40 at C = 10, bf16); they are read as the aligned
 //     16-byte words that cover them (three or four) and the two pixels are
 //     picked out in registers, never as 2-byte loads per channel;
+//   * a CTA samples a 16 x 32 tile of the sample grid, two pixels a thread, so
+//     that its corners fall in a box little larger than the tile, which stays
+//     in L1 while the CTA reads it (a CTA on one run of 256 output pixels,
+//     a row at 256x256, finds its corners spread over some twenty image rows
+//     and reads most of them from L2; 8 x 32 and 32 x 32 tiles were slower
+//     than 16 x 32 on this card);
 //   * a warp's 32 pixels read their coordinates coalesced and store their
 //     32*C*itemsize contiguous output bytes through shared memory as 16-byte
 //     words;
 //   * 64-bit offsets for every address: at 256x256 the 180 images hold 1.2e8
 //     elements.
+// A variant that first copied each tile's corner box into shared memory (one
+// bulk copy by the TMA unit a box row, completing on an mbarrier) and read the
+// corners from there was slower at every VRT shape, with every box fitting
+// 48 KB: the reads from shared memory cost the same load pipe as L1 hits do,
+// and the copy comes on top. Measured (NVIDIA H100 80GB HBM3, 700.00 W,
+// device time by CUDA-graph replay, bf16, 180 images of 10 channels,
+// coordinates the pixel grid plus an N(0, 3) residue; PERF.md has the rest):
+// 0.0070 / 0.0216 / 0.0827 / 0.3022 ms at 32^2 / 64^2 / 128^2 / 256^2, 38 /
+// 49 / 51 / 56 % of the bound (staged: 0.0078 / 0.0248 / 0.0888 / 0.3451).
 //
 // Interface: plain C, loaded with ctypes. Every entry point takes contiguous
 // operands, launches on the given device and stream, does not synchronise,
@@ -98,27 +115,6 @@ __device__ __forceinline__ Axis axis(float c, int size, bool zeros) {
   return r;
 }
 
-// Aligned 16-byte words that cover 2*WP words starting s words into the first.
-template <int WP>
-struct Span {
-  static constexpr int NQ = (2 * WP + 6) / 4;
-  static __device__ __forceinline__ int words(int s) { return (s + 2 * WP + 3) >> 2; }
-  // the 2*WP words out of the 4*NQ loaded
-  static __device__ __forceinline__ void pick(const uint32_t (&w)[4 * NQ], int s,
-                                              uint32_t (&span)[2 * WP]) {
-#pragma unroll
-    for (int k = 0; k < 2 * WP; ++k)
-      span[k] = s == 0 ? w[k] : s == 1 ? w[k + 1] : s == 2 ? w[k + 2] : w[k + 3];
-  }
-};
-
-__device__ __forceinline__ void put(uint32_t* w, uint4 v) {
-  w[0] = v.x;
-  w[1] = v.y;
-  w[2] = v.z;
-  w[3] = v.w;
-}
-
 // One aligned 16-byte word of the image tensor (`nwords` 32-bit words) through
 // the read-only path; a last one that runs past the tensor is read word by word.
 __device__ __forceinline__ uint4 load_chunk(const uint4* xq, int64_t q, int64_t nwords) {
@@ -131,29 +127,26 @@ __device__ __forceinline__ uint4 load_chunk(const uint4* xq, int64_t q, int64_t 
   return v;
 }
 
-// The 2*WP words at word offset `wo` of the image tensor, each thread reading
-// the 16-byte words that cover its own.
+// The 2*WP words at word offset `wo` of the image tensor, read as the fewest
+// aligned 16-byte words that cover them (NQ at most, `need` for this offset)
+// and picked out of those in registers.
 template <int WP>
-__device__ __forceinline__ void load_span_global(const uint4* xq, int64_t wo, int64_t nwords,
-                                                 uint32_t (&span)[2 * WP]) {
-  using S = Span<WP>;
-  const int s = static_cast<int>(wo & 3), need = S::words(s);
-  uint32_t w[4 * S::NQ];
+__device__ __forceinline__ void load_span(const uint4* xq, int64_t wo, int64_t nwords,
+                                          uint32_t (&span)[2 * WP]) {
+  constexpr int NQ = (2 * WP + 6) / 4;
+  const int s = static_cast<int>(wo & 3), need = (s + 2 * WP + 3) >> 2;
+  uint32_t w[4 * NQ];
 #pragma unroll
-  for (int i = 0; i < S::NQ; ++i)
-    put(w + 4 * i, i < need ? load_chunk(xq, (wo >> 2) + i, nwords) : make_uint4(0, 0, 0, 0));
-  S::pick(w, s, span);
-}
-
-// The 2*WP words `s` words into the 16-byte words at q in shared memory.
-template <int WP>
-__device__ __forceinline__ void load_span_shared(const uint4* q, int s, uint32_t (&span)[2 * WP]) {
-  using S = Span<WP>;
-  const int need = S::words(s);
-  uint32_t w[4 * S::NQ];
+  for (int i = 0; i < NQ; ++i) {
+    const uint4 v = i < need ? load_chunk(xq, (wo >> 2) + i, nwords) : make_uint4(0, 0, 0, 0);
+    w[4 * i] = v.x;
+    w[4 * i + 1] = v.y;
+    w[4 * i + 2] = v.z;
+    w[4 * i + 3] = v.w;
+  }
 #pragma unroll
-  for (int i = 0; i < S::NQ; ++i) put(w + 4 * i, i < need ? q[i] : make_uint4(0, 0, 0, 0));
-  S::pick(w, s, span);
+  for (int k = 0; k < 2 * WP; ++k)
+    span[k] = s == 0 ? w[k] : s == 1 ? w[k + 1] : s == 2 ? w[k + 2] : w[k + 3];
 }
 
 template <typename T, int C>
@@ -221,81 +214,28 @@ __device__ __forceinline__ void store_warp(const uint32_t* ow, uint32_t* out, in
   }
 }
 
-// ---- mbarrier and bulk copies ----------------------------------------------
-
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
-}
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
-}
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
-  asm volatile("mbarrier.expect_tx.relaxed.cta.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(bytes)
-               : "memory");
-}
-// Returns once the barrier has left the phase of the given parity. A barrier
-// that never flips is a fault in the kernel: trap rather than hang the card.
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  uint32_t done, polls = 0;
-  do {
-    if (++polls == (1u << 28)) __trap();
-    asm volatile(
-        "{\n"
-        ".reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n"
-        "}\n"
-        : "=r"(done)
-        : "r"(bar), "r"(parity)
-        : "memory");
-  } while (!done);
-}
-// `bytes` (a multiple of 16) from global src to shared dst (both 16-byte
-// aligned) by the TMA unit; the barrier counts the bytes.
-__device__ __forceinline__ void bulk_load(uint32_t dst, const void* src, uint32_t bytes,
-                                          uint32_t bar) {
-  asm volatile(
-      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n" ::
-          "r"(dst),
-      "l"(src), "r"(bytes), "r"(bar)
-      : "memory");
-}
-
 // ---- the fast path ---------------------------------------------------------
 //
-// C channels (4, 8, 10 or 16), whole 32-bit words a pixel (WP of them), x
+// C channels (4, 8 or 10), whole 32-bit words a pixel (WP of them), x
 // 16-byte aligned, W >= 2. The output pixels are viewed as rows of L: the
 // image's width when P is a whole number of image rows of at least TILE_W
 // pixels (a sample grid of the image's own shape, as the alignment and
 // flow_warp give), else TILE_W. CTA b owns a TILE_H x TILE_W tile of that view
 // in image b / tiles_img; its thread t samples the pixels of tile row
 // t / 32 + WARPS * j, column t % 32, so that a warp's 32 pixels are one run
-// of the output. Only the order in which pixels are visited depends on the
-// view; any P is sampled right.
-//
-// STAGE: the CTA reduces the box of image rows and columns its corners lie
-// in and, where that box fits BOX_BYTES, copies it into shared memory, one
-// bulk copy by the TMA unit a row (the row's aligned 16-byte words, so any row
-// pitch works), completing on an mbarrier; its threads then read their
-// corners from shared memory. A tile whose box does not fit reads its corners
-// from global memory, as every tile does without STAGE.
+// of the output. The tile's corners lie in a box a few pixels larger than the
+// tile, which its 256 threads read from L1 again and again; only the order in
+// which pixels are visited depends on the view, any P is sampled right.
 constexpr int TILE_H = 16, TILE_W = 32;
 constexpr int PPT = TILE_H * TILE_W / NTHREADS;  // pixels a thread
-constexpr int BOX_BYTES = 48 * 1024;
 
-template <typename T, int C, bool STAGE>
+template <typename T, int C>
 __global__ void __launch_bounds__(NTHREADS)
     bilinear_sample_kernel(const T* __restrict__ x, const float* __restrict__ ix,
                            const float* __restrict__ iy, T* __restrict__ out, int H, int W,
                            int P, int L, int tiles_x, int tiles_img, bool zeros) {
   constexpr int WP = C * static_cast<int>(sizeof(T)) / 4;
   __shared__ __align__(16) uint32_t ostage[NTHREADS * WP];
-  __shared__ int red[4][WARPS];
-  __shared__ __align__(8) uint64_t bar;
-  extern __shared__ uint4 box[];
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int img = blockIdx.x / tiles_img;
   const int tile = blockIdx.x - img * tiles_img;
@@ -315,69 +255,6 @@ __global__ void __launch_bounds__(NTHREADS)
     cy[j] = active[j] ? __ldg(iy + m) : 0.0f;
   }
 
-  bool staged = false;
-  int rlo = 0, clo = 0, pitch = 0;  // pitch in 16-byte words
-  if constexpr (STAGE) {
-    if (tid == 0) {
-      mbar_init(smem_addr(&bar), 1);
-      asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
-    }
-    int rhi = -1, chi = -1;
-    rlo = H;
-    clo = W;
-#pragma unroll
-    for (int j = 0; j < PPT; ++j) {
-      if (!active[j]) continue;
-      const Axis ax = axis(cx[j], W, zeros), ay = axis(cy[j], H, zeros);
-      const int sx = min(ax.a, W - 2);
-      rlo = min(rlo, ay.a);
-      rhi = max(rhi, ay.b);
-      clo = min(clo, sx);
-      chi = max(chi, sx + 1);
-    }
-#pragma unroll
-    for (int off = 16; off > 0; off >>= 1) {
-      rlo = min(rlo, __shfl_xor_sync(0xffffffffu, rlo, off));
-      rhi = max(rhi, __shfl_xor_sync(0xffffffffu, rhi, off));
-      clo = min(clo, __shfl_xor_sync(0xffffffffu, clo, off));
-      chi = max(chi, __shfl_xor_sync(0xffffffffu, chi, off));
-    }
-    if (lane == 0) {
-      red[0][warp] = rlo;
-      red[1][warp] = rhi;
-      red[2][warp] = clo;
-      red[3][warp] = chi;
-    }
-    __syncthreads();
-#pragma unroll
-    for (int i = 0; i < WARPS; ++i) {
-      rlo = min(rlo, red[0][i]);
-      rhi = max(rhi, red[1][i]);
-      clo = min(clo, red[2][i]);
-      chi = max(chi, red[3][i]);
-    }
-    // a box row is the aligned 16-byte words that cover its pixels clo .. chi
-    const int rows = rhi - rlo + 1;
-    pitch = ((chi - clo + 1) * WP * 4 + 30) / 16;
-    const int64_t last = (((img_pix + static_cast<int64_t>(rhi) * W + chi + 1) * WP + 3) >> 2);
-    staged = rows > 0 && rows * pitch * 16 <= BOX_BYTES && 4 * last <= nwords;
-    if (staged) {
-      const uint32_t b = smem_addr(&bar);
-      if (warp == 0) {
-        for (int r = lane; r < rows; r += 32) {
-          const int64_t row = img_pix + static_cast<int64_t>(rlo + r) * W;
-          const int64_t q0 = (row + clo) * WP >> 2, q1 = ((row + chi + 1) * WP + 3) >> 2;
-          const uint32_t bytes = static_cast<uint32_t>(q1 - q0) * 16;
-          mbar_expect_tx(b, bytes);
-          bulk_load(smem_addr(box + r * pitch), xq + q0, bytes, b);
-        }
-        __syncwarp();
-        if (lane == 0) mbar_arrive(b);
-      }
-      mbar_wait(b, 0);
-    }
-  }
-
 #pragma unroll
   for (int j = 0; j < PPT; ++j) {
     uint32_t* ow = ostage + warp * 32 * WP;
@@ -394,13 +271,7 @@ __global__ void __launch_bounds__(NTHREADS)
       for (int r = 0; r < 2; ++r) {
         if (!vy[r]) continue;
         uint32_t span[2 * WP];
-        const int64_t row = img_pix + static_cast<int64_t>(ys[r]) * W;
-        const int64_t wo = (row + sx) * WP;
-        if (staged)
-          load_span_shared<WP>(box + (ys[r] - rlo) * pitch + ((wo >> 2) - ((row + clo) * WP >> 2)),
-                               static_cast<int>(wo & 3), span);
-        else
-          load_span_global<WP>(xq, wo, nwords, span);
+        load_span<WP>(xq, (img_pix + static_cast<int64_t>(ys[r]) * W + sx) * WP, nwords, span);
         fold_row<T, C, WP>(span, wy[r], ax, sx, acc);
       }
       pack<T, C>(acc, ow + lane * WP);
@@ -453,29 +324,23 @@ int64_t grid_ctas(int N, int P, int per, int* tiles) {
   return ctas <= 2147483647LL ? ctas : 0;
 }
 
-template <typename T, int C, bool STAGE>
+template <typename T, int C>
 int launch_fast(const void* x, const void* ix, const void* iy, void* out, int N, int H, int W,
                 int P, bool zeros, cudaStream_t stream) {
-  auto kernel = bilinear_sample_kernel<T, C, STAGE>;
-  const int smem = STAGE ? BOX_BYTES : 0;
-  if (STAGE) {
-    cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                           smem);
-    if (err != cudaSuccess) return static_cast<int>(err);
-  }
   const int L = P % W == 0 && W >= TILE_W ? W : TILE_W;
   const int64_t rows = (static_cast<int64_t>(P) + L - 1) / L;
-  const int64_t tiles_x = (L + TILE_W - 1) / TILE_W, tiles_img = (rows + TILE_H - 1) / TILE_H * tiles_x;
+  const int64_t tiles_x = (L + TILE_W - 1) / TILE_W;
+  const int64_t tiles_img = (rows + TILE_H - 1) / TILE_H * tiles_x;
   const int64_t ctas = static_cast<int64_t>(N) * tiles_img;
   if (ctas > 2147483647LL) return static_cast<int>(cudaErrorInvalidConfiguration);
-  kernel<<<static_cast<unsigned>(ctas), NTHREADS, smem, stream>>>(
+  bilinear_sample_kernel<T, C><<<static_cast<unsigned>(ctas), NTHREADS, 0, stream>>>(
       static_cast<const T*>(x), static_cast<const float*>(ix), static_cast<const float*>(iy),
       static_cast<T*>(out), H, W, P, L, static_cast<int>(tiles_x), static_cast<int>(tiles_img),
       zeros);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T, bool STAGE>
+template <typename T>
 int launch(const void* x, const void* ix, const void* iy, void* out, int N, int H, int W, int C,
            int P, int zeros, int device, void* stream) {
   if (N <= 0 || H <= 0 || W <= 0 || C <= 0 || P <= 0)
@@ -485,10 +350,9 @@ int launch(const void* x, const void* ix, const void* iy, void* out, int N, int 
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const bool fast = W >= 2 && (reinterpret_cast<uintptr_t>(x) & 15) == 0;
   switch (fast ? C : 0) {
-    case 4: return launch_fast<T, 4, STAGE>(x, ix, iy, out, N, H, W, P, zeros != 0, s);
-    case 8: return launch_fast<T, 8, STAGE>(x, ix, iy, out, N, H, W, P, zeros != 0, s);
-    case 10: return launch_fast<T, 10, STAGE>(x, ix, iy, out, N, H, W, P, zeros != 0, s);
-    case 16: return launch_fast<T, 16, STAGE>(x, ix, iy, out, N, H, W, P, zeros != 0, s);
+    case 4: return launch_fast<T, 4>(x, ix, iy, out, N, H, W, P, zeros != 0, s);
+    case 8: return launch_fast<T, 8>(x, ix, iy, out, N, H, W, P, zeros != 0, s);
+    case 10: return launch_fast<T, 10>(x, ix, iy, out, N, H, W, P, zeros != 0, s);
     default: break;
   }
   int tiles;
@@ -508,25 +372,12 @@ extern "C" {
 // != 0 masks corners outside the image (zeros padding).
 int vsr_bilinear_sample_bf16(const void* x, const void* ix, const void* iy, void* out, int N,
                              int H, int W, int C, int P, int zeros, int device, void* stream) {
-  return launch<bf16, true>(x, ix, iy, out, N, H, W, C, P, zeros, device, stream);
+  return launch<bf16>(x, ix, iy, out, N, H, W, C, P, zeros, device, stream);
 }
 
 int vsr_bilinear_sample_fp32(const void* x, const void* ix, const void* iy, void* out, int N,
                              int H, int W, int C, int P, int zeros, int device, void* stream) {
-  return launch<float, true>(x, ix, iy, out, N, H, W, C, P, zeros, device, stream);
-}
-
-// The direct variant, for measuring it beside the staged one.
-int vsr_bilinear_sample_direct_bf16(const void* x, const void* ix, const void* iy, void* out,
-                                    int N, int H, int W, int C, int P, int zeros, int device,
-                                    void* stream) {
-  return launch<bf16, false>(x, ix, iy, out, N, H, W, C, P, zeros, device, stream);
-}
-
-int vsr_bilinear_sample_direct_fp32(const void* x, const void* ix, const void* iy, void* out,
-                                    int N, int H, int W, int C, int P, int zeros, int device,
-                                    void* stream) {
-  return launch<float, false>(x, ix, iy, out, N, H, W, C, P, zeros, device, stream);
+  return launch<float>(x, ix, iy, out, N, H, W, C, P, zeros, device, stream);
 }
 
 const char* vsr_cuda_error_string(int code) {

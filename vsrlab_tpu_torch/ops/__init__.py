@@ -1,2 +1,4 @@
-"""Tensor ops of the port: resizes, warps, pixel shuffle, pooling and the
-fused residual conv pair (hand-written CUDA kernels)."""
+"""Tensor ops of the port: resizes, warps, pixel shuffle, pooling, the
+deformable convolution and the wrappers of the hand-written CUDA kernels
+(the fused residual conv pair, the bilinear sampler, the packed row
+gather)."""

@@ -92,7 +92,7 @@ def _check(x, ix, iy) -> None:
     if x.device.type != "cuda" or any(t.device != x.device for t in tensors):
         raise ValueError(f"{name}: all operands must be on one CUDA device")
     if x.dtype not in _DTYPES:
-        raise ValueError(f"the CUDA kernels take bf16 or fp32, got {x.dtype}")
+        raise ValueError(f"the CUDA kernel takes bf16 or fp32, got {x.dtype}")
     if not all(t.is_contiguous() for t in tensors):
         raise ValueError(f"{name}: operands must be contiguous")
     if max(*x.shape, ix.shape[1]) >= 2**31:
@@ -106,17 +106,16 @@ def _lib() -> ctypes.CDLL:
 
     lib = load("bilinear_sample").lib
     for name in _DTYPES.values():
-        for variant in ("", "direct_"):
-            fn = getattr(lib, f"vsr_bilinear_sample_{variant}{name}")
-            fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
-            fn.restype = ctypes.c_int
+        fn = getattr(lib, f"vsr_bilinear_sample_{name}")
+        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+        fn.restype = ctypes.c_int
     lib.vsr_cuda_error_string.argtypes = [ctypes.c_int]
     lib.vsr_cuda_error_string.restype = ctypes.c_char_p
     return lib
 
 
-def bilinear_sample(x: torch.Tensor, ix: torch.Tensor, iy: torch.Tensor, zeros: bool,
-                    _variant: str = "") -> torch.Tensor:
+def bilinear_sample(x: torch.Tensor, ix: torch.Tensor, iy: torch.Tensor,
+                    zeros: bool) -> torch.Tensor:
     """Sample ``x`` ``(N, H, W, C)`` (bf16 or fp32) at fp32 pixel
     coordinates ``ix``, ``iy`` ``(N, P)`` -> ``(N, P, C)`` in ``x.dtype``
     (CUDA ``bilinear_sample_kernel``)."""
@@ -126,7 +125,7 @@ def bilinear_sample(x: torch.Tensor, ix: torch.Tensor, iy: torch.Tensor, zeros: 
     n, h, w, c = x.shape
     p = ix.shape[1]
     out = torch.empty((n, p, c), dtype=x.dtype, device=x.device)
-    fn = getattr(_lib(), f"vsr_bilinear_sample_{_variant}{_DTYPES[x.dtype]}")
+    fn = getattr(_lib(), f"vsr_bilinear_sample_{_DTYPES[x.dtype]}")
     rc = fn(x.data_ptr(), ix.data_ptr(), iy.data_ptr(), out.data_ptr(), n, h, w, c, p,
             int(zeros), x.device.index, torch.cuda.current_stream(x.device).cuda_stream)
     if rc != 0:

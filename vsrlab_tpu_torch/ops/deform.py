@@ -7,7 +7,7 @@ position plus its learned offset
 mask, and multiplied by that tap's ``(Cin, Cout)`` weight slice; the taps
 accumulate in fp32. Offset groups are folded into the batch axis, so one
 tap is ONE sampler call over ``N*G`` images of ``Cin/G`` channels: the
-shape the packed-gather kernels serve.
+shape the sampler kernels serve.
 
 Offset layout follows torchvision: ``offset[..., 2*(g*kh*kw + k)]`` is the
 **y** displacement and ``... + 1`` the **x** displacement of offset group
@@ -78,8 +78,8 @@ def deform_conv2d(
         px = (xs + kx * dilation)[None] + off_b[..., k, 1].float()
         s = sample_pixel_coords(
             xg, px, py, mode="bilinear", padding_mode="zeros",
-            # two x-positions a table row for 8 to 16 channels a group, the
-            # JAX package's choice at the alignment shape
+            # take: two x-positions a table row for 8 to 16 channels a
+            # group, the JAX package's choice at the alignment shape
             window_group=2 if 8 <= cg <= 16 else None, impl=impl,
         )  # (N*G, Ho, Wo, Cg) in x.dtype
         if mask is not None:
