@@ -17,7 +17,9 @@ Phases, in order; any failure exits non-zero:
    at 2e-2 (``|a-b| <= tol + tol*|b|``): both residual-pair kernels
    (``taps``, ``im2col``) against ``residual_conv_pair_plain`` at
    ``(1,180,320,64)`` (a recurrence step), ``(10,180,320,64)`` (the
-   cleaner), a ragged ``(2,13,21,64)`` and, in bf16, shapes that cross the
+   cleaner), a ragged ``(2,13,21,64)``, the train step's ``(4,64,64,64)``
+   and ``(24,64,64,64)`` (64 rows and columns: ragged tiles at both edges)
+   and, in bf16, shapes that cross the
    persistent kernels' tilings (one tile exactly, one pixel more, three
    ragged frames that make three rounds of tiles), each launched three
    times with bitwise-equal results; the sampler kernel
@@ -68,7 +70,32 @@ Phases, in order; any failure exits non-zero:
    kernel; both kernel samplers are also held against the four-corner one
    at its 8x8 stage's shape, where the row gather's table, at 8 x-positions
    a row, is zero-padded to one window).
-5. Each kernel at every input shape its path gave it: bf16 against
+5. RealBasicVSR training, the shape of the JAX bench's train leg
+   (``bench.py:292-297``): batch 4 of 6-frame 64x64 LR crops, HR 256x256,
+   uniform in [0, 1) from a seeded numpy generator, the headline model in
+   bf16 (fp32 parameters), Adam at 1e-4, clip 1.0, through the port's own
+   ``make_supervised_train_step``. cuDNN's TF32 is on for the bf16 runs
+   (PyTorch's default; their fp32 convs multiply bf16 values, which TF32
+   holds exactly) and off for the fp32 references. Gates: each pair kernel's
+   launch plan at both training shapes, and ``ResidualPair`` (kernel
+   forward, PyTorch backward) against autograd through the plain version
+   there, the output and ``dx, dW1, db1, dW2, db2`` (fp32 at 1e-4; bf16 within
+   twice the plain bf16 path's deviation from fp32, max and rms); one step's
+   gradient of every parameter tensor with ``taps`` against ``plain`` and an
+   fp32 run by the same rule, finite and nonzero outside SpyNet, zero in it;
+   the main path, one step with ``taps`` then one with ``im2col``, each
+   exactly 60 launches at ``(24,64,64,64)`` and 360 at ``(4,64,64,64)``; the
+   loss falling over 20 steps on the batch, SpyNet unmoved; the trained
+   weights served (no grad) with ``taps`` within the same gate of fp32. Then
+   the step's ms and train frames/s (median of 10 after 3, host clock with
+   synchronize), its peak memory and a torch.profiler breakdown by part, each
+   with ``taps`` and with ``plain`` (the library yardstick). Last,
+   ``train.run`` on SyntheticVSR (8 clips of 6x256x256, batch 4, one epoch
+   with eval) writes a checkpoint and a JSONL log under
+   ``build/chip_smoke_train/``, and a second run restored from it with
+   ``restore_opt`` (its parameters equal to those saved) trains a second
+   epoch.
+6. Each kernel at every input shape its paths gave it: bf16 against
    the plain version (2e-2), then its device time, the plain version's and
    one library call's (the residual pair: two bf16 channels_last
    ``F.conv2d`` plus ReLU and the add; the sampler: one ``F.grid_sample``,
@@ -76,18 +103,20 @@ Phases, in order; any failure exits non-zero:
    ``index_select`` of the flattened table; timed only), each by CUDA-graph
    replay (calls captured in a graph, median of 20 replays: a launch from
    Python takes longer than many of these kernels run), and each kernel's
-   share of its bound. The sampler and the row gather run on the same
+   share of its bound; at the training shapes also the unit's backward
+   (``pair_grads``). The sampler and the row gather run on the same
    realistic operands at each image size; beside the row gather, the
    ``take`` route's table and fields. For the residual pair also the time
    of the calls made one by one from Python and the tiling the library
    gives the launch, then the host's time for one batch-1 launch, split:
-   the library's two entries, the checks, the wrappers, the module's call.
-6. One JSON line ``{"kernels": [...]}``: per kernel its main-path launches
-   and, summed over those launches (per-launch time at each shape times
-   that shape's count), ``ms``, ``plain_ms``, ``library_ms`` and
-   ``bound_ms``; ``max_abs_err`` is the largest bf16 error, beside
-   ``max_abs_err_fp32``; ``shapes`` holds the per-launch rows. Then the
-   last line ``{"ok": true, "device": {...}}``.
+   the library's two entries, the checks, the wrappers, the module's call,
+   and for one unit of a train step: forward, backward and their parts.
+7. One JSON line ``{"kernels": [...]}``: per kernel its main-path launches
+   (inference and training) and, summed over those launches (per-launch
+   time at each shape times that shape's count), ``ms``, ``plain_ms``,
+   ``library_ms`` and ``bound_ms``; ``max_abs_err`` is the largest bf16
+   error, beside ``max_abs_err_fp32``; ``shapes`` holds the per-launch rows.
+   Then the last line ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -101,7 +130,9 @@ import subprocess
 import sys
 import time
 
-CHECK_SHAPES = ((1, 180, 320, 64), (10, 180, 320, 64), (2, 13, 21, 64))
+# the training step's shapes: the recurrences at batch 4, the cleaner at 4 x 6 frames
+TRAIN_SHAPES = ((4, 64, 64, 64), (24, 64, 64, 64))
+CHECK_SHAPES = ((1, 180, 320, 64), (10, 180, 320, 64), (2, 13, 21, 64)) + TRAIN_SHAPES
 # bf16 only: one tile of each tiling exactly, one pixel more in H and W, and
 # three ragged frames that make three rounds of the taps kernel's deep tiles
 EDGE_SHAPES = ((1, 15, 30, 64), (1, 16, 31, 64), (1, 7, 30, 64), (1, 8, 16, 64), (1, 9, 17, 64),
@@ -110,6 +141,12 @@ TOL = {"fp32": 1e-4, "bf16": 2e-2}
 # residual pairs per forward of one 10-frame window: 2 directions x 10
 # steps x 30 blocks, and 3 cleaning steps x 20 blocks
 LAUNCHES_PER_FORWARD = 660
+# RealBasicVSR as the JAX headline builds it (bench.py:170-176)
+HEADLINE = {"mid_channels": 64, "res_blocks": 30, "cleaning_blocks": 20, "cleaning_steps": 3}
+# the train step (bench.py:292-297): batch 4 of 6-frame 64x64 LR crops, HR x4;
+# its pair launches: the cleaner 3 x 20 at 24 frames, the recurrences 2 x 6 x 30
+TRAIN_CLIP = (4, 6, 64, 64)
+TRAIN_LAUNCHES = {(24, 64, 64, 64): 60, (4, 64, 64, 64): 360}
 PEAK_BF16_FLOPS = 989e12  # H100 SXM dense bf16 (NVIDIA data sheet)
 PEAK_BYTES = 3.35e12  # H100 SXM HBM3
 KERNELS = {
@@ -273,7 +310,7 @@ def time_kernel(form, launches_by_shape, device):
     import torch.nn.functional as F
 
     from vsrlab_tpu_torch.ops.residual_pair import (
-        PAIR_IMPLS, pack_weight_fragments, pair_launch_plan, residual_conv_pair_plain)
+        PAIR_IMPLS, pack_weight_fragments, pair_grads, pair_launch_plan, residual_conv_pair_plain)
 
     err, rows = 0.0, []
     for shape, n in sorted(launches_by_shape.items()):
@@ -307,6 +344,12 @@ def time_kernel(form, launches_by_shape, device):
             "library_eager_ms": cuda_ms(library, reps),
         }
         row["share_of_bound"] = b_ms / row["ms"]
+        if shape in TRAIN_SHAPES:  # the unit's backward in a train step (TF32 on, as there)
+            g = torch.randn(shape, generator=torch.Generator().manual_seed(5)).to(device,
+                                                                                 torch.bfloat16)
+            before = tf32(True)
+            row["backward_ms"] = graph_ms(lambda: pair_grads(*ops, g))
+            tf32(before)
         rows.append(row)
         plan = pair_launch_plan(form, shape, device)  # the library's own account, not measured
         log(f"  {form:6s} bf16 {shape} x{n}: kernel {row['ms']:.4f} ms "
@@ -314,7 +357,8 @@ def time_kernel(form, launches_by_shape, device):
             f"{plan['tiles']} tiles of {plan['tile'][0]}x{plan['tile'][1]}, {plan['rounds']} "
             f"rounds), plain {row['plain_ms']:.4f} ms, library {row['library_ms']:.4f} ms; called "
             f"one by one from Python: kernel {row['eager_ms']:.4f} ms, library "
-            f"{row['library_eager_ms']:.4f} ms")
+            f"{row['library_eager_ms']:.4f} ms"
+            + (f"; the unit's backward {row['backward_ms']:.4f} ms" if "backward_ms" in row else ""))
     return err, rows
 
 
@@ -375,6 +419,45 @@ def pair_host_split(device) -> dict:
         f"{split['wrapper_taps_laying_out']:.1f} (taps, laying the weights out), "
         f"{split['wrapper_im2col']:.1f} (im2col); ResidualConv's call {split['module_taps']:.1f}")
     log(json.dumps({"pair_host_us": split}))
+    return split
+
+
+def train_host_split(device) -> dict:
+    """Phase 6: the host's time for one ``ResidualConv`` of a train step at
+    batch 4, 64x64, bf16, with a gradient: the forward with ``taps`` (the
+    operands built with their graph, then ``ResidualPair``), the forward and
+    backward, the same with ``plain`` (autograd through the plain version,
+    whose backward runs in C++), and the parts: ``grad_operands``,
+    ``residual_pair`` on ready operands, ``pair_grads`` alone."""
+    import torch
+
+    from vsrlab_tpu_torch.nn.blocks import ResidualConv
+    from vsrlab_tpu_torch.ops.residual_pair import pair_grads, residual_pair
+
+    shape = TRAIN_SHAPES[0]
+    unit = ResidualConv(64, dtype=torch.bfloat16).to(device)
+    x = pair_operands(shape, torch.bfloat16, 7, device)[0].requires_grad_(True)
+    g = torch.randn(shape, generator=torch.Generator().manual_seed(8)).to(device, torch.bfloat16)
+    ops = unit.grad_operands(torch.bfloat16)
+    fragments = unit.pair_fragments()
+    plain_ops = [o.detach() for o in ops]
+    before = tf32(True)
+    split = {
+        "forward_taps": host_us(lambda: unit(x, "taps"), 100),
+        "forward_backward_taps": host_us(lambda: unit(x, "taps").backward(g), 100),
+        "forward_plain": host_us(lambda: unit(x, "plain"), 100),
+        "forward_backward_plain": host_us(lambda: unit(x, "plain").backward(g), 100),
+        "grad_operands": host_us(lambda: unit.grad_operands(torch.bfloat16), 100),
+        "residual_pair": host_us(lambda: residual_pair(x, *ops, "taps", fragments), 100),
+        "pair_grads": host_us(lambda: pair_grads(x.detach(), *plain_ops, g), 100),
+    }
+    tf32(before)
+    log(f"  host time of one train-step unit {shape}, us: taps forward {split['forward_taps']:.1f}, "
+        f"forward + backward {split['forward_backward_taps']:.1f}; plain "
+        f"{split['forward_plain']:.1f} and {split['forward_backward_plain']:.1f}; parts of taps: "
+        f"grad_operands {split['grad_operands']:.1f}, residual_pair (forward) "
+        f"{split['residual_pair']:.1f}, pair_grads {split['pair_grads']:.1f}")
+    log(json.dumps({"train_host_us": split}))
     return split
 
 
@@ -990,10 +1073,13 @@ def vrt_phase(device, card):
 
 
 def profile_request(request, wall_s: float, top: int = 12,
-                    ours=("pair_taps", "pair_im2col")) -> dict:
+                    ours=("pair_taps", "pair_im2col"), groups=()) -> dict:
     """Device time of one ``request()`` by kernel (``torch.profiler``), its
     share of ``wall_s`` (the request's unprofiled time), the time in the
-    port's own kernels (names holding one of ``ours``) and the top kernels."""
+    port's own kernels (names holding one of ``ours``), the top kernels and,
+    with ``groups`` (``(name, substrings)`` pairs), the device ms of each
+    group: a kernel counts in the first group one of whose substrings its
+    name holds, else in ``other``."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -1001,22 +1087,30 @@ def profile_request(request, wall_s: float, top: int = 12,
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         request()
         torch.cuda.synchronize()
-    kernels = {}
-    for e in prof.key_averages():
-        if e.device_type == DeviceType.CUDA:
+    kernels, launches = {}, 0
+    for e in prof.key_averages():  # kernels and copies; a range annotation is no kernel
+        if e.device_type == DeviceType.CUDA and not getattr(e, "is_user_annotation", False):
             kernels[e.key] = kernels.get(e.key, 0.0) + e.self_device_time_total / 1e3
+            launches += e.count
     total = sum(kernels.values())
     if total == 0:
         return {"device_ms": "not measured (the profiler saw no device time)"}
     own = sum(v for k, v in kernels.items() if any(tag in k for tag in ours))
     ranked = sorted(kernels.items(), key=lambda kv: -kv[1])[:top]
-    return {
+    out = {
         "wall_ms": wall_s * 1e3,
         "device_ms": total,
         "device_busy_share": total / (wall_s * 1e3),
         "own_kernels_ms": own,
+        "device_ops": launches,
         "top": [{"kernel": k[:90], "ms": v, "share": v / total} for k, v in ranked],
     }
+    if groups:
+        out["groups_ms"] = {name: 0.0 for name, _ in groups} | {"other": 0.0}
+        for k, v in kernels.items():
+            name = next((g for g, tags in groups if any(t in k.lower() for t in tags)), "other")
+            out["groups_ms"][name] += v
+    return out
 
 
 def build_model(dtype):
@@ -1025,8 +1119,7 @@ def build_model(dtype):
     from vsrlab_tpu_torch.models import RealBasicVSR
     from vsrlab_tpu_torch.nn.blocks import init_weights
 
-    model = RealBasicVSR(mid_channels=64, res_blocks=30, cleaning_blocks=20,
-                         cleaning_steps=3, dtype=dtype)
+    model = RealBasicVSR(**HEADLINE, dtype=dtype)
     return init_weights(model, torch.Generator().manual_seed(0))
 
 
@@ -1188,6 +1281,360 @@ def realbasicvsr_phase(device, card):
     return res["launches_by_shape"]
 
 
+def tf32(on: bool):
+    """Set cuDNN's TF32 for convolutions; returns the previous setting. The
+    bf16 training runs take it on (PyTorch's default): their fp32 convs (the
+    plain pair, the recomputed conv1) multiply bf16 values, which TF32 holds
+    exactly. fp32 references take it off."""
+    import torch
+
+    before = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = on
+    return before
+
+
+def dev(a, b):
+    """``(max, rms)`` of ``|a - b|`` in fp32."""
+    d = (a.float() - b.float()).abs()
+    return float(d.max()), float(d.pow(2).mean().sqrt())
+
+
+def within_twice(label, a, b, base) -> tuple[float, float]:
+    """Raises unless ``|a - b|`` lies within twice ``base``, the ``(max,
+    rms)`` deviation of the plain bf16 path from fp32; returns the two ratios."""
+    d_max, d_rms = dev(a, b)
+    b_max, b_rms = base
+    if not (d_max <= 2 * b_max and d_rms <= 2 * b_rms):
+        raise AssertionError(f"{label}: max {d_max:.3e} rms {d_rms:.3e} against twice the plain "
+                             f"bf16 path's max {b_max:.3e} rms {b_rms:.3e}")
+    return (d_max / b_max if b_max else 0.0), (d_rms / b_rms if b_rms else 0.0)
+
+
+def pair_grad_run(fn, ops, g):
+    """``fn(*ops)`` on fresh leaves, backward with ``g``: the output and
+    the five gradients, in fp32."""
+    leaves = [t.detach().clone().requires_grad_(True) for t in ops]
+    out = fn(*leaves)
+    out.backward(g)
+    return [out.detach().float()] + [t.grad.float() for t in leaves]
+
+
+def check_pair_grad(form, shape, device) -> dict:
+    """The training phase's first gate: ``ResidualPair`` (kernel forward,
+    PyTorch backward) against autograd through ``residual_conv_pair_plain``,
+    the same upstream gradient: output and ``dx, dW1, db1, dW2, db2``. fp32
+    with TF32 off at ``1e-4 + 1e-4*|plain|``; bf16: each against an fp32 run
+    within twice the plain bf16 path's deviation from it, in max and rms.
+    Returns the largest fp32 error and the largest bf16 ratio."""
+    import torch
+
+    from vsrlab_tpu_torch.ops.residual_pair import residual_conv_pair_plain, residual_pair
+
+    names = ("out", "dx", "dW1", "db1", "dW2", "db2")
+    ops32 = pair_operands(shape, torch.float32, 11, device)
+    g32 = torch.randn(shape, generator=torch.Generator().manual_seed(12)).to(device)
+    kernel = functools.partial(residual_pair, formulation=form)
+    before = tf32(False)
+    got, want = pair_grad_run(kernel, ops32, g32), pair_grad_run(residual_conv_pair_plain, ops32, g32)
+    err32 = 0.0
+    for name, a, b in zip(names, got, want):
+        e = (a - b).abs()
+        if not bool((e <= TOL["fp32"] + TOL["fp32"] * b.abs()).all()):
+            raise AssertionError(f"{form} fp32 {shape} {name}: max {float(e.max()):.3e}")
+        err32 = max(err32, float(e.max()))
+    ops16 = tuple(t.bfloat16() if t.dim() > 1 else t for t in ops32)
+    tf32(True)
+    got16 = pair_grad_run(kernel, ops16, g32.bfloat16())
+    plain16 = pair_grad_run(residual_conv_pair_plain, ops16, g32.bfloat16())
+    tf32(before)
+    ratios = {n: within_twice(f"{form} bf16 {shape} {n}", a, r, dev(p, r))
+              for n, a, p, r in zip(names, got16, plain16, want)}
+    worst = max(max(r) for r in ratios.values())
+    log(f"  ResidualPair {form:6s} {shape}: fp32 max|fn-plain| {err32:.3e} (tol 1e-4 + "
+        f"1e-4*|plain|) ok; bf16 vs fp32 as a ratio of plain bf16's deviation (max, rms): "
+        + ", ".join(f"{n} {r[0]:.2f} {r[1]:.2f}" for n, r in ratios.items()) + " ok")
+    return {"fp32": err32, "bf16_ratio": worst}
+
+
+def train_batch(device):
+    """The train leg's batch: LR (4, 6, 64, 64, 3), HR x4, uniform in [0, 1)
+    from a seeded numpy generator."""
+    import numpy as np
+    import torch
+
+    b, t, h, w = TRAIN_CLIP
+    rng = np.random.default_rng(1)
+    lr = torch.from_numpy(rng.random((b, t, h, w, 3), dtype=np.float32)).to(device)
+    hr = torch.from_numpy(rng.random((b, t, 4 * h, 4 * w, 3), dtype=np.float32)).to(device)
+    return {"lr": lr, "hr": hr}
+
+
+def step_grads(model, batch, impl):
+    """The gradient of one train step's loss (no update), by parameter
+    name, zeros where a parameter gets none (as the optimizer sees it)."""
+    from vsrlab_tpu_torch.nn.blocks import set_pair_impl
+    from vsrlab_tpu_torch.train.step import supervised_loss
+
+    set_pair_impl(model, impl)
+    model.zero_grad(set_to_none=True)
+    loss, _ = supervised_loss(model(batch["lr"]), batch)
+    loss.backward()
+    set_pair_impl(model, "taps")
+    return {n: (p.grad if p.grad is not None else p.new_zeros(p.shape)).detach().clone()
+            for n, p in model.named_parameters()}
+
+
+def gate_step_grads(model, batch, device) -> dict:
+    """One step of the full model: each parameter tensor's gradient with
+    ``taps`` against the same step with ``plain`` and an fp32 run (TF32 off),
+    by the twice-the-bf16-deviation rule; every parameter outside SpyNet
+    finite and nonzero, SpyNet's zero (``train_flow: false``)."""
+    import torch
+
+    before = tf32(True)
+    taps, plain = step_grads(model, batch, "taps"), step_grads(model, batch, "plain")
+    model32 = build_model(None).to(device)
+    model32.load_state_dict(model.state_dict())
+    tf32(False)
+    ref = step_grads(model32, batch, "plain")
+    tf32(before)
+    del model32
+    worst = {"max": (0.0, ""), "rms": (0.0, "")}
+    for name in ref:
+        frozen, g = ".spynet." in name, taps[name]
+        if bool(g.abs().sum() > 0) == frozen or not bool(torch.isfinite(g).all()):
+            raise AssertionError(f"{name}: gradient finite and nonzero outside SpyNet, zero "
+                                 f"inside it; got |g| sum {float(g.abs().sum()):.3e}")
+        if frozen:
+            continue
+        base = dev(plain[name], ref[name])
+        r = within_twice(f"gradient of {name}, taps vs fp32", g, ref[name], base)
+        within_twice(f"gradient of {name}, taps vs plain", g, plain[name], base)
+        for i, k in enumerate(("max", "rms")):
+            worst[k] = max(worst[k], (r[i], name))
+    n = sum(1 for k in ref if ".spynet." not in k)
+    log(f"  one step's gradients, {n} parameter tensors outside SpyNet: taps vs fp32 within "
+        f"twice plain bf16's deviation, worst ratio max {worst['max'][0]:.2f} "
+        f"({worst['max'][1]}), rms {worst['rms'][0]:.2f} ({worst['rms'][1]}); taps vs plain "
+        f"within the same; SpyNet's {len(ref) - n} tensors get zero")
+    return {"grad_ratio_max": worst["max"][0], "grad_ratio_rms": worst["rms"][0]}
+
+
+def run_train_path(state, step, batch):
+    """The training main path: one train step with ``taps``, then one with
+    ``im2col``. Returns each kernel's launches by input shape, per step and
+    over both."""
+    from vsrlab_tpu_torch.nn.blocks import set_pair_impl
+    from vsrlab_tpu_torch.ops.residual_pair import PAIR_IMPLS, reset_launch_counts
+
+    def counts():
+        return {form: PAIR_IMPLS[form].launches_by_shape.copy() for form in KERNELS}
+
+    calls = {}
+    reset_launch_counts()
+    seen = counts()
+    for form in KERNELS:
+        set_pair_impl(state.model, form)
+        step(state, batch)
+        now = counts()
+        calls[form], seen = {f: now[f] - seen[f] for f in KERNELS}, now
+    set_pair_impl(state.model, "taps")
+    return calls, seen
+
+
+def time_steps(state, step, batch, impl, n=10, warmup=3) -> list:
+    """Host seconds of ``n`` train steps after ``warmup``, each ended by a
+    synchronize."""
+    import torch
+
+    from vsrlab_tpu_torch.nn.blocks import set_pair_impl
+
+    set_pair_impl(state.model, impl)
+    times = []
+    for i in range(warmup + n):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        step(state, batch)
+        torch.cuda.synchronize()
+        if i >= warmup:
+            times.append(time.perf_counter() - t0)
+    set_pair_impl(state.model, "taps")
+    return times
+
+
+# the train step's parts by kernel name (torch.profiler), the first that matches
+TRAIN_GROUPS = (
+    ("pair forward", ("pair_taps", "pair_im2col")),
+    ("cuDNN dgrad", ("dgrad",)),
+    ("cuDNN wgrad", ("wgrad",)),
+    ("tf32 convs (the recomputed conv1)", ("tf32",)),
+    ("other convs", ("conv", "fprop", "implicit", "xmma", "cudnn")),
+    ("optimizer (foreach)", ("multi_tensor_apply",)),
+)
+
+
+def e2e_trainer(device, card) -> None:
+    """``train.run`` on SyntheticVSR at the headline width (HR 256x256, x4,
+    6 frames, 8 clips, batch 4, one epoch with eval): a checkpoint and a
+    JSONL log, then a second run restored from it with ``restore_opt``,
+    whose restored parameters equal the saved ones."""
+    import torch
+
+    from vsrlab_tpu_torch.core.checkpoint import CheckpointManager
+    from vsrlab_tpu_torch.core.config import Config
+    from vsrlab_tpu_torch.train import train as trainer
+    from vsrlab_tpu_torch.train.builders import build_tx
+    from vsrlab_tpu_torch.train.state import create_train_state
+
+    root = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "chip_smoke_train")
+    if os.path.isdir(root):
+        import shutil
+
+        shutil.rmtree(root)
+    b, t, h, w = TRAIN_CLIP
+    data = {"_target_": "SyntheticVSR", "seq": t, "height": 4 * h, "width": 4 * w, "scale": 4}
+    cfg = Config.from_dict({"seed_index": 0, "train": {
+        "model": {"_target_": "RealBasicVSR", **HEADLINE},
+        "precision": "bf16", "optimizer": {"_target_": "adam", "lr": 1e-4},
+        "gradient_clip_val": 1.0, "max_epochs": 1,
+        "data": {"batch_size": b, "num_workers": 4, "datasets": {
+            "train": {**data, "num_videos": 2 * b, "split": "train"},
+            "val": {**data, "num_videos": b, "split": "val"}}},
+        "logger": {"_target_": "Logger", "backend": "jsonl", "save_dir": f"{root}/logs",
+                   "project": "chip_smoke", "id": "train"},
+        "checkpoint_dir": f"{root}/ckpt"}})
+    t0 = time.perf_counter()
+    val = trainer.run(cfg, device)
+    t1 = time.perf_counter()
+    mgr = CheckpointManager(f"{root}/ckpt")
+    saved = mgr.restore()[1]["params"]
+    rows = open(f"{root}/logs/chip_smoke/train/metrics.jsonl").read().splitlines()
+    if mgr.all_keys() != [0] or not any("Loss/Val" in r for r in rows) or not val:
+        raise AssertionError(f"trainer: keys {mgr.all_keys()}, {len(rows)} log rows, val {val}")
+    cfg2 = Config.from_dict(cfg.to_dict())
+    cfg2.train.update({"restore": f"{root}/ckpt", "restore_opt": True, "max_epochs": 2})
+    model = trainer.build_model(cfg2.train.model, "bf16").to(device)
+    state = create_train_state(model, build_tx(model.parameters(), cfg2.train.optimizer))
+    state, epoch, _ = trainer.restore_state(state, cfg2.train, mgr, f"{root}/ckpt",
+                                            steps_per_epoch=2)
+    same = all(torch.equal(v.cpu(), saved[k]) for k, v in model.state_dict().items())
+    if not same or (epoch, state.step, state.tx.count) != (1, 2, 2):
+        raise AssertionError(f"restore: parameters equal {same}, epoch {epoch}, step "
+                             f"{state.step}, updates {state.tx.count}")
+    del model, state
+    t2 = time.perf_counter()
+    val2 = trainer.run(cfg2, device)
+    if mgr.all_keys() != [0, 1] or not val2:
+        raise AssertionError(f"resumed run: keys {mgr.all_keys()}")
+    log(f"  train.run: SyntheticVSR {2 * b} clips of {t}x{4 * h}x{4 * w}, batch {b}, one epoch "
+        f"and eval in "
+        f"{t1 - t0:.1f} s (model build and first use included): val {json.dumps(val)}; "
+        f"restored with restore_opt (parameters equal to those saved, epoch 1, 2 updates), "
+        f"resumed epoch in {time.perf_counter() - t2:.1f} s: val {json.dumps(val2)}")
+
+
+def training_phase(device, card):
+    """Phase 5. Returns each residual-pair kernel's launches by input shape
+    over the training main path."""
+    import torch
+
+    from vsrlab_tpu_torch.nn.blocks import set_pair_impl
+    from vsrlab_tpu_torch.ops.residual_pair import pair_launch_plan
+    from vsrlab_tpu_torch.train.builders import build_tx
+    from vsrlab_tpu_torch.train.state import create_train_state
+    from vsrlab_tpu_torch.train.step import make_supervised_train_step
+
+    for shape in TRAIN_SHAPES:
+        for form in KERNELS:
+            log(f"  pair_launch_plan {form:6s} {shape}: {pair_launch_plan(form, shape, device)}")
+    grad_checks = {form: {str(shape): check_pair_grad(form, shape, device)
+                          for shape in TRAIN_SHAPES} for form in KERNELS}
+
+    model = build_model(torch.bfloat16).to(device).train()
+    batch = train_batch(device)
+    gates = gate_step_grads(model, batch, device)
+    before = tf32(True)
+    state = create_train_state(model, build_tx(model.parameters(), ("adam", {"lr": 1e-4}), None,
+                                               1.0))
+    step = make_supervised_train_step(model)
+    spynet0 = {n: p.detach().clone() for n, p in model.named_parameters() if ".spynet." in n}
+
+    calls, launches = run_train_path(state, step, batch)
+    for form, by_shape in calls.items():
+        log(f"  train step ({form}) launches by input shape: "
+            + ", ".join(f"{f} {dict(c)}" for f, c in by_shape.items()))
+        for f in KERNELS:
+            want = TRAIN_LAUNCHES if f == form else {}
+            if dict(by_shape[f]) != want:
+                raise AssertionError(f"train step ({form}): {f} launches {dict(by_shape[f])} "
+                                     f"!= {want}")
+
+    losses = []
+    for _ in range(20):
+        _, m = step(state, batch)
+        losses.append(float(m["Loss"]))
+    log(f"  20 steps on one batch (taps): loss {losses[0]:.5f} -> {losses[-1]:.5f}")
+    if not losses[-1] < losses[0]:
+        raise AssertionError(f"the loss did not fall: {losses}")
+    if not all(torch.equal(p, spynet0[n]) for n, p in model.named_parameters() if n in spynet0):
+        raise AssertionError("SpyNet's parameters moved under train_flow: false")
+
+    # the trained weights served through each pair and an fp32 run: the
+    # kernel's cached weight order followed the 22 updates
+    with torch.no_grad():
+        sr = {}
+        for impl in ("taps", "plain"):
+            set_pair_impl(model, impl)
+            sr[impl] = model(batch["lr"])[0].float()
+        set_pair_impl(model, "taps")
+        model32 = build_model(None).to(device)
+        model32.load_state_dict(model.state_dict())
+        set_pair_impl(model32, "plain")
+        tf32(False)
+        ref = model32(batch["lr"])[0].float()
+        tf32(True)
+        del model32
+    ratio = within_twice("trained weights: taps forward vs fp32", sr["taps"], ref,
+                         dev(sr["plain"], ref))
+    log(f"  trained weights, no grad: taps vs fp32 at {ratio[0]:.2f}x / {ratio[1]:.2f}x (max / "
+        "rms) of plain bf16's deviation")
+    del sr, ref
+
+    frames = TRAIN_CLIP[0] * TRAIN_CLIP[1]
+    timing = {}
+    for impl in ("taps", "plain"):
+        torch.cuda.reset_peak_memory_stats()
+        times = time_steps(state, step, batch, impl)
+        med = statistics.median(times)
+        timing[impl] = {"train_step_ms": med * 1e3, "train_fps": frames / med,
+                        "steps_ms": [t * 1e3 for t in times],
+                        "max_memory_allocated_gib": torch.cuda.max_memory_allocated() / 2**30}
+    log(f"  train step on {card}: taps {timing['taps']['train_step_ms']:.2f} ms "
+        f"({timing['taps']['train_fps']:.2f} frames/s), plain {timing['plain']['train_step_ms']:.2f} "
+        f"ms ({timing['plain']['train_fps']:.2f} frames/s) (median of 10 after 3, host clock "
+        f"with synchronize; peak memory {timing['taps']['max_memory_allocated_gib']:.2f} / "
+        f"{timing['plain']['max_memory_allocated_gib']:.2f} GiB)")
+    for impl, ours in (("taps", ("pair_taps",)), ("plain", ())):
+        set_pair_impl(model, impl)
+        timing[impl]["profile"] = profile_request(
+            lambda: step(state, batch), timing[impl]["train_step_ms"] / 1e3, top=15, ours=ours,
+            groups=TRAIN_GROUPS)
+    set_pair_impl(model, "taps")
+    prof = timing["taps"]["profile"]
+    if "own_kernels_ms" in prof:
+        log(f"  taps step: {prof['wall_ms']:.2f} ms on the host's clock, {prof['device_ms']:.2f} "
+            f"ms on the device (busy {100 * prof['device_busy_share']:.1f} %) in "
+            f"{prof['device_ops']} kernels and copies; by part: "
+            + ", ".join(f"{k} {v:.2f}" for k, v in prof["groups_ms"].items()))
+    log(json.dumps({"train": {**timing, "card": card, "gates": gates, "pair_grad": grad_checks,
+                              "losses": losses, "cudnn_tf32": True}}))
+    tf32(before)
+    del state, step, model, batch
+    torch.cuda.empty_cache()
+    e2e_trainer(device, card)
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -1229,7 +1676,12 @@ def main() -> int:
     tiny_vrt_phase(device, card)
     torch.cuda.empty_cache()
 
-    log("phase 5: each kernel at its path's shapes")
+    log("phase 5: RealBasicVSR training (batch 4 x 6 frames, 64x64 -> 256x256, bf16)")
+    for form, by_shape in training_phase(device, card).items():
+        pair_launches[form] += by_shape
+    torch.cuda.empty_cache()
+
+    log("phase 6: each kernel at its paths' shapes")
     kernels = []
     for form, (name, replaces) in KERNELS.items():
         err, rows = time_kernel(form, pair_launches[form], device)
@@ -1241,6 +1693,7 @@ def main() -> int:
         kernels.append({"name": name, "route": "cuda", "source": source, "replaces": replaces,
                         "also_replaces": also, **kernel_summary(rows, err, vrt_errs[name])})
     pair_host_split(device)
+    train_host_split(device)
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu",
                                            "kind": torch.cuda.get_device_name(0),

@@ -22,6 +22,7 @@ from vsrlab_tpu_torch.ops.residual_pair import (  # noqa: E402
     residual_conv_pair,
     residual_conv_pair_im2col,
     residual_conv_pair_plain,
+    residual_pair,
 )
 
 pytestmark = pytest.mark.cuda
@@ -206,6 +207,26 @@ def _packed_operands(n, h, w, c, gp, dtype, device, seed=0):
 # (N, H, W, C, gp): 160-byte rows (16-byte vectors), 24-byte bf16 / 48-byte
 # fp32 rows (the element-wise and the vector path), the TinyVRT row
 PACKED_SHAPES = [(3, 9, 13, 10, 2), (2, 7, 10, 3, 1), (5, 16, 16, 8, 2)]
+
+
+@pytest.mark.parametrize("wrapper,formulation", FORMULATIONS)
+@pytest.mark.parametrize("shape", [(4, 64, 64, 64), (2, 25, 17, 64)])
+def test_residual_pair_gradient_matches_autograd_through_plain(cuda, wrapper, formulation, shape):
+    """fp32 (TF32 off): the kernel's forward and the PyTorch backward of
+    ``ResidualPair`` against autograd through the plain version, each
+    launch counted on the wrapper."""
+    ops = _operands(shape, torch.float32, cuda, seed=4)
+    g = torch.randn(shape, generator=torch.Generator().manual_seed(5)).to(cuda)
+    leaves = [[t.clone().requires_grad_(True) for t in ops] for _ in range(2)]
+    before = wrapper.launches
+    got = residual_pair(*leaves[0], formulation)
+    want = residual_conv_pair_plain(*leaves[1])
+    assert wrapper.launches == before + 1
+    torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
+    got.backward(g)
+    want.backward(g)
+    for a, b in zip(leaves[0], leaves[1]):
+        torch.testing.assert_close(a.grad, b.grad, rtol=1e-4, atol=1e-4 * float(b.grad.abs().max()))
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

@@ -27,6 +27,10 @@ def _imported_roots(path: Path):
 def test_sources_exist():
     assert (ROOT / "chip_smoke.py").is_file()
     assert len(SOURCES) > 10
+    # the training slice's modules are among those checked
+    for module in ("components.py", "core/config.py", "core/checkpoint.py", "data/datasets.py",
+                   "data/loader.py", "train/train.py", "train/step.py", "utils/seed.py"):
+        assert ROOT / "vsrlab_tpu_torch" / module in SOURCES, module
 
 
 @pytest.mark.parametrize("path", SOURCES, ids=lambda p: str(p.relative_to(ROOT)))

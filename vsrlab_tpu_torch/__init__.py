@@ -2,7 +2,9 @@
 
 Public functions keep the JAX package's layout: clips ``(B, T, H, W, C)``,
 flows ``(..., 2)`` in ``(dx, dy)``. The fused residual conv pair and the
-packed-window bilinear sampler of VRT's deformable alignment run on
-hand-written CUDA kernels (``csrc/``), built with ``nvcc`` at first use;
-every other conv is ``F.conv2d``, every dense product ``torch.matmul``.
+bilinear sampler of VRT's deformable alignment run on hand-written CUDA
+kernels (``csrc/``), built with ``nvcc`` at first use; every other conv is
+``F.conv2d``, every dense product ``torch.matmul``. Inference goes through
+``evaluation/``, supervised training through ``train/`` (the pair's
+gradient is PyTorch convolutions around its kernel forward).
 """

@@ -119,3 +119,36 @@ def vrt_state_dict(p: Tree) -> dict:
     out = spynet_state_dict(p["optical_flow"], "optical_flow.")
     out.update(module_state_dict({k: v for k, v in p.items() if k != "optical_flow"}))
     return out
+
+
+def _adam_leaves(opt_state):
+    """The ``(mu, nu, count)`` of the first Adam state inside ``opt_state``
+    (a mapping with those keys, or optax's nested state tuples)."""
+    if isinstance(opt_state, Mapping) and "mu" in opt_state:
+        return opt_state["mu"], opt_state["nu"], opt_state["count"]
+    if all(hasattr(opt_state, k) for k in ("mu", "nu", "count")):
+        return opt_state.mu, opt_state.nu, opt_state.count
+    if isinstance(opt_state, (tuple, list)):
+        for sub in opt_state:
+            found = _adam_leaves(sub)
+            if found is not None:
+                return found
+    return None
+
+
+def adam_state_dict(opt_state, params: Tree) -> dict:
+    """An optax Adam state (``mu``, ``nu`` under the params' tree, ``count``;
+    numpy leaves, alone or inside optax's chain / ``apply_if_finite``
+    states) -> ``{name: {"step", "exp_avg", "exp_avg_sq"}}`` for
+    ``torch.optim.Adam``, keyed as :func:`realbasicvsr_state_dict` keys
+    ``params`` (the moments transposed as the weights are)."""
+    found = _adam_leaves(opt_state)
+    if found is None:
+        raise ValueError("no Adam state (mu, nu, count) in opt_state")
+    mu, nu, count = found
+    mu, nu = realbasicvsr_state_dict(mu), realbasicvsr_state_dict(nu)
+    names = realbasicvsr_state_dict(params).keys()
+    if mu.keys() != names or nu.keys() != names:
+        raise ValueError("the Adam moments do not have the params' tree")
+    step = torch.tensor(float(np.asarray(count)))
+    return {n: {"step": step.clone(), "exp_avg": mu[n], "exp_avg_sq": nu[n]} for n in names}

@@ -14,8 +14,10 @@ offset head of a deformable conv) stays zero.
 
 The ``ResidualConv`` units of a :class:`ResidualBlock` run through the
 fused residual pair (:mod:`vsrlab_tpu_torch.ops.residual_pair`): on a CUDA
-tensor a hand-written kernel, on a CPU tensor its plain version. That
-path is forward-only.
+tensor a hand-written kernel, on a CPU tensor its plain version. Under a
+gradient the same kernel runs inside
+:class:`~vsrlab_tpu_torch.ops.residual_pair.ResidualPair`, whose backward
+is PyTorch convolutions.
 """
 
 from __future__ import annotations
@@ -33,6 +35,7 @@ from vsrlab_tpu_torch.ops.residual_pair import (
     PAIR_IMPLS,
     pack_weight_fragments,
     residual_conv_pair,
+    residual_pair,
 )
 from vsrlab_tpu_torch.ops.warp import SAMPLER_IMPLS
 
@@ -126,7 +129,16 @@ class ResidualConv(nn.Module):
     The pair's operands (HWIO weights in the compute type, fp32 biases, and
     for the bf16 ``taps`` kernel its own order of the weights) are laid out
     once and reused until a parameter changes, moves or the compute type
-    differs.
+    differs. A change is seen through the parameters' version counters,
+    which in-place writes and ``torch.optim``'s foreach and per-tensor
+    updates bump (the fused ones do not: the trainer does not use them).
+
+    Where a gradient is wanted (grad mode on and ``x`` or a parameter
+    requiring grad), the operands are built anew from the parameters on each
+    call, with the graph kept, and the pair runs as ``ResidualPair``: the
+    same kernel, fed the cached kernel order of the weights, then a
+    gradient for every operand. ``impl="plain"`` is autograd through the
+    plain version on those same operands.
     """
 
     def __init__(self, features: int = 64, dtype=None):
@@ -159,9 +171,27 @@ class ResidualConv(nn.Module):
             self._pair_cache[2] = (pack_weight_fragments(w1), pack_weight_fragments(w2))
         return self._pair_cache[2]
 
+    def grad_operands(self, dtype: torch.dtype):
+        """``(w1, b1, w2, b2)`` as :meth:`pair_operands` lays them out, made
+        from the parameters on this call with the graph kept."""
+        # one copy where the type changes (to() keeps a view where it does not)
+        w1, w2 = (c.weight.permute(2, 3, 1, 0).to(dtype, memory_format=torch.contiguous_format)
+                  for c in (self.conv1, self.conv2))
+        return w1.contiguous(), self.conv1.bias.float(), w2.contiguous(), self.conv2.bias.float()
+
     def forward(self, x, impl: str = "taps"):
         dt = self.conv1.compute_dtype(x)
-        x, ops = x.to(dt).contiguous(), self.pair_operands(dt)
+        x = x.to(dt).contiguous()
+        params = (self.conv1.weight, self.conv1.bias, self.conv2.weight, self.conv2.bias)
+        if torch.is_grad_enabled() and (x.requires_grad or any(p.requires_grad for p in params)):
+            ops = self.grad_operands(dt)
+            if impl == "plain":
+                return PAIR_IMPLS[impl](x, *ops)
+            fragments = None
+            if impl == "taps" and x.is_cuda and dt == torch.bfloat16 and x.shape[-1] == PAIR_C:
+                fragments = self.pair_fragments()  # detached, laid out once per weight update
+            return residual_pair(x, *ops, impl, fragments)
+        ops = self.pair_operands(dt)
         if impl == "taps" and x.is_cuda and dt == torch.bfloat16 and x.shape[-1] == PAIR_C:
             # the cache now holds the bf16 operands: their fragments lie beside them
             return residual_conv_pair(x, *ops,

@@ -20,7 +20,11 @@ accumulation; the residual add is in ``x.dtype``.
 
 A wrapper given a CPU tensor returns the plain version; given a CUDA
 tensor it launches its kernel or raises. Both are forward-only and raise
-on an input that requires grad. Each wrapper counts its kernel launches
+on an input that requires grad; :class:`ResidualPair` (through
+:func:`residual_pair`) is the route with a gradient: its forward is the
+same wrapper's launch, its backward PyTorch convolutions (the JAX package
+has no backward kernel: training there differentiates the XLA lowering).
+Each wrapper counts its kernel launches
 in its ``launches`` attribute, and by input shape in ``launches_by_shape``
 (a ``Counter`` of ``(B, H, W, C)``); :func:`reset_launch_counts` zeroes
 both.
@@ -72,10 +76,11 @@ def residual_conv_pair_plain(x, w1, b1, w2, b2):
     return x + z.permute(0, 2, 3, 1)
 
 
-def _check(x, w1, b1, w2, b2):
+def _check(x, w1, b1, w2, b2, grad_ok=False):
     tensors = (x, w1, b1, w2, b2)
-    if any(t.requires_grad for t in tensors):
-        raise ValueError("residual_conv_pair is forward-only: an input requires grad")
+    if not grad_ok and any(t.requires_grad for t in tensors):
+        raise ValueError("residual_conv_pair is forward-only: an input requires grad "
+                         "(residual_pair differentiates it)")
     if x.dim() != 4:
         raise ValueError(f"x must be (B, H, W, C), got {tuple(x.shape)}")
     c = x.shape[-1]
@@ -182,6 +187,13 @@ def _launch(formulation, x, w1, b1, w2, b2, fragments=None):
     return out
 
 
+def _pair(formulation, x, w1, b1, w2, b2, fragments=None, grad_ok=False):
+    _check(x, w1, b1, w2, b2, grad_ok)
+    if x.device.type == "cpu":
+        return residual_conv_pair_plain(x, w1, b1, w2, b2)
+    return _launch(formulation, x, w1, b1, w2, b2, fragments)
+
+
 def residual_conv_pair(x, w1, b1, w2, b2, *, fragments=None):
     """Fused pair, nine shifted K=64 products per conv (CUDA ``taps`` kernel).
 
@@ -189,18 +201,73 @@ def residual_conv_pair(x, w1, b1, w2, b2, *, fragments=None):
     pack_weight_fragments(w2))`` as the caller laid them out from these very
     weights; the bf16 kernel then reads them and the call lays out nothing.
     """
-    _check(x, w1, b1, w2, b2)
-    if x.device.type == "cpu":
-        return residual_conv_pair_plain(x, w1, b1, w2, b2)
-    return _launch("taps", x, w1, b1, w2, b2, fragments)
+    return _pair("taps", x, w1, b1, w2, b2, fragments)
 
 
 def residual_conv_pair_im2col(x, w1, b1, w2, b2):
     """Fused pair, one K=576 product per conv (CUDA ``im2col`` kernel)."""
-    _check(x, w1, b1, w2, b2)
-    if x.device.type == "cpu":
-        return residual_conv_pair_plain(x, w1, b1, w2, b2)
-    return _launch("im2col", x, w1, b1, w2, b2)
+    return _pair("im2col", x, w1, b1, w2, b2)
+
+
+def _conv_grads(gout, inp, w, need_input=True):
+    """``(d input, d weight)`` of ``conv(inp, w)`` (3x3, padding 1) at the
+    upstream gradient ``gout``, all NCHW views / OIHW in their own dtype:
+    with bf16 operands cuDNN accumulates in fp32 and rounds each result to
+    bf16 once."""
+    d_in, d_w, _ = torch.ops.aten.convolution_backward.default(
+        gout, inp, w, None, [1, 1], [1, 1], [1, 1], False, [0, 0], 1, [need_input, True, False])
+    return d_in, d_w
+
+
+def pair_grads(x, w1, b1, w2, b2, g, need_dx: bool = True):
+    """``(dx, dw1, db1, dw2, db2)`` of the pair at the upstream gradient
+    ``g``, at the plain version's rounding points (compute type ``dt`` =
+    ``x.dtype``): ``a = conv1(x) + b1`` recomputed in fp32 as the plain
+    version has it, ``y = relu(a)`` in ``dt`` gives ``dW2``; ``dy`` in ``dt``
+    and ``da = dy * [a > 0]`` (``dt`` values) give ``db1``, ``dW1`` and
+    ``dx = g + conv1^T(da)``. Weight gradients come back HWIO in ``dt``, bias
+    gradients in fp32. Every product but the recomputed conv1 takes operands
+    in ``dt`` and rounds its result to ``dt`` once, so a bf16 unit's
+    backward runs on the tensor cores; the fp32 conv1 may use TF32 where it
+    is allowed, which holds bf16 values exactly. Written in as few tensor
+    ops as it takes: each costs the host more than a small one costs the
+    card."""
+    xc, gc = x.permute(0, 3, 1, 2), g.contiguous().permute(0, 3, 1, 2)  # NCHW views
+    k1, k2 = w1.permute(3, 2, 0, 1), w2.permute(3, 2, 0, 1)  # HWIO -> OIHW views
+    a = F.conv2d(xc.float(), k1.float(), b1.float(), padding=1)
+    off = a <= 0
+    dy, dk2 = _conv_grads(gc, a.relu_().to(x.dtype), k2)
+    da = dy.masked_fill_(off, 0)
+    dx, dk1 = _conv_grads(da, xc, k1, need_dx)
+    db1, db2 = (torch.sum(t, (0, 2, 3), dtype=torch.float32) for t in (da, gc))
+    dx = None if dx is None else dx.add_(gc).permute(0, 2, 3, 1)
+    return dx, dk1.permute(2, 3, 1, 0), db1, dk2.permute(2, 3, 1, 0), db2
+
+
+class ResidualPair(torch.autograd.Function):
+    """The pair with a gradient. ``forward`` launches exactly what inference
+    launches (``formulation`` ``"taps"`` or ``"im2col"``, with ``fragments``
+    as :func:`residual_conv_pair` takes them; the plain version on a CPU
+    tensor) and keeps only ``x`` and the operands, so a unit holds one
+    activation tensor for its backward; ``backward`` is :func:`pair_grads`.
+    """
+
+    @staticmethod
+    def forward(ctx, x, w1, b1, w2, b2, formulation, fragments):
+        ctx.save_for_backward(x, w1, b1, w2, b2)
+        return _pair(formulation, x, w1, b1, w2, b2, fragments, grad_ok=True)
+
+    @staticmethod
+    def backward(ctx, g):
+        return (*pair_grads(*ctx.saved_tensors, g, ctx.needs_input_grad[0]), None, None)
+
+
+def residual_pair(x, w1, b1, w2, b2, formulation: str = "taps", fragments=None):
+    """:class:`ResidualPair` of the operands: the pair by ``formulation``
+    (``"taps"`` or ``"im2col"``) with a gradient for each operand."""
+    if formulation not in _WRAPPERS:
+        raise ValueError(f"no kernel for formulation {formulation!r}")
+    return ResidualPair.apply(x, w1, b1, w2, b2, formulation, fragments)
 
 
 _WRAPPERS = {"taps": residual_conv_pair, "im2col": residual_conv_pair_im2col}

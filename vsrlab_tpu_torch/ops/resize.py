@@ -83,9 +83,12 @@ _WEIGHTS = {
 @functools.lru_cache(maxsize=256)
 def _weights_on(method: str, in_size: int, out_size: int, align_corners: bool,
                 device: torch.device) -> torch.Tensor:
-    """The transposed (in, out) matrix as an fp32 tensor on ``device``."""
+    """The transposed (in, out) matrix as an fp32 tensor on ``device``; a
+    normal tensor even when first asked for in inference mode, so that a
+    training step may save it for its backward."""
     w = _WEIGHTS[method](in_size, out_size, align_corners)
-    return torch.from_numpy(np.ascontiguousarray(w.T)).to(device)
+    with torch.inference_mode(False):
+        return torch.from_numpy(np.ascontiguousarray(w.T)).to(device)
 
 
 def _apply_axis(x: torch.Tensor, wt: torch.Tensor, axis: int) -> torch.Tensor:

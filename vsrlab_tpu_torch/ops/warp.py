@@ -178,9 +178,10 @@ def sample_pixel_coords(
         if padding_mode == "zeros":
             valid = (idx_x >= 0) & (idx_x <= w - 1) & (idx_y >= 0) & (idx_y <= h - 1)
             weight = torch.where(valid, weight, torch.zeros_like(weight))
-        # the float clamp bounds the int cast (zeros mode can give any coordinate)
-        yi = idx_y.clamp(0, h - 1).long()
-        xi = idx_x.clamp(0, w - 1).long()
+        # the float clamp bounds the int cast (zeros mode can give any coordinate);
+        # a NaN coordinate reads pixel 0, as XLA's clamped gather does
+        yi = idx_y.nan_to_num(0.0).clamp(0, h - 1).long()
+        xi = idx_x.nan_to_num(0.0).clamp(0, w - 1).long()
         lin = (yi * w + xi).reshape(n, -1, 1).expand(-1, -1, c)
         vals = torch.gather(x_flat, 1, lin).reshape(*idx_y.shape, c)
         return vals * weight[..., None]
