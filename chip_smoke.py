@@ -9,7 +9,8 @@
 
 Phases, in order; any failure exits non-zero:
 
-1. Device and build: the card's name and power limit (``nvidia-smi``), then
+1. Device and build: the card's name and power limit (``nvidia-smi``),
+   whether OpenCV and PIL import, then
    the kernel libraries (``residual_pair``, ``packed_gather``,
    ``bilinear_sample``) built side by side from ``vsrlab_tpu_torch/csrc``
    (nvcc, sm_90a) into ``build/kernels/``.
@@ -110,9 +111,34 @@ Phases, in order; any failure exits non-zero:
    of the calls made one by one from Python and the tiling the library
    gives the launch, then the host's time for one batch-1 launch, split:
    the library's two entries, the checks, the wrappers, the module's call,
-   and for one unit of a train step: forward, backward and their parts.
-7. One JSON line ``{"kernels": [...]}``: per kernel its main-path launches
-   (inference and training) and, summed over those launches (per-launch
+   the custom ops an exported program calls, and for one unit of a train
+   step: forward, backward and their parts.
+7. Serving from a checkpoint (run after phase 5; phase 6 and the JSON lines
+   follow it), at the headline width: (a) run directories written by
+   ``convert.write_run_dir`` from phase 3's seeded weights as numpy trees,
+   with an EMA sidecar that differs: ``load_test_model`` serves the EMA
+   (output bitwise equal to ``make_forward`` on a module loaded with the
+   EMA state_dict), the raw weights with ``use_ema=False``, and the raw
+   weights with a warning for a sidecar at a stale key; (b)
+   ``evaluate_video`` on a 20-frame 180x320 LR clip (``bicubic_down`` of a
+   seeded 720x1280 SyntheticVSR clip) as two windows, 660 taps launches a
+   window, PSNR / SSIM within 0.05 dB / 1e-3 of the plain pair's; (c)
+   ``make_forward(tile=128, tile_overlap=16)`` bitwise equal to
+   ``tiled_forward`` called directly; (d) the upscale loop with
+   ``stream=True`` over three windows from memory (im2col), bitwise equal to
+   a ``first`` / ``rest`` chain, with its frames/s; (e) ``export_model`` at
+   ``(1,10,180,320,3)`` and ``load_exported``: 660 taps launches a call
+   through the custom op, bitwise equal to ``make_forward``, export
+   seconds, MB and frames/s beside ``make_forward``'s; (f) ``speed_bench``
+   and ``param_count``; (g) a paper-configuration VRT run directory served
+   by ``make_forward(tile=128)`` on ``(1,16,256,256,3)``: 126 fused-sampler
+   launches a tile, finite, timed once. Beside them a torch.profiler
+   breakdown of the streamed loop, the exported forward and
+   ``make_forward``, and one request under ``utils.profiler.trace`` (its
+   Chrome trace holds kernel events and the request's span). The launches
+   count into the ``kernels`` line.
+8. One JSON line ``{"kernels": [...]}``: per kernel its main-path launches
+   (inference, training and serving) and, summed over those launches (per-launch
    time at each shape times that shape's count), ``ms``, ``plain_ms``,
    ``library_ms`` and ``bound_ms``; ``max_abs_err`` is the largest bf16
    error, beside ``max_abs_err_fp32``; ``shapes`` holds the per-launch rows.
@@ -124,6 +150,7 @@ from __future__ import annotations
 import concurrent.futures
 import functools
 import json
+import math
 import os
 import statistics
 import subprocess
@@ -173,6 +200,9 @@ SAMPLER_CHECKS = ((180, 128, 128, 10), (3, 9, 13, 10), (24, 8, 8, 4), (3, 9, 13,
                   (2, 1, 5, 10), (2, 4, 1, 4), (1, 1, 1, 10))
 SAMPLER_KINDS = ("realistic", "uniform", "far", "nonfinite")
 VRT_CLIP = (1, 16, 256, 256, 3)
+# phase 7: the served LR frame size (the headline's) and the tile of the tiled requests
+SERVE_LR = (180, 320)
+SERVE_TILE = 128
 VRT_SCALES = (1, 2, 4, 8, 4, 2, 1)
 VRT_GROUPS, VRT_CG, VRT_GP = 12, 10, 2
 
@@ -410,14 +440,22 @@ def pair_host_split(device) -> dict:
             "wrapper_taps_laying_out": host_us(lambda: rp.residual_conv_pair(*ops)),
             "wrapper_im2col": host_us(lambda: rp.residual_conv_pair_im2col(*ops)),
             "module_taps": host_us(lambda: unit(x, "taps")),
+            # the same launches through the custom ops an exported program calls
+            "op_taps": host_us(lambda: torch.ops.vsrlab.residual_conv_pair(*ops, *fragments)),
+            "op_im2col": host_us(lambda: torch.ops.vsrlab.residual_conv_pair_im2col(*ops)),
         }
     split["tensor_maps"] = split["entry_taps"] - split["entry_im2col"]
+    split["op_over_wrapper_taps"] = split["op_taps"] - split["wrapper_taps"]
+    split["op_over_wrapper_im2col"] = split["op_im2col"] - split["wrapper_im2col"]
     log(f"  host time of one batch-1 pair launch, us: the library's entry {split['entry_taps']:.1f} "
         f"(taps) and {split['entry_im2col']:.1f} (im2col), so the two tensor maps "
         f"{split['tensor_maps']:.1f}; the checks {split['checks']:.1f}; the wrapper "
         f"{split['wrapper_taps']:.1f} (taps, fragments given), "
         f"{split['wrapper_taps_laying_out']:.1f} (taps, laying the weights out), "
-        f"{split['wrapper_im2col']:.1f} (im2col); ResidualConv's call {split['module_taps']:.1f}")
+        f"{split['wrapper_im2col']:.1f} (im2col); ResidualConv's call {split['module_taps']:.1f}; "
+        f"through the custom op {split['op_taps']:.1f} (taps) and {split['op_im2col']:.1f} "
+        f"(im2col), {split['op_over_wrapper_taps']:.1f} and "
+        f"{split['op_over_wrapper_im2col']:.1f} more than the wrappers")
     log(json.dumps({"pair_host_us": split}))
     return split
 
@@ -425,14 +463,17 @@ def pair_host_split(device) -> dict:
 def train_host_split(device) -> dict:
     """Phase 6: the host's time for one ``ResidualConv`` of a train step at
     batch 4, 64x64, bf16, with a gradient: the forward with ``taps`` (the
-    operands built with their graph, then ``ResidualPair``), the forward and
-    backward, the same with ``plain`` (autograd through the plain version,
-    whose backward runs in C++), and the parts: ``grad_operands``,
-    ``residual_pair`` on ready operands, ``pair_grads`` alone."""
+    operands and the kernel's weight order laid out from the parameters,
+    then ``ResidualPair``), the forward and backward, the same with
+    ``plain`` (autograd through the plain version, whose backward runs in
+    C++), and the parts: ``grad_operands``, laying out the weight order
+    (``fragments``), ``residual_pair`` on ready operands, ``pair_grads``
+    alone; and the forward as it was before the weight order was laid out
+    on each call (taken from the operand cache instead)."""
     import torch
 
     from vsrlab_tpu_torch.nn.blocks import ResidualConv
-    from vsrlab_tpu_torch.ops.residual_pair import pair_grads, residual_pair
+    from vsrlab_tpu_torch.ops.residual_pair import pack_weight_fragments, pair_grads, residual_pair
 
     shape = TRAIN_SHAPES[0]
     unit = ResidualConv(64, dtype=torch.bfloat16).to(device)
@@ -448,6 +489,11 @@ def train_host_split(device) -> dict:
         "forward_plain": host_us(lambda: unit(x, "plain"), 100),
         "forward_backward_plain": host_us(lambda: unit(x, "plain").backward(g), 100),
         "grad_operands": host_us(lambda: unit.grad_operands(torch.bfloat16), 100),
+        "fragments": host_us(lambda: tuple(pack_weight_fragments(w.detach()) for w in ops[::2]),
+                             100),
+        "forward_taps_cached_fragments": host_us(
+            lambda: residual_pair(x, *unit.grad_operands(torch.bfloat16), "taps",
+                                  unit.pair_fragments()), 100),
         "residual_pair": host_us(lambda: residual_pair(x, *ops, "taps", fragments), 100),
         "pair_grads": host_us(lambda: pair_grads(x.detach(), *plain_ops, g), 100),
     }
@@ -455,8 +501,10 @@ def train_host_split(device) -> dict:
     log(f"  host time of one train-step unit {shape}, us: taps forward {split['forward_taps']:.1f}, "
         f"forward + backward {split['forward_backward_taps']:.1f}; plain "
         f"{split['forward_plain']:.1f} and {split['forward_backward_plain']:.1f}; parts of taps: "
-        f"grad_operands {split['grad_operands']:.1f}, residual_pair (forward) "
-        f"{split['residual_pair']:.1f}, pair_grads {split['pair_grads']:.1f}")
+        f"grad_operands {split['grad_operands']:.1f}, fragments {split['fragments']:.1f}, "
+        f"residual_pair (forward) {split['residual_pair']:.1f}, pair_grads "
+        f"{split['pair_grads']:.1f}; the forward with the weight order from the cache (as "
+        f"before it was laid out on each call) {split['forward_taps_cached_fragments']:.1f}")
     log(json.dumps({"train_host_us": split}))
     return split
 
@@ -866,7 +914,7 @@ def run_vrt_path(model, clip, device):
     def counts():
         return {name: fn.launches_by_shape.copy() for name, fn in wrappers.items()}
 
-    forward = make_forward(model, device)
+    forward = make_forward(model, device=device)
     reset_vrt_counts()
     rp.reset_launch_counts()
     seen, calls, out = counts(), {}, {}
@@ -916,7 +964,7 @@ def tiny_vrt_phase(device, card) -> None:
 
     shape = (1, 6, 64, 64, 3)
     model = build_vrt(torch.bfloat16, tiny=True)
-    forward = make_forward(model, device)
+    forward = make_forward(model, device=device)
     g = torch.Generator().manual_seed(3)
     clip = torch.rand(shape, generator=g)
     reset_vrt_counts()
@@ -935,7 +983,7 @@ def tiny_vrt_phase(device, card) -> None:
     model32 = build_vrt(None, tiny=True)
     model32.load_state_dict(model.state_dict())
     set_sampler_impl(model32, "plain")
-    gate_samplers({"fused": fused}, plain, make_forward(model32, device)(clip).float())
+    gate_samplers({"fused": fused}, plain, make_forward(model32, device=device)(clip).float())
     times = []
     for _ in range(3):
         torch.cuda.synchronize()
@@ -961,7 +1009,7 @@ def tiny_vrt_phase(device, card) -> None:
     shape = (1, 4, 32, 32, 3)
     kw = dict(tiny=True, window_size=(2, 4, 4), deformable_groups=8)
     model = build_vrt(torch.bfloat16, **kw)
-    forward = make_forward(model, device)
+    forward = make_forward(model, device=device)
     clip = torch.rand(shape, generator=g)
     reset_vrt_counts()
     fused = forward(clip)
@@ -993,7 +1041,7 @@ def tiny_vrt_phase(device, card) -> None:
     model32 = build_vrt(None, **kw)
     model32.load_state_dict(model.state_dict())
     set_sampler_impl(model32, "plain")
-    gate_samplers({"fused": fused}, plain, make_forward(model32, device)(clip).float())
+    gate_samplers({"fused": fused}, plain, make_forward(model32, device=device)(clip).float())
 
 
 def vrt_phase(device, card):
@@ -1032,13 +1080,13 @@ def vrt_phase(device, card):
     if res["pair_launches"] != 0:
         raise AssertionError("the VRT path launched the residual pair")
 
-    forward = make_forward(model, device)
+    forward = make_forward(model, device=device)
     set_sampler_impl(model, "plain")
     plain = forward(clip).float()
     model32 = build_vrt(None, img_size=VRT_CLIP[1:4])
     model32.load_state_dict(model.state_dict())
     set_sampler_impl(model32, "plain")
-    ref32 = make_forward(model32, device)(clip).float()
+    ref32 = make_forward(model32, device=device)(clip).float()
     del model32
     log(f"  comparison runs use the whole request {VRT_CLIP}")
     gate_samplers({impl: res[impl] for impl in uses}, plain, ref32)
@@ -1142,7 +1190,7 @@ def run_main_path(model, clip, device):
     set_pair_impl(model, "taps")
     reset_launch_counts()
     seen = counts()
-    sr_windowed, n_windows = windowed_inference(make_forward(model, device), clip, 10)
+    sr_windowed, n_windows = windowed_inference(make_forward(model, device=device), clip, 10)
     now = counts()
     calls["windowed"], seen = {f: now[f] - seen[f] for f in KERNELS}, now
     first, rest = make_stream_forward(model, device)
@@ -1253,7 +1301,7 @@ def realbasicvsr_phase(device, card):
         if not (d_max <= 2 * b_max and d_rms <= 2 * b_rms):
             raise AssertionError(f"{name} deviates by more than twice bf16's own deviation")
 
-    forward = make_forward(model, device)
+    forward = make_forward(model, device=device)
     requests = {
         "clip10": (10, lambda: forward(windows[0])),
         "windowed20": (20, lambda: windowed_inference(forward, clip, 10)),
@@ -1635,6 +1683,292 @@ def training_phase(device, card):
     return launches
 
 
+def pair_counts() -> dict:
+    """Each residual-pair kernel's launches by input shape so far."""
+    from vsrlab_tpu_torch.ops.residual_pair import PAIR_IMPLS
+
+    return {form: PAIR_IMPLS[form].launches_by_shape.copy() for form in KERNELS}
+
+
+def gate_counts(label, got, want) -> None:
+    """Raise unless the launches by shape ``got`` equal ``want`` (a dict of
+    Counters by kernel; a kernel left out must not have launched)."""
+    got = {k: {s: n for s, n in v.items() if n} for k, v in got.items()}
+    want = {k: dict(want.get(k, {})) for k in got}
+    log(f"  {label}: launches by shape {got}")
+    if got != want:
+        raise AssertionError(f"{label}: launches {got} != {want}")
+
+
+def window_launches(batch: int, h: int, w: int, windows: int = 1) -> dict:
+    """One RealBasicVSR forward's pair launches by shape for ``batch`` clips
+    of 10 frames of ``h x w``: the recurrences at ``batch``, the cleaner at
+    ``10 * batch`` frames."""
+    import collections
+
+    return collections.Counter({(batch, h, w, 64): 600 * windows,
+                                (10 * batch, h, w, 64): 60 * windows})
+
+
+def write_serving_runs(model, root):
+    """Run directories of the headline model's weights, written by
+    ``convert.write_run_dir`` from numpy trees in the JAX package's layout:
+    ``ema`` (an EMA sidecar that differs from the raw weights, at the main
+    key) and ``stale`` (main key 1, sidecar at key 0). Returns the raw and
+    EMA state_dicts (CPU) and the two directories."""
+    import torch
+
+    from vsrlab_tpu_torch import convert
+
+    raw = {k: v.detach().cpu() for k, v in model.state_dict().items()}
+    g = torch.Generator().manual_seed(3)
+    ema = {k: v + 1e-3 * torch.randn(v.shape, generator=g) for k, v in raw.items()}
+    cfg = {"train": {"model": {"_target_": "RealBasicVSR", **HEADLINE}, "precision": "bf16"}}
+    raw_tree, ema_tree = convert.realbasicvsr_params(raw), convert.realbasicvsr_params(ema)
+    dirs = {name: os.path.join(root, f"run_{name}") for name in ("ema", "stale")}
+    convert.write_run_dir(dirs["ema"], raw_tree, cfg, ema_params=ema_tree)
+    convert.write_run_dir(dirs["stale"], raw_tree, cfg, ema_params=ema_tree, key=0)
+    convert.write_run_dir(dirs["stale"], raw_tree, cfg, key=1)
+    return raw, ema, dirs
+
+
+def same_weights(model, state) -> bool:
+    import torch
+
+    return all(torch.equal(v.cpu(), state[k]) for k, v in model.state_dict().items())
+
+
+def median_s(fn, n: int = 5) -> float:
+    """Median host seconds of ``fn()`` ending in a device sync."""
+    import torch
+
+    times = []
+    for _ in range(n):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    return statistics.median(times)
+
+
+def serving_phase(device, card):
+    """Phase 7. Returns the residual-pair kernels' and the sampler kernels'
+    launches by shape over the phase's main path, (a) to (g)."""
+    import collections
+    import contextlib
+    import io
+    import shutil
+
+    import torch
+
+    from vsrlab_tpu_torch.core.checkpoint import CheckpointManager
+    from vsrlab_tpu_torch.data import SyntheticVSR
+    from vsrlab_tpu_torch.evaluation import export, upscale
+    from vsrlab_tpu_torch.evaluation.harness import (
+        evaluate_video, load_test_model, make_forward, make_stream_forward)
+    from vsrlab_tpu_torch.evaluation.params_bench import param_count, speed_bench
+    from vsrlab_tpu_torch.evaluation.tiled import _tile_starts, tiled_forward
+    from vsrlab_tpu_torch.nn.blocks import set_pair_impl
+    from vsrlab_tpu_torch.ops import residual_pair as rp
+    from vsrlab_tpu_torch.ops.resize import bicubic_down
+    from vsrlab_tpu_torch.utils import profiler
+
+    root = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "chip_smoke_serve")
+    shutil.rmtree(root, ignore_errors=True)
+    pair_seen, sampler_seen = {f: collections.Counter() for f in KERNELS}, collections.Counter()
+
+    def add_pairs(counts):
+        for form in KERNELS:
+            pair_seen[form] += counts[form]
+
+    raw, ema, dirs = write_serving_runs(build_model(torch.bfloat16), root)
+    h, w = SERVE_LR
+    clip10 = torch.rand((1, 10, h, w, 3), generator=torch.Generator().manual_seed(4))
+
+    log("  (a) load_test_model from run directories written by convert.write_run_dir")
+    model, cfg = load_test_model(dirs["ema"], device=device)
+    if not same_weights(model, ema):
+        raise AssertionError("load_test_model did not serve the EMA sidecar")
+    ref = build_model(torch.bfloat16)
+    ref.load_state_dict(ema)
+    rp.reset_launch_counts()
+    served = make_forward(model, device=device)(clip10)
+    want = make_forward(ref, device=device)(clip10)
+    counts = pair_counts()
+    gate_counts("two requests", counts, {"taps": window_launches(1, h, w, 2)})
+    add_pairs(counts)
+    if not torch.equal(served, want):
+        raise AssertionError("EMA-served output differs from a module loaded with the EMA weights")
+    log(f"  EMA served: weights equal the sidecar's, output {tuple(served.shape)} bitwise equal "
+        "to make_forward on a module loaded with the EMA state_dict")
+    del ref, want
+    raw_model, _ = load_test_model(dirs["ema"], use_ema=False, device=device)
+    if not same_weights(raw_model, raw):
+        raise AssertionError("use_ema=False did not serve the raw weights")
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        stale_model, _ = load_test_model(dirs["stale"], device=device)
+    if not same_weights(stale_model, raw) or "WARNING" not in out.getvalue():
+        raise AssertionError("stale sidecar: raw weights not served or no warning: "
+                             f"{out.getvalue()}")
+    log(f"  use_ema=False: raw weights; stale sidecar: raw weights, with: {out.getvalue().strip()}")
+    del raw_model, stale_model
+
+    log(f"  (b) evaluate_video: a 20-frame {h}x{w} LR clip (bicubic_down of a seeded "
+        f"{4 * h}x{4 * w} SyntheticVSR clip), two windows of 10 as one batch")
+    hr = SyntheticVSR(num_videos=1, seq=20, height=4 * h, width=4 * w, scale=4, seed=5)[0][1][None]
+    lr = bicubic_down(hr, 4)
+    forward = make_forward(model, device=device)
+    rp.reset_launch_counts()
+    t0 = time.perf_counter()
+    sr, vals = evaluate_video(forward, lr, hr, 10, ("PSNR", "SSIM"))
+    torch.cuda.synchronize()
+    eval_s = time.perf_counter() - t0
+    counts = pair_counts()
+    gate_counts("evaluate_video", counts, {"taps": window_launches(2, h, w)})
+    add_pairs(counts)
+    set_pair_impl(model, "plain")
+    _, plain_vals = evaluate_video(forward, lr, hr, 10, ("PSNR", "SSIM"))
+    set_pair_impl(model, "taps")
+    d_psnr, d_ssim = (abs(vals[k] - plain_vals[k]) for k in ("PSNR", "SSIM"))
+    log(f"  PSNR {vals['PSNR']:.4f} dB, SSIM {vals['SSIM']:.5f} (plain pair: "
+        f"{plain_vals['PSNR']:.4f}, {plain_vals['SSIM']:.5f}; gates 0.05 dB, 1e-3) in "
+        f"{eval_s:.2f} s, sr {tuple(sr.shape)}")
+    if not (all(map(math.isfinite, vals.values())) and d_psnr <= 0.05 and d_ssim <= 1e-3):
+        raise AssertionError(f"evaluate_video: {vals} against plain {plain_vals}")
+    del sr, hr, lr
+
+    tile = SERVE_TILE
+    log(f"  (c) make_forward(tile={tile}, tile_overlap=16) on a 10-frame {h}x{w} clip")
+    rp.reset_launch_counts()
+    tiled = make_forward(model, tile=tile, tile_overlap=16, device=device)(clip10)
+    counts = pair_counts()
+    direct = tiled_forward(make_forward(model, device=device), clip10.to(device), (tile, tile), 16)
+    n_tiles = len(_tile_starts(h, tile, tile - 16)) * len(_tile_starts(w, tile, tile - 16))
+    want = {"taps": window_launches(1, tile, tile, n_tiles)}
+    gate_counts(f"tiled forward ({n_tiles} tiles)", counts, want)
+    add_pairs(counts)
+    if not torch.equal(tiled, direct):
+        raise AssertionError("tiled make_forward differs from tiled_forward called directly")
+    log(f"  tiled: {tuple(tiled.shape)} bitwise equal to tiled_forward called directly")
+    del tiled, direct
+
+    log(f"  (d) the upscale loop with stream=True: three windows of 10 frames of {h}x{w} from "
+        "memory, im2col pairs")
+    frames = torch.rand((30, h, w, 3), generator=torch.Generator().manual_seed(6)).numpy()
+    set_pair_impl(model, "im2col")
+    stream = make_stream_forward(model, device=device)
+    sink = upscale.ArraySink()
+    rp.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    upscale.upscale_frames(upscale.array_source(frames), sink, 10, stream=stream)
+    stream_s = time.perf_counter() - t0
+    counts = pair_counts()
+    gate_counts("stream", counts, {"im2col": window_launches(1, h, w, 3)})
+    add_pairs(counts)
+    first, rest = make_stream_forward(model, device=device)
+    chain, state = first(frames[None, :10])
+    chain = [chain]
+    for s in (10, 20):
+        out, state = rest(frames[None, s:s + 10], state)
+        chain.append(out)
+    chain = torch.cat(chain, 1)[0].float().clamp(0, 1).cpu().numpy()
+    if not (sink.frames() == chain).all():
+        raise AssertionError("the streamed upscale differs from a first / rest chain")
+    log(f"  stream: {sink.frames().shape} bitwise equal to first / rest called directly; "
+        f"{30 / stream_s:.2f} frames/s through the loop (host clock, copies back included)")
+    del sink, chain, state
+    prof_stream = profile_request(
+        lambda: upscale.upscale_frames(upscale.array_source(frames), upscale.ArraySink(), 10,
+                                       stream=stream), stream_s, top=8, ours=("pair_im2col",))
+    set_pair_impl(model, "taps")
+
+    log(f"  (e) export_model at (1, 10, {h}, {w}, 3), then load_exported")
+    art = os.path.join(root, "headline.pt2")
+    t0 = time.perf_counter()
+    nbytes = export.export_model(dirs["ema"], art, 10, h, w, device=device)
+    export_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    exported = export.load_exported(art)
+    load_s = time.perf_counter() - t0
+    rp.reset_launch_counts()
+    got = exported(clip10)
+    counts = pair_counts()
+    gate_counts("exported forward", counts, {"taps": window_launches(1, h, w)})
+    add_pairs(counts)
+    if not torch.equal(got, served):
+        raise AssertionError("the exported forward differs from make_forward's output")
+    eager = make_forward(model, device=device)
+    fps = {"exported": 10 / median_s(lambda: exported(clip10)),
+           "make_forward": 10 / median_s(lambda: eager(clip10))}
+    log(f"  exported in {export_s:.1f} s, loaded in {load_s:.1f} s, {nbytes / 1e6:.1f} MB; "
+        "bitwise equal to make_forward; frames/s on "
+        f"{card}: exported {fps['exported']:.2f}, make_forward {fps['make_forward']:.2f} "
+        "(median of 5, host clock, input upload included)")
+    log(json.dumps({"export": {"seconds": export_s, "load_seconds": load_s, "bytes": nbytes,
+                               "fps": fps, "stream_fps": 30 / stream_s, "card": card}}))
+    profiles = {"stream_loop_30_frames": prof_stream,
+                "exported": profile_request(lambda: exported(clip10), 10 / fps["exported"], top=8),
+                "make_forward": profile_request(lambda: eager(clip10), 10 / fps["make_forward"],
+                                                top=8)}
+    for name, prof in profiles.items():
+        if "wall_ms" in prof:
+            log(f"  {name}: wall {prof['wall_ms']:.2f} ms, device {prof['device_ms']:.2f} ms "
+                f"(busy {100 * prof['device_busy_share']:.1f} %), the pair kernels "
+                f"{prof['own_kernels_ms']:.2f} ms, {prof['device_ops']} kernels and copies")
+    log(json.dumps({"profile_serving": profiles, "card": card}))
+    del exported, got
+
+    log("  (f) params bench of the headline model, and one request under utils.profiler.trace")
+    stats = speed_bench(model, (1, 10, h, w, 3), n_iters=5, device=device)
+    log(f"  {param_count(model)} parameters; speed_bench: {json.dumps(stats)} on {card}")
+    trace_dir = os.path.join(root, "trace")
+    with profiler.trace(trace_dir):
+        with profiler.annotate("request"):
+            eager(clip10)
+        torch.cuda.synchronize()
+    (trace_file,) = (os.path.join(trace_dir, f) for f in os.listdir(trace_dir))
+    with open(trace_file) as fh:
+        events = json.load(fh)["traceEvents"]
+    n_kernels = sum(e.get("cat") == "kernel" for e in events)
+    n_spans = sum(e.get("name") == "request" for e in events)
+    if not n_kernels or not n_spans:
+        raise AssertionError(f"trace: {n_kernels} kernel events, {n_spans} 'request' spans")
+    log(f"  trace: {os.path.getsize(trace_file) / 1e6:.1f} MB Chrome trace, {n_kernels} kernel "
+        f"events, the 'request' span present")
+    del model, served
+    torch.cuda.empty_cache()
+
+    log("  (g) paper-configuration VRT served tiled from a run directory")
+    vrt_dir = os.path.join(root, "vrt")
+    CheckpointManager(vrt_dir).save(0, build_vrt(torch.bfloat16).state_dict(), config={
+        "train": {"model": {"_target_": "VRT"}, "precision": "bf16"}})
+    vrt, _ = load_test_model(vrt_dir, device=device)
+    vclip = torch.rand(VRT_CLIP, generator=torch.Generator().manual_seed(2))
+    reset_vrt_counts()
+    t0 = time.perf_counter()
+    vout = make_forward(vrt, tile=tile, tile_overlap=16, device=device)(vclip)
+    torch.cuda.synchronize()
+    vrt_s = time.perf_counter() - t0
+    n_tiles = (len(_tile_starts(VRT_CLIP[2], tile, tile - 16))
+               * len(_tile_starts(VRT_CLIP[3], tile, tile - 16)))
+    per_tile = expected_vrt_launches((1, VRT_CLIP[1], tile, tile, 3), "bilinear_sample")
+    counts = {name: fn.launches_by_shape.copy() for name, fn in vrt_wrappers().items()}
+    gate_counts(f"VRT tiled ({n_tiles} tiles)", counts, {
+        "bilinear_sample": collections.Counter({k: v * n_tiles for k, v in per_tile.items()})})
+    sampler_seen += counts["bilinear_sample"]
+    want_shape = (1, VRT_CLIP[1], 4 * VRT_CLIP[2], 4 * VRT_CLIP[3], 3)
+    if tuple(vout.shape) != want_shape or not bool(torch.isfinite(vout).all()):
+        raise AssertionError(f"VRT tiled: shape {tuple(vout.shape)} or non-finite")
+    log(f"  VRT tiled: {tuple(vout.shape)} finite, {sum(per_tile.values())} sampler launches a "
+        f"tile, {VRT_CLIP[1] / vrt_s:.3f} frames/s once (first use included) on {card}")
+    del vrt, vout
+    torch.cuda.empty_cache()
+    return pair_seen, sampler_seen
+
+
 def main() -> int:
     import torch
 
@@ -1652,6 +1986,12 @@ def main() -> int:
     log(f"  torch {torch.__version__}, CUDA {torch.version.cuda}, "
         f"{torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}")
     log(card)
+    for module in ("cv2", "PIL"):  # image codecs: the port's file I/O needs cv2
+        try:
+            found = __import__(module).__version__
+        except ImportError as e:
+            found = f"not importable ({e})"
+        log(f"  {module}: {found}")
     # one nvcc for each source, started together
     with concurrent.futures.ThreadPoolExecutor() as pool:
         libs = list(pool.map(load, ("residual_pair", "packed_gather", "bilinear_sample")))
@@ -1679,6 +2019,13 @@ def main() -> int:
     log("phase 5: RealBasicVSR training (batch 4 x 6 frames, 64x64 -> 256x256, bf16)")
     for form, by_shape in training_phase(device, card).items():
         pair_launches[form] += by_shape
+    torch.cuda.empty_cache()
+
+    log("phase 7: serving from a checkpoint (headline RealBasicVSR, paper-configuration VRT)")
+    serve_pairs, serve_samplers = serving_phase(device, card)
+    for form, by_shape in serve_pairs.items():
+        pair_launches[form] += by_shape
+    vrt_launches["bilinear_sample"] += serve_samplers
     torch.cuda.empty_cache()
 
     log("phase 6: each kernel at its paths' shapes")

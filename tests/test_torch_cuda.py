@@ -15,7 +15,7 @@ torch = pytest.importorskip("torch")
 from vsrlab_tpu_torch.ops import bilinear_sample as bs  # noqa: E402
 from vsrlab_tpu_torch.ops import packed_gather as pg  # noqa: E402
 from vsrlab_tpu_torch.ops import warp  # noqa: E402
-from vsrlab_tpu_torch.nn.blocks import ResidualConv  # noqa: E402
+from vsrlab_tpu_torch.nn.blocks import ResidualConv, refresh_pair_caches  # noqa: E402
 from vsrlab_tpu_torch.ops.residual_pair import (  # noqa: E402
     pack_weight_fragments,
     pair_launch_plan,
@@ -192,6 +192,43 @@ def test_residual_conv_on_the_card_follows_its_parameters(cuda, impl, inference)
             unit.conv2.bias.add_(0.5)
     launched = residual_conv_pair if impl == "taps" else residual_conv_pair_im2col
     assert launched.launches_by_shape[(2, 20, 40, 64)] >= 2
+
+
+@pytest.mark.parametrize("write", ["data_mul", "fused_adam"])
+def test_residual_conv_on_the_card_sees_writes_no_version_counter_sees(cuda, write):
+    """A write through ``.data`` or a fused Adam step bumps no version
+    counter: the grad route's forward and backward still use the new
+    weights (its weight order is laid out on each call), and so does the
+    no-grad route after ``refresh_pair_caches`` (``.data``) or on its own
+    (the optimizer step count). Held against autograd through the plain
+    version on the same weights, bf16: each tensor within 2 % of the plain
+    one in norm (stale weights, 2x or a step of 0.05 away, miss by far more)."""
+    torch.manual_seed(4)
+    unit = ResidualConv(64, dtype=torch.bfloat16).to(cuda)
+    x = torch.randn((2, 20, 40, 64), device=cuda)
+    with torch.no_grad():
+        unit(x)  # fills the cache
+    if write == "data_mul":
+        unit.conv1.weight.data.mul_(-2.0)
+        refresh_pair_caches(unit)
+    else:
+        opt = torch.optim.Adam(unit.parameters(), lr=0.05, fused=True)
+        unit(x.requires_grad_()).float().square().mean().backward()
+        opt.step()
+        opt.zero_grad(set_to_none=True)
+    with torch.no_grad():
+        torch.testing.assert_close(unit(x).float(), unit(x, "plain").float(), rtol=2e-2,
+                                   atol=2e-2)
+    outs = []
+    for impl in ("taps", "plain"):
+        xg = x.detach().clone().requires_grad_()
+        y = unit(xg, impl)
+        y.float().sum().backward()
+        outs.append([y.detach().float(), xg.grad.float()]
+                    + [p.grad.float() for p in unit.parameters()])
+        unit.zero_grad(set_to_none=True)
+    for got, want in zip(*outs):
+        assert float((got - want).norm() / want.norm()) < 2e-2
 
 
 def _packed_operands(n, h, w, c, gp, dtype, device, seed=0):

@@ -27,9 +27,12 @@ def _imported_roots(path: Path):
 def test_sources_exist():
     assert (ROOT / "chip_smoke.py").is_file()
     assert len(SOURCES) > 10
-    # the training slice's modules are among those checked
+    # the training and serving slices' modules are among those checked
     for module in ("components.py", "core/config.py", "core/checkpoint.py", "data/datasets.py",
-                   "data/loader.py", "train/train.py", "train/step.py", "utils/seed.py"):
+                   "data/loader.py", "train/train.py", "train/step.py", "utils/seed.py",
+                   "data/video_io.py", "evaluation/harness.py", "evaluation/upscale.py",
+                   "evaluation/params_bench.py", "evaluation/export.py", "utils/profiler.py",
+                   "convert.py"):
         assert ROOT / "vsrlab_tpu_torch" / module in SOURCES, module
 
 

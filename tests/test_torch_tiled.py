@@ -64,6 +64,6 @@ def test_tiled_tiny_vrt_through_make_forward(rng):
     model = TinyVRT(upscale=4, window_size=(2, 4, 4), depths=(2,) * 7, embed_dims=(8,) * 7,
                     num_heads=(2,) * 7, deformable_groups=2)
     lr = torch.from_numpy(rng.random((1, 2, 24, 24, 3)).astype(np.float32))
-    out = tiled.tiled_forward(make_forward(model, "cpu"), lr, tile=(16, 16), overlap=8)
+    out = tiled.tiled_forward(make_forward(model, device="cpu"), lr, tile=(16, 16), overlap=8)
     assert out.shape == (1, 2, 96, 96, 3)
     assert bool(torch.isfinite(out).all())

@@ -250,5 +250,5 @@ def test_vrt_paper_configuration_and_entry_point():
             make_forward(model)
     tiny = vrt.TinyVRT(window_size=(2, 4, 4), depths=(2,) * 7, embed_dims=(8,) * 7,
                        num_heads=(2,) * 7, deformable_groups=2)
-    sr = make_forward(tiny, "cpu")(np.zeros((1, 2, 16, 16, 3), np.float32))
+    sr = make_forward(tiny, device="cpu")(np.zeros((1, 2, 16, 16, 3), np.float32))
     assert sr.shape == (1, 2, 64, 64, 3)

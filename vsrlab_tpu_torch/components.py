@@ -1,5 +1,6 @@
-"""Component registry of the port: the ``_target_`` names a config of this
-slice (supervised RealBasicVSR / BasicVSR training) instantiates.
+"""Component registry of the port: the ``_target_`` names a config
+instantiates (supervised RealBasicVSR / BasicVSR training; VRT / TinyVRT,
+which the serving entry points rebuild from a run's config snapshot).
 
 Importing this module fills :data:`vsrlab_tpu_torch.core.config.REGISTRY`.
 Names the JAX package's configs use for components the port does not have
@@ -13,13 +14,18 @@ import functools
 from vsrlab_tpu_torch.core.config import NOT_PORTED, register
 from vsrlab_tpu_torch.core.loggers import JsonlLogger, build_logger
 from vsrlab_tpu_torch.core.metrics import MetricCollection
-from vsrlab_tpu_torch.data import DatasetVSR, SyntheticVSR, ValDatasetVSR
-from vsrlab_tpu_torch.models import BasicVSR, RealBasicVSR
+from vsrlab_tpu_torch.data import DatasetVSR, SyntheticVSR, ValDatasetVSR, VideoDatasetVSR
+from vsrlab_tpu_torch.models import VRT, BasicVSR, RealBasicVSR, TinyVRT
 
 register("RealBasicVSR", RealBasicVSR)
 register("BasicVSR", BasicVSR)
 register("DatasetVSR", DatasetVSR)
 register("ValDatasetVSR", ValDatasetVSR)
+register("VideoDatasetVSR", VideoDatasetVSR)
+# VRT and TinyVRT serve; training them raises in the deformable sampler,
+# which has no backward yet (ROADMAP queue 1, item 7)
+register("VRT", VRT)
+register("TinyVRT", TinyVRT)
 register("SyntheticVSR", SyntheticVSR)
 register("MetricCollection", MetricCollection)
 register("Logger", build_logger)
@@ -45,9 +51,6 @@ NOT_PORTED.update({
     "SpyNet": _FLOW, "RAFT": _FLOW, "IRRPWCNet": _FLOW, "SpyNetProgressive": _FLOW,
     "FlowDataset": _FLOW, "SyntheticFlowDataset": _FLOW, "EPELoss": _FLOW,
     "OpticalFlowConsistency": _FLOW,
-    "VRT": "VRT training, which needs a backward of the deformable sampler (ROADMAP queue 1)",
-    "TinyVRT": "VRT training, which needs a backward of the deformable sampler (ROADMAP queue 1)",
-    "VideoDatasetVSR": "the video I/O of the upscale slice (ROADMAP queue 1, item 9)",
     "WandbLogger": "no slice: wandb is not ported", "vsrlab.core.loggers.WandbLogger":
     "no slice: wandb is not ported",
 })

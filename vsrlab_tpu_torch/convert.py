@@ -17,10 +17,14 @@ params)``), with the paths that ``vsrlab_tpu``'s ``init`` produces:
 
 Each ``*_state_dict`` function returns a flat ``{name: tensor}`` dict for
 ``load_state_dict(..., strict=True)`` of the matching port module.
+:func:`write_run_dir` writes a JAX-trained param tree as a run directory
+of the port, which :func:`vsrlab_tpu_torch.evaluation.harness.load_test_model`
+serves (orbax checkpoints are not read here: that needs ``jax``).
 """
 
 from __future__ import annotations
 
+from pathlib import Path
 from typing import Mapping
 
 import numpy as np
@@ -152,3 +156,78 @@ def adam_state_dict(opt_state, params: Tree) -> dict:
         raise ValueError("the Adam moments do not have the params' tree")
     step = torch.tensor(float(np.asarray(count)))
     return {n: {"step": step.clone(), "exp_avg": mu[n], "exp_avg_sq": nu[n]} for n in names}
+
+
+def _conv_params(sd: Mapping, prefix: str) -> dict:
+    """``{prefix}weight`` (OIHW), ``{prefix}bias`` -> ``{kernel (HWIO), bias}``."""
+    kernel = np.asarray(sd[f"{prefix}weight"]).transpose(2, 3, 1, 0)
+    return {"kernel": np.ascontiguousarray(kernel), "bias": np.array(sd[f"{prefix}bias"])}
+
+
+def _residual_block_params(sd: Mapping, prefix: str) -> dict:
+    n = sum(1 for k in sd if k.startswith(f"{prefix}res_blocks.") and k.endswith("conv1.weight"))
+    units = [[_conv_params(sd, f"{prefix}res_blocks.{i}.conv{j}.") for j in (1, 2)]
+             for i in range(n)]
+    stacked = {f"Conv2d_{j}": {"Conv_0": {k: np.stack([u[j][k] for u in units])
+                                          for k in ("kernel", "bias")}} for j in (0, 1)}
+    return {"ConvLeaky_0": {"Conv2d_0": {"Conv_0": _conv_params(sd, f"{prefix}head.conv.")}},
+            "res_blocks": stacked}
+
+
+def realbasicvsr_params(state_dict: Mapping) -> dict:
+    """The inverse of :func:`realbasicvsr_state_dict`: a RealBasicVSR
+    ``state_dict`` of the port (tensors on the CPU) -> the JAX package's
+    param tree of numpy arrays (OIHW -> HWIO, units stacked back on a
+    leading block axis)."""
+    sd = {k: v.detach().float().cpu().numpy() for k, v in state_dict.items()}
+    spynet, i = {}, 0
+    while f"basicvsr.spynet.basic_module.{i}.convs.0.weight" in sd:
+        head, j = {}, 0
+        while f"basicvsr.spynet.basic_module.{i}.convs.{j}.weight" in sd:
+            head[f"conv_{j}"] = {"Conv_0": _conv_params(
+                sd, f"basicvsr.spynet.basic_module.{i}.convs.{j}.")}
+            j += 1
+        spynet[f"basic_module_{i}"] = head
+        i += 1
+    vsr = {"spynet": spynet, "point_conv": {"Conv_0": _conv_params(sd, "basicvsr.point_conv.")}}
+    for d in ("backward", "forward"):
+        vsr[f"{d}_resblocks"] = {"ResidualBlock_0": _residual_block_params(
+            sd, f"basicvsr.{d}_resblocks.")}
+    u = 0
+    while f"basicvsr.upsample.{u}.conv.weight" in sd:
+        vsr[f"upsample_{u}"] = {"Conv2d_0": {"Conv_0": _conv_params(
+            sd, f"basicvsr.upsample.{u}.conv.")}}
+        u += 1
+    for name in ("conv_hr", "conv_last"):
+        vsr[name] = {"Conv_0": _conv_params(sd, f"basicvsr.{name}.")}
+    cleaner = {"ResidualBlock_0": _residual_block_params(sd, "cleaner.resblock."),
+               "Conv2d_0": {"Conv_0": _conv_params(sd, "cleaner.conv.")}}
+    return {"cleaner": cleaner, "basicvsr": vsr}
+
+
+def _mapper(config: Mapping):
+    """The ``*_state_dict`` function of the model a run config names."""
+    from vsrlab_tpu_torch.core.config import ALIASES
+
+    target = config["train"]["model"]["_target_"]
+    name = ALIASES.get(target, target).rsplit(".", 1)[-1]
+    mappers = {"RealBasicVSR": realbasicvsr_state_dict, "BasicVSR": basicvsr_state_dict,
+               "VRT": vrt_state_dict, "TinyVRT": vrt_state_dict}
+    if name not in mappers:
+        raise ValueError(f"no parameter mapping for model {target!r}")
+    return mappers[name]
+
+
+def write_run_dir(run_dir, params: Tree, config: Mapping, ema_params: Tree | None = None,
+                  key: int = 0) -> None:
+    """Write a run directory of the port from a JAX param tree (numpy
+    leaves): the mapped ``state_dict`` at checkpoint ``key`` with the
+    ``config`` snapshot (its ``train.model._target_`` picks the mapping),
+    and ``ema_params``, where given, as the EMA sidecar ``<run>/ema`` at the
+    same key."""
+    from vsrlab_tpu_torch.core.checkpoint import CheckpointManager
+
+    to_state_dict = _mapper(config)
+    CheckpointManager(str(run_dir)).save(key, to_state_dict(params), config=dict(config))
+    if ema_params is not None:
+        CheckpointManager(str(Path(run_dir) / "ema")).save(key, to_state_dict(ema_params))

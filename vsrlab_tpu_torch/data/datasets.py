@@ -6,14 +6,15 @@
 * :class:`ValDatasetVSR`: paired pre-made HR / LR folders, one window.
 * :class:`SyntheticVSR`: procedural moving-pattern clips, deterministic
   per (seed, index), no disk.
+* :class:`VideoDatasetVSR`: :class:`DatasetVSR` over video files, decoding
+  only the sampled window.
 
 Samples are ``(lr, hr)`` float32 numpy clips ``(T, H, W, C)`` in [0, 1].
-Frames are decoded and downscaled with OpenCV where it is importable. The
-JAX package tries its native C++ library first; a native data library for
-the port is later work, so a LR clip here can differ from the JAX one in
-the last bits. Without OpenCV, :class:`SyntheticVSR` takes the box mean
-over ``scale x scale`` blocks (as the JAX one does without it) and the
-folder datasets, which must decode image files, raise. Degradation
+LR is always :func:`~vsrlab_tpu_torch.ops.resize.bicubic_down`, OpenCV's
+``INTER_CUBIC`` computed in numpy, so the data are the same with or
+without OpenCV; the JAX package calls its native library or OpenCV, which
+agree with it to about 3e-7. Frames are
+decoded with OpenCV, so the folder datasets raise without it. Degradation
 pipelines are not ported yet: only ``None`` is accepted.
 """
 
@@ -24,9 +25,12 @@ from typing import Optional, Sequence
 
 import numpy as np
 
+from vsrlab_tpu_torch.data.video_io import read_video_window, video_frame_count
+from vsrlab_tpu_torch.ops.resize import bicubic_down
+
 try:
     import cv2
-except ImportError:  # the card's machine has no OpenCV
+except ImportError:  # decoding frames raises without it
     cv2 = None
 
 
@@ -58,14 +62,6 @@ def load_clip(paths) -> np.ndarray:
     return np.stack([load_frame(p) for p in paths])
 
 
-def _bicubic_down(clip: np.ndarray, scale: int) -> np.ndarray:
-    """Bicubic /scale of ``(T, H, W, C)`` (OpenCV ``INTER_CUBIC``), clipped to [0, 1]."""
-    t, h, w, c = clip.shape
-    resize = _need_cv2("the bicubic downscale").resize
-    frames = [resize(f, (w // scale, h // scale), interpolation=cv2.INTER_CUBIC) for f in clip]
-    return np.clip(np.stack(frames), 0.0, 1.0)
-
-
 class DatasetVSR:
     """Folder-of-videos dataset; the window and its randomness are drawn
     from ``(seed, epoch, index)``."""
@@ -73,7 +69,7 @@ class DatasetVSR:
     def __init__(self, path: str, split: str = "train", seq: int = 6, train_size: float = 0.8,
                  scale: int = 4, hr_augmentation: Optional[Sequence] = None,
                  lr_augmentation: Optional[Sequence] = None, seed: int = 0, **_):
-        self.videos = sorted(p for p in Path(path).glob("*") if p.is_dir())
+        self.videos = self._list_videos(path)
         split_point = int(len(self.videos) * train_size)
         if split == "train":
             self.videos = self.videos[:split_point]
@@ -83,6 +79,16 @@ class DatasetVSR:
         build_pipeline(hr_augmentation), build_pipeline(lr_augmentation)
         self._epoch = 0
 
+    def _list_videos(self, path):
+        """One entry per video (a frame folder here)."""
+        return sorted(p for p in Path(path).glob("*") if p.is_dir())
+
+    def _read_window(self, index: int, rng: np.random.Generator) -> np.ndarray:
+        """A random ``seq``-frame HR window of video ``index``."""
+        frames = sorted(x for x in self.videos[index].glob("*") if x.is_file())
+        start = int(rng.integers(0, max(len(frames) - self.seq, 0) + 1))
+        return load_clip(frames[start : start + self.seq])
+
     def set_epoch(self, epoch: int):
         self._epoch = epoch
 
@@ -90,11 +96,31 @@ class DatasetVSR:
         return len(self.videos)
 
     def __getitem__(self, index: int):
-        rng = np.random.default_rng((self.seed, self._epoch, index))
-        frames = sorted(x for x in self.videos[index].glob("*") if x.is_file())
-        start = int(rng.integers(0, max(len(frames) - self.seq, 0) + 1))
-        hr = load_clip(frames[start : start + self.seq])
-        return _bicubic_down(hr, self.scale), hr
+        hr = self._read_window(index, np.random.default_rng((self.seed, self._epoch, index)))
+        return bicubic_down(hr, self.scale), hr
+
+
+class VideoDatasetVSR(DatasetVSR):
+    """:class:`DatasetVSR` over a folder of video FILES: one file a video,
+    and only the sampled window is decoded (a container seek,
+    :func:`~vsrlab_tpu_torch.data.video_io.read_video_window`)."""
+
+    EXTS = {".mp4", ".avi", ".mkv", ".mov", ".webm"}
+
+    def __init__(self, *args, **kwargs):
+        self._counts: dict = {}
+        super().__init__(*args, **kwargs)
+
+    def _list_videos(self, path):
+        return sorted(p for p in Path(path).glob("*")
+                      if p.is_file() and p.suffix.lower() in self.EXTS)
+
+    def _read_window(self, index: int, rng: np.random.Generator) -> np.ndarray:
+        path = self.videos[index]
+        if path not in self._counts:
+            self._counts[path] = video_frame_count(path)
+        start = int(rng.integers(0, max(self._counts[path] - self.seq, 0) + 1))
+        return read_video_window(path, start, self.seq)
 
 
 class ValDatasetVSR:
@@ -127,7 +153,7 @@ class ValDatasetVSR:
 
 class SyntheticVSR:
     """Procedural moving-gradient clips, deterministic per (seed, index);
-    LR is a bicubic downscale of HR (the box mean without OpenCV)."""
+    LR is a bicubic downscale of HR."""
 
     def __init__(self, num_videos: int = 32, seq: int = 6, height: int = 64, width: int = 64,
                  scale: int = 4, lr_augmentation: Optional[Sequence] = None, seed: int = 0,
@@ -160,9 +186,4 @@ class SyntheticVSR:
                              for c in range(3)], axis=-1)
             frames.append((base * 0.5 + 0.5).astype(np.float32))
         hr = np.stack(frames)
-        if cv2 is not None:
-            lr = _bicubic_down(hr, self.scale)
-        else:
-            s = self.scale
-            lr = hr.reshape(t, h // s, s, w // s, s, 3).mean((2, 4))
-        return lr, hr
+        return bicubic_down(hr, self.scale), hr

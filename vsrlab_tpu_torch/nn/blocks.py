@@ -22,11 +22,13 @@ is PyTorch convolutions.
 
 from __future__ import annotations
 
+import functools
 import math
 
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.optim.optimizer import register_optimizer_step_post_hook
 
 from vsrlab_tpu_torch.ops.deform import deform_conv2d
 from vsrlab_tpu_torch.ops.pixel_shuffle import pixel_shuffle
@@ -35,6 +37,7 @@ from vsrlab_tpu_torch.ops.residual_pair import (
     PAIR_IMPLS,
     pack_weight_fragments,
     residual_conv_pair,
+    residual_conv_pair_im2col,
     residual_pair,
 )
 from vsrlab_tpu_torch.ops.warp import SAMPLER_IMPLS
@@ -123,22 +126,44 @@ class ConvLeaky(nn.Module):
         return F.leaky_relu(self.conv(x), 0.1)
 
 
+# torch.optim steps taken in this process, counted by a global post-step hook
+_OPTIMIZER_STEPS = [0]
+
+
+@functools.cache
+def _watch_optimizer_steps() -> None:
+    """Register the step counter once (at the first ``ResidualConv``): a
+    fused optimizer writes the parameters without bumping their version
+    counters, so the operand cache keys on this count as well."""
+    def count(optimizer, args, kwargs):
+        _OPTIMIZER_STEPS[0] += 1
+
+    register_optimizer_step_post_hook(count)
+
+
 class ResidualConv(nn.Module):
     """``x + conv2(relu(conv1(x)))``, computed by the fused residual pair.
 
-    The pair's operands (HWIO weights in the compute type, fp32 biases, and
-    for the bf16 ``taps`` kernel its own order of the weights) are laid out
-    once and reused until a parameter changes, moves or the compute type
-    differs. A change is seen through the parameters' version counters,
-    which in-place writes and ``torch.optim``'s foreach and per-tensor
-    updates bump (the fused ones do not: the trainer does not use them).
+    Without a gradient the pair's operands (HWIO weights in the compute
+    type, fp32 biases, and for the bf16 ``taps`` kernel its own order of the
+    weights) are laid out once and reused. The cache is keyed on the
+    parameters' storage and version counters (in-place writes bump them)
+    and on the process's count of optimizer steps (a fused optimizer's step
+    does not bump them), and it is dropped by ``load_state_dict``, by
+    ``.to()`` and the other ``_apply`` moves, and by ``train()`` /
+    ``eval()``. A write through ``p.data`` is invisible to all of these:
+    call :func:`refresh_pair_caches` after one (the serving entry points
+    call it).
 
     Where a gradient is wanted (grad mode on and ``x`` or a parameter
-    requiring grad), the operands are built anew from the parameters on each
-    call, with the graph kept, and the pair runs as ``ResidualPair``: the
-    same kernel, fed the cached kernel order of the weights, then a
-    gradient for every operand. ``impl="plain"`` is autograd through the
-    plain version on those same operands.
+    requiring grad), the operands and the kernel's weight order are built
+    anew from the parameters on each call, so the forward and the backward
+    see the same weights; the pair runs as ``ResidualPair``: the same
+    kernel, then a gradient for every operand. ``impl="plain"`` is autograd
+    through the plain version on those same operands. While
+    ``torch.export`` traces the module, the same layout ops go into the
+    graph and the pair into it as the ``vsrlab::`` custom op, so that an
+    exported program launches the kernel.
     """
 
     def __init__(self, features: int = 64, dtype=None):
@@ -146,20 +171,30 @@ class ResidualConv(nn.Module):
         self.conv1 = Conv2d(features, features, 3, 1, 1, dtype=dtype)
         self.conv2 = Conv2d(features, features, 3, 1, 1, dtype=dtype)
         self._pair_cache: list | None = None  # [key, operands, fragments]
+        _watch_optimizer_steps()
+
+    def _params(self):
+        return self.conv1.weight, self.conv1.bias, self.conv2.weight, self.conv2.bias
+
+    def _load_from_state_dict(self, *args, **kwargs):
+        self._pair_cache = None
+        super()._load_from_state_dict(*args, **kwargs)
+
+    def _apply(self, fn, recurse=True):
+        self._pair_cache = None
+        return super()._apply(fn, recurse)
+
+    def train(self, mode: bool = True):
+        self._pair_cache = None
+        return super().train(mode)
 
     def pair_operands(self, dtype: torch.dtype):
         """``(w1, b1, w2, b2)`` in the kernel's layout for compute ``dtype``."""
-        params = (self.conv1.weight, self.conv1.bias, self.conv2.weight, self.conv2.bias)
-        key = (dtype,) + tuple((p.data_ptr(), p._version) for p in params)
+        params = self._params()
+        key = (dtype, _OPTIMIZER_STEPS[0]) + tuple((p.data_ptr(), p._version) for p in params)
         if self._pair_cache is None or self._pair_cache[0] != key:
             with torch.no_grad():
-                w1, b1, w2, b2 = (p.detach() for p in params)
-                ops = (
-                    w1.permute(2, 3, 1, 0).to(dtype).contiguous(),  # OIHW -> HWIO
-                    b1.float().contiguous(),
-                    w2.permute(2, 3, 1, 0).to(dtype).contiguous(),
-                    b2.float().contiguous(),
-                )
+                ops = tuple(t.detach() for t in self.grad_operands(dtype))
             self._pair_cache = [key, ops, None]
         return self._pair_cache[1]
 
@@ -182,17 +217,22 @@ class ResidualConv(nn.Module):
     def forward(self, x, impl: str = "taps"):
         dt = self.conv1.compute_dtype(x)
         x = x.to(dt).contiguous()
-        params = (self.conv1.weight, self.conv1.bias, self.conv2.weight, self.conv2.bias)
-        if torch.is_grad_enabled() and (x.requires_grad or any(p.requires_grad for p in params)):
+        taps = impl == "taps" and x.is_cuda and dt == torch.bfloat16 and x.shape[-1] == PAIR_C
+        exporting = torch.compiler.is_exporting()
+        if exporting or (torch.is_grad_enabled()
+                         and (x.requires_grad or any(p.requires_grad for p in self._params()))):
             ops = self.grad_operands(dt)
             if impl == "plain":
                 return PAIR_IMPLS[impl](x, *ops)
-            fragments = None
-            if impl == "taps" and x.is_cuda and dt == torch.bfloat16 and x.shape[-1] == PAIR_C:
-                fragments = self.pair_fragments()  # detached, laid out once per weight update
+            # the kernel's weight order laid out from this call's operands
+            fragments = (tuple(pack_weight_fragments(w.detach()) for w in ops[::2])
+                         if taps else None)
+            if exporting:  # the wrappers trace as the vsrlab:: custom ops
+                return (residual_conv_pair(x, *ops, fragments=fragments) if impl == "taps"
+                        else residual_conv_pair_im2col(x, *ops))
             return residual_pair(x, *ops, impl, fragments)
         ops = self.pair_operands(dt)
-        if impl == "taps" and x.is_cuda and dt == torch.bfloat16 and x.shape[-1] == PAIR_C:
+        if taps:
             # the cache now holds the bf16 operands: their fragments lie beside them
             return residual_conv_pair(x, *ops,
                                       fragments=self._pair_cache[2] or self.pair_fragments())
@@ -305,6 +345,17 @@ def init_weights(module: nn.Module, generator: torch.Generator) -> nn.Module:
         reset = getattr(m, "reset_parameters", None)
         if reset is not None:
             reset(generator)
+    return module
+
+
+def refresh_pair_caches(module: nn.Module) -> nn.Module:
+    """Drop the cached pair operands of every :class:`ResidualConv` under
+    ``module``. Needed after a write through ``p.data`` (which no version
+    counter sees); loads, moves, mode switches and optimizer steps drop
+    the caches themselves."""
+    for m in module.modules():
+        if isinstance(m, ResidualConv):
+            m._pair_cache = None
     return module
 
 

@@ -72,11 +72,8 @@ def bilinear_sample_plain(x: torch.Tensor, ix: torch.Tensor, iy: torch.Tensor,
     return out.to(x.dtype)
 
 
-def _check(x, ix, iy) -> None:
+def _check_shapes(x, ix, iy) -> None:
     name = "bilinear_sample"
-    tensors = (x, ix, iy)
-    if any(t.requires_grad for t in tensors):
-        raise ValueError(f"{name} is forward-only: an input requires grad")
     if x.dim() != 4:
         raise ValueError(f"x must be (N, H, W, C), got {tuple(x.shape)}")
     if ix.dim() != 2 or ix.shape[0] != x.shape[0]:
@@ -87,6 +84,14 @@ def _check(x, ix, iy) -> None:
         raise ValueError(f"{name}: coordinates must be fp32")
     if x.numel() == 0 or ix.numel() == 0:
         raise ValueError(f"{name}: empty input")
+
+
+def _check(x, ix, iy) -> None:
+    name = "bilinear_sample"
+    tensors = (x, ix, iy)
+    if any(t.requires_grad for t in tensors):
+        raise ValueError(f"{name} is forward-only: an input requires grad")
+    _check_shapes(x, ix, iy)
     if x.device.type == "cpu" and all(t.device.type == "cpu" for t in tensors):
         return
     if x.device.type != "cuda" or any(t.device != x.device for t in tensors):
@@ -118,7 +123,14 @@ def bilinear_sample(x: torch.Tensor, ix: torch.Tensor, iy: torch.Tensor,
                     zeros: bool) -> torch.Tensor:
     """Sample ``x`` ``(N, H, W, C)`` (bf16 or fp32) at fp32 pixel
     coordinates ``ix``, ``iy`` ``(N, P)`` -> ``(N, P, C)`` in ``x.dtype``
-    (CUDA ``bilinear_sample_kernel``)."""
+    (CUDA ``bilinear_sample_kernel``; in an exported graph the custom op
+    ``vsrlab::bilinear_sample``)."""
+    if torch.compiler.is_exporting():
+        return torch.ops.vsrlab.bilinear_sample(x, ix, iy, zeros)
+    return _sample(x, ix, iy, zeros)
+
+
+def _sample(x, ix, iy, zeros: bool) -> torch.Tensor:
     _check(x, ix, iy)
     if x.device.type == "cpu":
         return bilinear_sample_plain(x, ix, iy, zeros)
@@ -134,6 +146,19 @@ def bilinear_sample(x: torch.Tensor, ix: torch.Tensor, iy: torch.Tensor,
     bilinear_sample.launches += 1
     bilinear_sample.launches_by_shape[(n, h, w, c, p)] += 1
     return out
+
+
+# the kernel as a custom op, so that torch.export keeps it in its graph; its
+# implementation is the wrapper's (the kernel on a CUDA tensor, counted)
+@torch.library.custom_op("vsrlab::bilinear_sample", mutates_args=())
+def _sample_op(x: torch.Tensor, ix: torch.Tensor, iy: torch.Tensor, zeros: bool) -> torch.Tensor:
+    return _sample(x, ix, iy, zeros)
+
+
+@_sample_op.register_fake
+def _(x, ix, iy, zeros):
+    _check_shapes(x, ix, iy)
+    return x.new_empty((x.shape[0], ix.shape[1], x.shape[3]))
 
 
 def reset_launch_counts() -> None:

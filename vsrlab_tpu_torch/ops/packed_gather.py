@@ -60,10 +60,7 @@ def fold_window(g, rx0, py0, wx0, wx1, wy0, wy1, channels: int) -> torch.Tensor:
     return out.to(g.dtype)
 
 
-def _check(name, xf, idx):
-    tensors = (xf, idx)
-    if any(t.requires_grad for t in tensors):
-        raise ValueError(f"{name} is forward-only: an input requires grad")
+def _check_shapes(name, xf, idx):
     if xf.dim() != 3:
         raise ValueError(f"xf must be (N, R, Wrow), got {tuple(xf.shape)}")
     if idx.dim() != 2 or idx.shape[0] != xf.shape[0]:
@@ -72,6 +69,13 @@ def _check(name, xf, idx):
         raise ValueError(f"{name}: idx must be int32")
     if xf.numel() == 0 or idx.numel() == 0:
         raise ValueError(f"{name}: empty input")
+
+
+def _check(name, xf, idx):
+    tensors = (xf, idx)
+    if any(t.requires_grad for t in tensors):
+        raise ValueError(f"{name} is forward-only: an input requires grad")
+    _check_shapes(name, xf, idx)
     if xf.device.type == "cpu":
         return
     if xf.device.type != "cuda" or any(t.device != xf.device for t in tensors):
@@ -100,7 +104,14 @@ def _lib() -> ctypes.CDLL:
 
 def packed_row_gather(xf: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     """``out[i, p, :] = xf[i, idx[i, p], :]`` for ``xf`` ``(N, R, Wrow)``
-    (bf16 or fp32) and ``idx`` ``(N, P)`` int32 (CUDA ``packed_row_gather_kernel``)."""
+    (bf16 or fp32) and ``idx`` ``(N, P)`` int32 (CUDA ``packed_row_gather_kernel``;
+    in an exported graph the custom op ``vsrlab::packed_row_gather``)."""
+    if torch.compiler.is_exporting():
+        return torch.ops.vsrlab.packed_row_gather(xf, idx)
+    return _gather(xf, idx)
+
+
+def _gather(xf: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     _check("packed_row_gather", xf, idx)
     if xf.device.type == "cpu":
         return packed_row_gather_plain(xf, idx)
@@ -116,6 +127,19 @@ def packed_row_gather(xf: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     packed_row_gather.launches += 1
     packed_row_gather.launches_by_shape[(n, r, wrow, p)] += 1
     return out
+
+
+# the kernel as a custom op, so that torch.export keeps it in its graph; its
+# implementation is the wrapper's (the kernel on a CUDA tensor, counted)
+@torch.library.custom_op("vsrlab::packed_row_gather", mutates_args=())
+def _gather_op(xf: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    return _gather(xf, idx)
+
+
+@_gather_op.register_fake
+def _(xf, idx):
+    _check_shapes("packed_row_gather", xf, idx)
+    return xf.new_empty((xf.shape[0], idx.shape[1], xf.shape[2]))
 
 
 def reset_launch_counts() -> None:

@@ -43,6 +43,7 @@ from __future__ import annotations
 import collections
 import ctypes
 import functools
+from typing import Optional
 
 import torch
 import torch.nn.functional as F
@@ -76,11 +77,7 @@ def residual_conv_pair_plain(x, w1, b1, w2, b2):
     return x + z.permute(0, 2, 3, 1)
 
 
-def _check(x, w1, b1, w2, b2, grad_ok=False):
-    tensors = (x, w1, b1, w2, b2)
-    if not grad_ok and any(t.requires_grad for t in tensors):
-        raise ValueError("residual_conv_pair is forward-only: an input requires grad "
-                         "(residual_pair differentiates it)")
+def _check_shapes(x, w1, b1, w2, b2):
     if x.dim() != 4:
         raise ValueError(f"x must be (B, H, W, C), got {tuple(x.shape)}")
     c = x.shape[-1]
@@ -90,6 +87,15 @@ def _check(x, w1, b1, w2, b2, grad_ok=False):
     for name, b in (("b1", b1), ("b2", b2)):
         if tuple(b.shape) != (c,):
             raise ValueError(f"{name} must be ({c},), got {tuple(b.shape)}")
+
+
+def _check(x, w1, b1, w2, b2, grad_ok=False):
+    tensors = (x, w1, b1, w2, b2)
+    if not grad_ok and any(t.requires_grad for t in tensors):
+        raise ValueError("residual_conv_pair is forward-only: an input requires grad "
+                         "(residual_pair differentiates it)")
+    _check_shapes(x, w1, b1, w2, b2)
+    c = x.shape[-1]
     if x.device.type == "cpu":
         return
     if x.device.type != "cuda" or any(t.device != x.device for t in tensors):
@@ -200,13 +206,53 @@ def residual_conv_pair(x, w1, b1, w2, b2, *, fragments=None):
     ``fragments``, where given, is ``(pack_weight_fragments(w1),
     pack_weight_fragments(w2))`` as the caller laid them out from these very
     weights; the bf16 kernel then reads them and the call lays out nothing.
+    While ``torch.export`` traces, the call goes into the graph as the
+    custom op ``vsrlab::residual_conv_pair``.
     """
+    if torch.compiler.is_exporting():
+        f1, f2 = fragments or (None, None)
+        return torch.ops.vsrlab.residual_conv_pair(x, w1, b1, w2, b2, f1, f2)
     return _pair("taps", x, w1, b1, w2, b2, fragments)
 
 
 def residual_conv_pair_im2col(x, w1, b1, w2, b2):
-    """Fused pair, one K=576 product per conv (CUDA ``im2col`` kernel)."""
+    """Fused pair, one K=576 product per conv (CUDA ``im2col`` kernel); in
+    an exported graph the custom op ``vsrlab::residual_conv_pair_im2col``."""
+    if torch.compiler.is_exporting():
+        return torch.ops.vsrlab.residual_conv_pair_im2col(x, w1, b1, w2, b2)
     return _pair("im2col", x, w1, b1, w2, b2)
+
+
+# The kernels as custom ops, so that torch.export keeps them in its graph (a
+# ctypes call cannot be traced). An exported program calls the op, whose
+# implementation is the wrapper's: the kernel on a CUDA tensor (counted in
+# the wrapper's launches), the plain version on a CPU one. Eager code calls
+# the wrappers directly: the op's dispatch costs the host some 12-14 us a
+# launch more (PERF.md), on a path that is bound by the host.
+@torch.library.custom_op("vsrlab::residual_conv_pair", mutates_args=())
+def _taps_op(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor, w2: torch.Tensor,
+             b2: torch.Tensor, f1: Optional[torch.Tensor] = None,
+             f2: Optional[torch.Tensor] = None) -> torch.Tensor:
+    # an exported program hands its parameters in as they are (requiring grad)
+    return _pair("taps", x, w1, b1, w2, b2, None if f1 is None else (f1, f2), grad_ok=True)
+
+
+@torch.library.custom_op("vsrlab::residual_conv_pair_im2col", mutates_args=())
+def _im2col_op(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor, w2: torch.Tensor,
+               b2: torch.Tensor) -> torch.Tensor:
+    return _pair("im2col", x, w1, b1, w2, b2, grad_ok=True)
+
+
+@_taps_op.register_fake
+def _(x, w1, b1, w2, b2, f1=None, f2=None):
+    _check_shapes(x, w1, b1, w2, b2)
+    return torch.empty_like(x)
+
+
+@_im2col_op.register_fake
+def _(x, w1, b1, w2, b2):
+    _check_shapes(x, w1, b1, w2, b2)
+    return torch.empty_like(x)
 
 
 def _conv_grads(gout, inp, w, need_input=True):

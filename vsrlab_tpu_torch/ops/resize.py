@@ -80,15 +80,17 @@ _WEIGHTS = {
 }
 
 
-@functools.lru_cache(maxsize=256)
-def _weights_on(method: str, in_size: int, out_size: int, align_corners: bool,
-                device: torch.device) -> torch.Tensor:
+def _weights_tensor(method: str, in_size: int, out_size: int, align_corners: bool,
+                    device: torch.device) -> torch.Tensor:
     """The transposed (in, out) matrix as an fp32 tensor on ``device``; a
     normal tensor even when first asked for in inference mode, so that a
     training step may save it for its backward."""
     w = _WEIGHTS[method](in_size, out_size, align_corners)
     with torch.inference_mode(False):
         return torch.from_numpy(np.ascontiguousarray(w.T)).to(device)
+
+
+_weights_on = functools.lru_cache(maxsize=256)(_weights_tensor)
 
 
 def _apply_axis(x: torch.Tensor, wt: torch.Tensor, axis: int) -> torch.Tensor:
@@ -111,7 +113,9 @@ def resize(
     for axis, out_size in zip(range(x.dim() - 1 - n_sp, x.dim() - 1), size):
         in_size = x.shape[axis]
         if in_size != out_size:
-            wt = _weights_on(method, in_size, out_size, align_corners, x.device)
+            # while torch.export traces, a constant of the graph, never a cached tracing tensor
+            weights = _weights_tensor if torch.compiler.is_exporting() else _weights_on
+            wt = weights(method, in_size, out_size, align_corners, x.device)
             x = _apply_axis(x, wt, axis)
     return x
 
@@ -135,3 +139,17 @@ def scale_by(x, factor: float, method: str = "bilinear", align_corners: bool = F
     """Resize the 2-D spatial dims by a scale factor (torch ``scale_factor=``)."""
     h, w = x.shape[-3], x.shape[-2]
     return resize(x, (int(h * factor), int(w * factor)), method, align_corners)
+
+
+def bicubic_down(clip: np.ndarray, scale: int) -> np.ndarray:
+    """Bicubic /``scale`` of numpy frames ``(..., H, W, C)`` to ``(H // scale,
+    W // scale)``, clipped to [0, 1], in fp32: OpenCV's ``INTER_CUBIC``
+    (a = -0.75, half-pixel centres, border-clamped taps) as the product of
+    the rows' matrix, then the columns', without OpenCV."""
+    clip = np.asarray(clip, np.float32)
+    *lead, h, w, c = clip.shape
+    ho, wo = h // scale, w // scale
+    frames = clip.reshape(-1, h, w * c)
+    rows = np.matmul(_cubic_weights(h, ho, False), frames).reshape(-1, ho, w, c)
+    out = np.matmul(_cubic_weights(w, wo, False), rows.reshape(-1, w, c))
+    return np.clip(out.reshape(*lead, ho, wo, c), 0.0, 1.0)
