@@ -113,8 +113,8 @@ Phases, in order; any failure exits non-zero:
    the library's two entries, the checks, the wrappers, the module's call,
    the custom ops an exported program calls, and for one unit of a train
    step: forward, backward and their parts.
-7. Serving from a checkpoint (run after phase 5; phase 6 and the JSON lines
-   follow it), at the headline width: (a) run directories written by
+7. Serving from a checkpoint (run after phase 5; phases 8 and 6 and the JSON
+   lines follow it), at the headline width: (a) run directories written by
    ``convert.write_run_dir`` from phase 3's seeded weights as numpy trees,
    with an EMA sidecar that differs: ``load_test_model`` serves the EMA
    (output bitwise equal to ``make_forward`` on a module loaded with the
@@ -137,9 +137,34 @@ Phases, in order; any failure exits non-zero:
    ``make_forward``, and one request under ``utils.profiler.trace`` (its
    Chrome trace holds kernel events and the request's span). The launches
    count into the ``kernels`` line.
-8. One JSON line ``{"kernels": [...]}``: per kernel its main-path launches
-   (inference, training and serving) and, summed over those launches (per-launch
-   time at each shape times that shape's count), ``ms``, ``plain_ms``,
+8. GAN fine-tuning (run after phase 7; it restores phase 5's checkpoint),
+   the shape of the JAX bench's GAN leg (``bench.py:585-647``): the headline
+   RealBasicVSR (phase 3's seeded weights) and ``UNetDiscriminator(64)`` in
+   bf16, ``PerceptualLoss(1e-2)`` with an fp32 VGG19, adversarial weight
+   2e-5, batch 4 of 6-frame 64x64 LR, HR 256x256, Adam 1e-4 with a clip of
+   1.0 on both networks, through ``train.gan.make_gan_train_step``. (a)
+   Gates: one step's gradient of every G and D parameter with ``taps``
+   against ``plain`` and an fp32 run (phase 5's rule), D's ``u`` / ``sigma``
+   after its half against the fp32 run's (rtol 1e-5); 420 taps launches a
+   step (60 at ``(24,64,64,64)``, 360 at ``(4,64,64,64)``), in an updating
+   and in a frozen step; the frozen step leaves G bitwise unchanged and
+   moves D and every ``u``; 20 steps with every loss finite. (b) The step's
+   ms and frames/s (median of 10 after 3) with ``taps`` and ``plain``, peak
+   memory, device ms and busy share (torch.profiler), and the device ms of
+   each part run alone: G's forward and backward, the VGG19 loss, D in the G
+   half, the D half, the optimizers. (c) ``train.gan.run`` restored from
+   phase 5's checkpoint (``finetune``) on SyntheticVSR at HR 256x256,
+   degraded by JPEG (quality 30-95) and the codec emulator (CRF 18-35, fps
+   10-30), two epochs of two steps (the first with G frozen: its checkpoint
+   must equal phase 5's weights), checkpoints under
+   ``build/chip_smoke_gan/``, 2,520 taps launches; ``load_test_model`` then
+   serves the last checkpoint on a 10-frame 180x320 request (660 launches),
+   bitwise equal to a module loaded with those weights. (d) The host ms of
+   the degradation pipeline a clip at 6x64x64 and 10x180x320.
+9. One JSON line ``{"kernels": [...]}``: per kernel its main-path launches
+   (inference, training, serving and GAN fine-tuning) and, summed over
+   those launches (per-launch time at each shape times that shape's
+   count), ``ms``, ``plain_ms``,
    ``library_ms`` and ``bound_ms``; ``max_abs_err`` is the largest bf16
    error, beside ``max_abs_err_fp32``; ``shapes`` holds the per-launch rows.
    Then the last line ``{"ok": true, "device": {...}}``.
@@ -1432,21 +1457,13 @@ def step_grads(model, batch, impl):
             for n, p in model.named_parameters()}
 
 
-def gate_step_grads(model, batch, device) -> dict:
-    """One step of the full model: each parameter tensor's gradient with
-    ``taps`` against the same step with ``plain`` and an fp32 run (TF32 off),
-    by the twice-the-bf16-deviation rule; every parameter outside SpyNet
-    finite and nonzero, SpyNet's zero (``train_flow: false``)."""
+def gate_grads(label, taps, plain, ref) -> dict:
+    """Each parameter's gradient (by name) with ``taps`` against ``plain``
+    and the fp32 run ``ref``, within twice plain bf16's deviation from fp32
+    (max and rms); finite and nonzero outside SpyNet, zero in it
+    (``train_flow: false``). Returns the worst ratios with their names."""
     import torch
 
-    before = tf32(True)
-    taps, plain = step_grads(model, batch, "taps"), step_grads(model, batch, "plain")
-    model32 = build_model(None).to(device)
-    model32.load_state_dict(model.state_dict())
-    tf32(False)
-    ref = step_grads(model32, batch, "plain")
-    tf32(before)
-    del model32
     worst = {"max": (0.0, ""), "rms": (0.0, "")}
     for name in ref:
         frozen, g = ".spynet." in name, taps[name]
@@ -1456,10 +1473,27 @@ def gate_step_grads(model, batch, device) -> dict:
         if frozen:
             continue
         base = dev(plain[name], ref[name])
-        r = within_twice(f"gradient of {name}, taps vs fp32", g, ref[name], base)
-        within_twice(f"gradient of {name}, taps vs plain", g, plain[name], base)
+        r = within_twice(f"{label} of {name}, taps vs fp32", g, ref[name], base)
+        within_twice(f"{label} of {name}, taps vs plain", g, plain[name], base)
         for i, k in enumerate(("max", "rms")):
             worst[k] = max(worst[k], (r[i], name))
+    return worst
+
+
+def gate_step_grads(model, batch, device) -> dict:
+    """One step of the full model: each parameter tensor's gradient with
+    ``taps`` against the same step with ``plain`` and an fp32 run (TF32 off),
+    by the twice-the-bf16-deviation rule; every parameter outside SpyNet
+    finite and nonzero, SpyNet's zero (``train_flow: false``)."""
+    before = tf32(True)
+    taps, plain = step_grads(model, batch, "taps"), step_grads(model, batch, "plain")
+    model32 = build_model(None).to(device)
+    model32.load_state_dict(model.state_dict())
+    tf32(False)
+    ref = step_grads(model32, batch, "plain")
+    tf32(before)
+    del model32
+    worst = gate_grads("gradient", taps, plain, ref)
     n = sum(1 for k in ref if ".spynet." not in k)
     log(f"  one step's gradients, {n} parameter tensors outside SpyNet: taps vs fp32 within "
         f"twice plain bf16's deviation, worst ratio max {worst['max'][0]:.2f} "
@@ -1490,23 +1524,23 @@ def run_train_path(state, step, batch):
     return calls, seen
 
 
-def time_steps(state, step, batch, impl, n=10, warmup=3) -> list:
-    """Host seconds of ``n`` train steps after ``warmup``, each ended by a
-    synchronize."""
+def time_steps(model, step, impl, n=10, warmup=3) -> list:
+    """Host seconds of ``n`` calls of ``step()`` (a train step) after
+    ``warmup``, each ended by a synchronize, with ``model``'s pair ``impl``."""
     import torch
 
     from vsrlab_tpu_torch.nn.blocks import set_pair_impl
 
-    set_pair_impl(state.model, impl)
+    set_pair_impl(model, impl)
     times = []
     for i in range(warmup + n):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        step(state, batch)
+        step()
         torch.cuda.synchronize()
         if i >= warmup:
             times.append(time.perf_counter() - t0)
-    set_pair_impl(state.model, "taps")
+    set_pair_impl(model, "taps")
     return times
 
 
@@ -1652,7 +1686,7 @@ def training_phase(device, card):
     timing = {}
     for impl in ("taps", "plain"):
         torch.cuda.reset_peak_memory_stats()
-        times = time_steps(state, step, batch, impl)
+        times = time_steps(model, lambda: step(state, batch), impl)
         med = statistics.median(times)
         timing[impl] = {"train_step_ms": med * 1e3, "train_fps": frames / med,
                         "steps_ms": [t * 1e3 for t in times],
@@ -1681,6 +1715,343 @@ def training_phase(device, card):
     torch.cuda.empty_cache()
     e2e_trainer(device, card)
     return launches
+
+
+# phase 8: GAN fine-tuning at the JAX bench's GAN leg (bench.py:585-647)
+GAN_ADV = 2e-5
+GAN_DEGRADE = [{"_target_": "RandomJPEGCompression", "quality": [30, 95]},
+               {"_target_": "RandomVideoCompression", "crf": [18, 35], "fps": [10, 30]}]
+GAN_STEPS = 20
+
+
+def gan_modules(device, dtype):
+    """Phase 8's networks: the headline RealBasicVSR (phase 3's seeded
+    weights) and ``UNetDiscriminator(64)`` (seeded) in ``dtype`` (None:
+    fp32), and the perceptual VGG19 in fp32 (its default seeded init)."""
+    import torch
+
+    from vsrlab_tpu_torch.core.perceptual import PerceptualLoss
+    from vsrlab_tpu_torch.models import UNetDiscriminator
+    from vsrlab_tpu_torch.nn.blocks import init_weights
+
+    disc = UNetDiscriminator(mid_channels=64, dtype=dtype)
+    init_weights(disc, torch.Generator().manual_seed(1))
+    return (build_model(dtype).to(device).train(), disc.to(device).train(),
+            PerceptualLoss(weight=1e-2).to(device))
+
+
+def gan_states(model, disc, opt=("adam", {"lr": 1e-4}), clip=1.0):
+    """Train states of both networks: Adam at 1e-4 with a clip of 1.0 each,
+    as the bench's GAN leg builds them."""
+    from vsrlab_tpu_torch.train.builders import build_tx
+    from vsrlab_tpu_torch.train.state import create_train_state
+
+    return (create_train_state(model, build_tx(model.parameters(), opt, None, clip)),
+            create_train_state(disc, build_tx(disc.parameters(), opt, None, clip)))
+
+
+def gan_step_grads(model, disc, perc, batch, impl):
+    """The gradients of one GAN step (``make_gan_train_step``, updates by
+    SGD at lr 0 without a clip, so no parameter moves), every G and D
+    parameter by name (zeros where none came), with the D state after its
+    half; the D state is put back afterwards."""
+    from vsrlab_tpu_torch.nn.blocks import set_pair_impl
+    from vsrlab_tpu_torch.train.gan import make_gan_train_step
+
+    set_pair_impl(model, impl)
+    d0 = {k: v.clone() for k, v in disc.state_dict().items()}
+    g, d = gan_states(model, disc, ("sgd", {"lr": 0.0}), None)
+    make_gan_train_step(model, disc, perc, GAN_ADV)(g, d, batch)
+    grads = {}
+    for tag, net in (("G", model), ("D", disc)):
+        for n, p in net.named_parameters():
+            grads[f"{tag}.{n}"] = (p.grad if p.grad is not None else p.new_zeros(p.shape)).clone()
+        net.zero_grad(set_to_none=True)
+    stats = {k: v.clone() for k, v in disc.state_dict().items() if k.endswith((".u", ".sigma"))}
+    disc.load_state_dict(d0)
+    set_pair_impl(model, "taps")
+    return grads, stats
+
+
+def gate_gan_grads(model, disc, perc, batch, device) -> dict:
+    """One GAN step's gradient of every G and D parameter tensor with
+    ``taps`` against ``plain`` and an fp32 run (fp32 G and D, TF32 off) by
+    phase 5's rule; every G parameter outside SpyNet and every D parameter
+    finite and nonzero, SpyNet's zero. The D state after the D half against
+    the fp32 run's: the power iteration reads only the fp32 weights and
+    ``u``, so rtol 1e-5."""
+    from vsrlab_tpu_torch.models import UNetDiscriminator
+
+    before = tf32(True)
+    taps, stats = gan_step_grads(model, disc, perc, batch, "taps")
+    plain, _ = gan_step_grads(model, disc, perc, batch, "plain")
+    model32 = build_model(None).to(device).train()
+    model32.load_state_dict(model.state_dict())
+    disc32 = UNetDiscriminator(mid_channels=64).to(device).train()
+    disc32.load_state_dict(disc.state_dict())
+    tf32(False)
+    ref, stats32 = gan_step_grads(model32, disc32, perc, batch, "plain")
+    tf32(before)
+    del model32, disc32
+    worst = gate_grads("GAN gradient", taps, plain, ref)
+    stat_err = 0.0
+    for k, v in stats.items():
+        e = (v - stats32[k]).abs()
+        if not bool((e <= 1e-5 * (1 + stats32[k].abs())).all()):
+            raise AssertionError(f"D state {k} after the D half: max {float(e.max()):.3e} from "
+                                 "the fp32 run's")
+        stat_err = max(stat_err, float(e.max()))
+    n_g = sum(1 for k in ref if k.startswith("G.") and ".spynet." not in k)
+    log(f"  one GAN step's gradients, {n_g} G tensors outside SpyNet and "
+        f"{sum(1 for k in ref if k.startswith('D.'))} D tensors: taps vs fp32 within twice plain "
+        f"bf16's deviation, worst ratio max {worst['max'][0]:.2f} ({worst['max'][1]}), rms "
+        f"{worst['rms'][0]:.2f} ({worst['rms'][1]}); taps vs plain within the same; SpyNet's "
+        f"tensors get zero; D's u / sigma after its half within {stat_err:.2e} of fp32's")
+    return {"grad_ratio_max": worst["max"][0], "grad_ratio_rms": worst["rms"][0],
+            "d_state_max_err": stat_err}
+
+
+def gan_parts(model, disc, perc, g, d, batch) -> dict:
+    """The step's parts, each as a call of its own: G's forward and backward
+    (the pixel loss), the VGG19 loss with its backward to ``sr``, D in the G
+    half with its backward to ``sr``, the D half, both optimizers."""
+    import torch
+
+    from vsrlab_tpu_torch.core.losses import adversarial_loss, charbonnier_loss
+    from vsrlab_tpu_torch.train.step import _resize_clip_to
+
+    lr, hr = batch["lr"], batch["hr"]
+    with torch.no_grad():
+        sr0 = model(lr)[0]
+
+    def g_fb():
+        sr, lq = model(lr)
+        (charbonnier_loss(sr, hr) + charbonnier_loss(lq, _resize_clip_to(hr, lq))).backward()
+
+    def vgg():
+        perc(sr0.detach().requires_grad_(True), hr).backward()
+
+    def d_in_g():
+        disc.requires_grad_(False)
+        sr = sr0.detach().requires_grad_(True)
+        adversarial_loss(disc(sr.flatten(0, 1)), 1.0, weight=GAN_ADV).backward()
+        disc.requires_grad_(True)
+
+    def d_half():
+        loss = (adversarial_loss(disc(hr.flatten(0, 1), update_stats=True), 1.0, True)
+                + adversarial_loss(disc(sr0.flatten(0, 1), update_stats=True), 0.0, True))
+        loss.backward()
+
+    def optimizers():
+        g.tx.step()
+        d.tx.step()
+
+    return {"G forward and backward": g_fb, "VGG19 (perceptual)": vgg, "D in the G half": d_in_g,
+            "D half": d_half, "optimizers": optimizers}
+
+
+def gan_e2e(device, card) -> dict:
+    """``train.gan.run`` restored from phase 5's supervised checkpoint
+    (``finetune``): SyntheticVSR at HR 256x256, x4, 6 frames, degraded by
+    JPEG and the codec emulator, 8 clips, batch 4, two epochs (the first
+    with G frozen), checkpoints under ``build/chip_smoke_gan/``; then
+    ``load_test_model`` serves the result. Returns the pair launches."""
+    import shutil
+
+    import torch
+
+    from vsrlab_tpu_torch.core.checkpoint import CheckpointManager
+    from vsrlab_tpu_torch.core.config import Config
+    from vsrlab_tpu_torch.evaluation.harness import load_test_model, make_forward
+    from vsrlab_tpu_torch.ops import residual_pair as rp
+    from vsrlab_tpu_torch.train import gan
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    src, root = f"{here}/build/chip_smoke_train/ckpt", f"{here}/build/chip_smoke_gan"
+    shutil.rmtree(root, ignore_errors=True)
+    b, t, h, w = TRAIN_CLIP
+    data = {"_target_": "SyntheticVSR", "seq": t, "height": 4 * h, "width": 4 * w, "scale": 4}
+    opt = {"_target_": "adam", "lr": 1e-4}
+    cfg = Config.from_dict({"seed_index": 0, "train": {
+        "model": {"_target_": "RealBasicVSR", **HEADLINE}, "precision": "bf16",
+        "discriminator": {"_target_": "UNetDiscriminator", "mid_channels": 64,
+                          "dtype": "bfloat16"},
+        "perceptual_loss": {"_target_": "PerceptualLoss", "weight": 1e-2},
+        "adversarial_loss": {"_target_": "AdversarialLoss", "weight": GAN_ADV},
+        "optimizer": {"generator": opt, "discriminator": opt}, "gradient_clip_val": 1.0,
+        "max_epochs": 2, "freeze_epochs": 0, "restore": src, "finetune": True,
+        "data": {"batch_size": b, "num_workers": 4, "datasets": {
+            "train": {**data, "num_videos": 2 * b, "split": "train",
+                      "lr_augmentation": GAN_DEGRADE},
+            "val": {**data, "num_videos": b, "split": "val"}}},
+        "logger": {"_target_": "Logger", "backend": "jsonl", "save_dir": f"{root}/logs",
+                   "project": "chip_smoke", "id": "gan"},
+        "checkpoint_dir": f"{root}/ckpt"}})
+    rp.reset_launch_counts()
+    t0 = time.perf_counter()
+    val = gan.run(cfg, device)
+    run_s = time.perf_counter() - t0
+    counts = pair_counts()
+    # 2 steps an epoch (epoch 0 frozen: no-grad forwards), one val batch an epoch
+    gate_counts("train.gan.run", counts, {"taps": {s: 6 * n for s, n in TRAIN_LAUNCHES.items()}})
+    mgr = CheckpointManager(f"{root}/ckpt")
+    start = CheckpointManager(src).restore()[1]["params"]
+    frozen, trained = mgr.restore(0)[1]["params"], mgr.restore(1)[1]["params"]
+    rows = open(f"{root}/logs/chip_smoke/gan/metrics.jsonl").read().splitlines()
+    if mgr.all_keys() != [0, 1] or not val or not all(math.isfinite(v) for v in val.values()):
+        raise AssertionError(f"train.gan.run: keys {mgr.all_keys()}, val {val}")
+    if not all(torch.equal(v, start[k]) for k, v in frozen.items()):
+        raise AssertionError("the frozen epoch moved the generator restored from phase 5")
+    if all(torch.equal(v, frozen[k]) for k, v in trained.items()):
+        raise AssertionError("the second epoch did not train the generator")
+    train_rows = [json.loads(r) for r in rows if "LossDiscriminator/Train" in r]
+    if len(train_rows) != 2 or not all(math.isfinite(v) for r in train_rows for v in r.values()
+                                       if isinstance(v, float)):
+        raise AssertionError(f"train.gan.run logged {train_rows}")
+    log(f"  train.gan.run: restored phase 5's checkpoint (finetune), SyntheticVSR {2 * b} clips "
+        f"of {t}x{4 * h}x{4 * w} degraded by JPEG and the codec emulator, batch {b}, 2 epochs "
+        f"(epoch 0 frozen: G bitwise equal to phase 5's) in {run_s:.1f} s (builds and first use "
+        f"included); losses {json.dumps(train_rows[-1])}; val {json.dumps(val)}")
+
+    hs, ws = SERVE_LR
+    clip10 = torch.rand((1, 10, hs, ws, 3), generator=torch.Generator().manual_seed(8))
+    model, _ = load_test_model(f"{root}/ckpt", device=device)
+    ref = build_model(torch.bfloat16)
+    ref.load_state_dict(trained)
+    rp.reset_launch_counts()
+    served = make_forward(model, device=device)(clip10)
+    serve_counts = pair_counts()
+    gate_counts("load_test_model, one request", serve_counts,
+                {"taps": window_launches(1, hs, ws)})
+    want = make_forward(ref, device=device)(clip10)
+    if not torch.equal(served, want) or not bool(torch.isfinite(served).all()):
+        raise AssertionError("the served GAN checkpoint differs from the trained weights' forward")
+    log(f"  load_test_model served the fine-tuned generator: {tuple(served.shape)}, finite, "
+        "bitwise equal to make_forward on a module loaded with the last checkpoint")
+    del model, ref
+    for form in KERNELS:
+        counts[form] += serve_counts[form]
+    return counts
+
+
+def degradation_cost() -> dict:
+    """Host ms of the GAN run's degradation pipeline (JPEG, then the codec
+    emulator) on one clip, median of 5, at the step's 6x64x64 and at a
+    serving window's 10x180x320, and of each stage alone."""
+    import numpy as np
+
+    from vsrlab_tpu_torch.data import SyntheticVSR, build_pipeline
+
+    out = {}
+    for t, h, w in ((TRAIN_CLIP[1], TRAIN_CLIP[2], TRAIN_CLIP[3]), (10, *SERVE_LR)):
+        clip = SyntheticVSR(num_videos=1, seq=t, height=4 * h, width=4 * w, scale=4)[0][0]
+        row = {}
+        for name, specs in (("pipeline", GAN_DEGRADE), ("jpeg", GAN_DEGRADE[:1]),
+                            ("codec", GAN_DEGRADE[1:])):
+            pipe, times = build_pipeline(specs), []
+            for i in range(6):
+                t0 = time.perf_counter()
+                pipe(clip, np.random.default_rng(i))
+                times.append(time.perf_counter() - t0)
+            row[f"{name}_host_ms"] = statistics.median(times[1:]) * 1e3
+        out[f"{t}x{h}x{w}"] = row
+    return out
+
+
+def gan_phase(device, card):
+    """Phase 8. Returns each residual-pair kernel's launches by input shape
+    over the phase's main path."""
+    import collections
+
+    import torch
+
+    from vsrlab_tpu_torch.nn.blocks import set_pair_impl
+    from vsrlab_tpu_torch.ops import residual_pair as rp
+    from vsrlab_tpu_torch.train.gan import make_gan_train_step
+
+    seen = {f: collections.Counter() for f in KERNELS}
+    model, disc, perc = gan_modules(device, torch.bfloat16)
+    batch = train_batch(device)
+    gates = gate_gan_grads(model, disc, perc, batch, device)
+    before = tf32(True)
+
+    g, d = gan_states(model, disc)
+    step = make_gan_train_step(model, disc, perc, GAN_ADV)
+    rp.reset_launch_counts()
+    step(g, d, batch)
+    counts = pair_counts()
+    gate_counts("one GAN step (taps)", counts, {"taps": TRAIN_LAUNCHES})
+    for form in KERNELS:
+        seen[form] += counts[form]
+
+    frozen = make_gan_train_step(model, disc, perc, GAN_ADV, update_generator=False)
+    g0 = {k: v.clone() for k, v in model.state_dict().items()}
+    d0 = {k: v.clone() for k, v in disc.state_dict().items()}
+    rp.reset_launch_counts()
+    frozen(g, d, batch)
+    counts = pair_counts()
+    gate_counts("one frozen GAN step (no-grad forward)", counts, {"taps": TRAIN_LAUNCHES})
+    for form in KERNELS:
+        seen[form] += counts[form]
+    moved = {k for k, v in disc.state_dict().items() if not torch.equal(v, d0[k])}
+    if not all(torch.equal(v, g0[k]) for k, v in model.state_dict().items()):
+        raise AssertionError("a frozen GAN step moved the generator")
+    if not {"conv_0.weight", "conv_9.weight"} | {f"conv_{i}.u" for i in range(1, 9)} <= moved:
+        raise AssertionError(f"a frozen GAN step left D (or its u) in place: moved {sorted(moved)}")
+    log(f"  frozen step: G bitwise unchanged, {len(moved)} of {len(d0)} D tensors moved "
+        "(weights and every u)")
+
+    losses = []
+    for _ in range(GAN_STEPS):
+        _, _, m = step(g, d, batch)
+        losses.append({k: float(v) for k, v in m.items()})
+    if not all(math.isfinite(v) for m in losses for v in m.values()):
+        raise AssertionError(f"a GAN step's loss is not finite: {losses}")
+    log(f"  {GAN_STEPS} GAN steps on one batch (taps): every loss finite; Loss "
+        f"{losses[0]['Loss']:.5f} -> {losses[-1]['Loss']:.5f}, LossDiscriminator "
+        f"{losses[0]['LossDiscriminator']:.5f} -> {losses[-1]['LossDiscriminator']:.5f}")
+
+    frames = TRAIN_CLIP[0] * TRAIN_CLIP[1]
+    timing = {}
+    for impl in ("taps", "plain"):
+        torch.cuda.reset_peak_memory_stats()
+        times = time_steps(model, lambda: step(g, d, batch), impl)
+        med = statistics.median(times)
+        timing[impl] = {"gan_step_ms": med * 1e3, "gan_fps": frames / med,
+                        "steps_ms": [x * 1e3 for x in times],
+                        "max_memory_allocated_gib": torch.cuda.max_memory_allocated() / 2**30}
+        set_pair_impl(model, impl)
+        timing[impl]["profile"] = profile_request(
+            lambda: step(g, d, batch), med, top=15,
+            ours=("pair_taps",) if impl == "taps" else (), groups=TRAIN_GROUPS)
+    set_pair_impl(model, "taps")
+    parts = {name: profile_request(fn, 1.0)["device_ms"]
+             for name, fn in gan_parts(model, disc, perc, g, d, batch).items()}
+    prof = timing["taps"]["profile"]
+    log(f"  GAN step on {card}: taps {timing['taps']['gan_step_ms']:.2f} ms "
+        f"({timing['taps']['gan_fps']:.2f} frames/s), plain {timing['plain']['gan_step_ms']:.2f} "
+        f"ms ({timing['plain']['gan_fps']:.2f} frames/s) (median of 10 after 3, host clock with "
+        f"synchronize; peak memory {timing['taps']['max_memory_allocated_gib']:.2f} / "
+        f"{timing['plain']['max_memory_allocated_gib']:.2f} GiB)")
+    if "own_kernels_ms" in prof:
+        log(f"  taps GAN step: {prof['device_ms']:.2f} ms on the device (busy "
+            f"{100 * prof['device_busy_share']:.1f} %) in {prof['device_ops']} kernels and "
+            "copies; by part, each run alone: "
+            + ", ".join(f"{k} {v:.2f}" if isinstance(v, float) else f"{k} {v}"
+                        for k, v in parts.items()))
+    tf32(before)
+    cost = degradation_cost()
+    log("  degradation pipeline on the host, one clip (median of 5): " + "; ".join(
+        f"{shape}: " + ", ".join(f"{k} {v:.2f}" for k, v in row.items())
+        for shape, row in cost.items()))
+    log(json.dumps({"gan": {**timing, "card": card, "gates": gates, "parts_device_ms": parts,
+                            "losses": [losses[0], losses[-1]], "degradation": cost,
+                            "cudnn_tf32": True}}))
+    del g, d, step, frozen, model, disc, perc, batch
+    torch.cuda.empty_cache()
+    for form, by_shape in gan_e2e(device, card).items():
+        seen[form] += by_shape
+    return seen
 
 
 def pair_counts() -> dict:
@@ -2026,6 +2397,12 @@ def main() -> int:
     for form, by_shape in serve_pairs.items():
         pair_launches[form] += by_shape
     vrt_launches["bilinear_sample"] += serve_samplers
+    torch.cuda.empty_cache()
+
+    log("phase 8: GAN fine-tuning (headline G, UNet D mid 64, VGG19, batch 4 x 6 frames, 64x64 -> "
+        "256x256, bf16)")
+    for form, by_shape in gan_phase(device, card).items():
+        pair_launches[form] += by_shape
     torch.cuda.empty_cache()
 
     log("phase 6: each kernel at its paths' shapes")

@@ -18,7 +18,7 @@ cv2 = pytest.importorskip("cv2")
 
 from vsrlab_tpu.data import DatasetVSR as JDatasetVSR  # noqa: E402
 from vsrlab_tpu.data import SyntheticVSR as JSyntheticVSR  # noqa: E402
-from vsrlab_tpu_torch.data import DatasetVSR, SyntheticVSR, datasets  # noqa: E402
+from vsrlab_tpu_torch.data import DatasetVSR, SyntheticVSR, video_io  # noqa: E402
 from vsrlab_tpu_torch.ops.resize import bicubic_down  # noqa: E402
 
 ATOL = 1e-6
@@ -48,7 +48,7 @@ def test_bicubic_down_takes_leading_axes():
 @pytest.mark.parametrize("split", ["train", "val"])
 def test_synthetic_lr_matches_jax_and_opencv(split, opencv, monkeypatch):
     if not opencv:
-        monkeypatch.setattr(datasets, "cv2", None)
+        monkeypatch.setattr(video_io, "cv2", None)
     kw = dict(num_videos=2, seq=3, height=48, width=64, scale=4, split=split, seed=11)
     mine, theirs = SyntheticVSR(**kw), JSyntheticVSR(**kw)
     for i in range(2):

@@ -18,7 +18,8 @@ from vsrlab_tpu_torch.core.config import Config, instantiate, load_config  # noq
 from vsrlab_tpu_torch.core.loggers import build_logger  # noqa: E402
 from vsrlab_tpu_torch.data import DataLoader, DatasetVSR, SyntheticVSR, ValDatasetVSR  # noqa: E402
 from vsrlab_tpu_torch.data.loader import to_device  # noqa: E402
-from vsrlab_tpu_torch.models import RealBasicVSR, TinyVRT  # noqa: E402
+from vsrlab_tpu_torch.core.perceptual import PerceptualLoss  # noqa: E402
+from vsrlab_tpu_torch.models import RealBasicVSR, TinyVRT, UNetDiscriminator  # noqa: E402
 
 OVERRIDES = [
     ["+experiment=synthetic"],
@@ -55,7 +56,12 @@ def test_registry_builds_this_slice_and_names_the_slice_of_the_rest():
     vrt = instantiate({"_target_": "TinyVRT", "window_size": [2, 4, 4], "depths": [1] * 7,
                        "embed_dims": [8] * 7, "num_heads": [2] * 7, "deformable_groups": 2})
     assert isinstance(vrt, TinyVRT)
-    for name, slice_ in (("UNetDiscriminator", "GAN"), ("RAFT", "flow"), ("PerceptualLoss", "GAN")):
+    # the GAN slice's names build; the flow slice's name it
+    assert isinstance(instantiate({"_target_": "UNetDiscriminator", "mid_channels": 8}),
+                      UNetDiscriminator)
+    assert isinstance(instantiate({"_target_": "vsrlab.core.losses.PerceptualLoss"}),
+                      PerceptualLoss)
+    for name, slice_ in (("RAFT", "flow"), ("EPELoss", "flow"), ("OpticalFlowConsistency", "flow")):
         with pytest.raises(KeyError, match=slice_):
             instantiate({"_target_": name})
     with pytest.raises(KeyError, match="unknown _target_"):
@@ -80,18 +86,28 @@ def test_synthetic_samples_match_jax(split):
 def test_synthetic_without_opencv_takes_the_box_mean(monkeypatch):
     """The box mean is gone: without OpenCV the LR is the same bicubic
     downscale as with it."""
-    from vsrlab_tpu_torch.data import datasets
+    from vsrlab_tpu_torch.data import video_io
 
     with_cv2 = SyntheticVSR(num_videos=1, seq=2, height=8, width=12, scale=4)[0][0]
-    monkeypatch.setattr(datasets, "cv2", None)
+    monkeypatch.setattr(video_io, "cv2", None)
     lr, hr = SyntheticVSR(num_videos=1, seq=2, height=8, width=12, scale=4)[0]
     np.testing.assert_array_equal(lr, with_cv2)
     assert not np.allclose(lr, hr.reshape(2, 2, 4, 3, 4, 3).mean((2, 4)), rtol=1e-6)
 
 
-def test_augmentations_are_refused():
-    with pytest.raises(NotImplementedError, match="not ported"):
-        SyntheticVSR(lr_augmentation=[{"_target_": "RandomJPEGCompression"}])
+def test_augmentations_are_refused(monkeypatch):
+    """The degradation pipeline is ported: an augmentation it does not know
+    is refused when the dataset is built, and JPEG without OpenCV raises
+    where the JAX package would return the clip untouched."""
+    from vsrlab_tpu_torch.data import video_io
+
+    with pytest.raises(KeyError, match="unknown augmentation"):
+        SyntheticVSR(lr_augmentation=[{"_target_": "RandomRotation"}])
+    ds = SyntheticVSR(num_videos=1, seq=2, height=16, width=16,
+                      lr_augmentation=[{"_target_": "RandomJPEGCompression"}])
+    monkeypatch.setattr(video_io, "cv2", None)
+    with pytest.raises(ImportError, match="RandomJPEGCompression needs OpenCV"):
+        ds[0]
 
 
 def _write_videos(root, n, frames, h, w, seed):

@@ -14,6 +14,10 @@ params)``), with the paths that ``vsrlab_tpu``'s ``init`` produces:
   kernel ``(in, out)`` becomes a ``weight`` ``(out, in)``, a ``LayerNorm``
   ``scale`` a ``weight``; the attention bias tables and the deformable
   conv's HWIO ``weight`` go over as they are.
+* the GAN's discriminator (:func:`unet_discriminator_state_dict`) takes
+  its spectral-norm state from the ``batch_stats`` collection into each
+  conv's ``u`` / ``sigma`` buffers; the perceptual VGG19
+  (:func:`vgg19_state_dict`) is a list of ``conv_{i}`` convs.
 
 Each ``*_state_dict`` function returns a flat ``{name: tensor}`` dict for
 ``load_state_dict(..., strict=True)`` of the matching port module.
@@ -122,6 +126,34 @@ def vrt_state_dict(p: Tree) -> dict:
     """``VRT`` / ``TinyVRT`` params -> the port model's ``state_dict``."""
     out = spynet_state_dict(p["optical_flow"], "optical_flow.")
     out.update(module_state_dict({k: v for k, v in p.items() if k != "optical_flow"}))
+    return out
+
+
+def unet_discriminator_state_dict(params: Tree, batch_stats: Tree) -> dict:
+    """``UNetDiscriminator`` params and ``batch_stats`` -> the port module's
+    ``state_dict``: ``conv_0`` / ``conv_9`` with their biases, and for each
+    spectral-norm ``conv_i`` the bias-free kernel (HWIO -> OIHW) and its
+    ``batch_stats['conv_i']['SpectralNorm_0']['Conv_0/kernel/{u,sigma}']``."""
+    out = {}
+    for name, sub in params.items():
+        conv = sub["Conv_0"]
+        if "bias" in conv:
+            out.update(conv_state_dict(conv, f"{name}."))
+            continue
+        kernel = np.asarray(conv["kernel"], np.float32).transpose(3, 2, 0, 1)
+        stats = batch_stats[name]["SpectralNorm_0"]
+        out[f"{name}.weight"] = torch.from_numpy(np.ascontiguousarray(kernel))
+        out[f"{name}.u"] = torch.from_numpy(np.array(stats["Conv_0/kernel/u"], np.float32))
+        out[f"{name}.sigma"] = torch.tensor(float(np.asarray(stats["Conv_0/kernel/sigma"])))
+    return out
+
+
+def vgg19_state_dict(params: Tree) -> dict:
+    """``VGG19Features`` params (``conv_{i}/{kernel, bias}``) -> the port
+    module's ``state_dict``."""
+    out = {}
+    for name, conv in params.items():
+        out.update(conv_state_dict(conv, f"{name}."))
     return out
 
 

@@ -1,21 +1,24 @@
-"""VSR datasets (port of ``vsrlab_tpu/data/datasets.py:53-120, 222-287``).
+"""VSR datasets (port of ``vsrlab_tpu/data/datasets.py``).
 
 * :class:`DatasetVSR`: a directory of videos, each a folder of frames; a
-  random ``seq``-frame window a sample; LR is a bicubic /scale downscale;
-  train / val split by fraction.
-* :class:`ValDatasetVSR`: paired pre-made HR / LR folders, one window.
+  random ``seq``-frame window a sample; the HR pipeline, then LR from the
+  LR pipeline applied to HR (which must downscale) or a bicubic /scale
+  downscale; train / val split by fraction.
+* :class:`ValDatasetVSR`: paired pre-made HR / LR folders, one window;
+  each pipeline on its own side, both from one seed so that geometric
+  draws stay aligned.
 * :class:`SyntheticVSR`: procedural moving-pattern clips, deterministic
-  per (seed, index), no disk.
+  per (seed, index), no disk; the LR pipeline degrades the bicubic LR.
 * :class:`VideoDatasetVSR`: :class:`DatasetVSR` over video files, decoding
   only the sampled window.
 
 Samples are ``(lr, hr)`` float32 numpy clips ``(T, H, W, C)`` in [0, 1].
-LR is always :func:`~vsrlab_tpu_torch.ops.resize.bicubic_down`, OpenCV's
-``INTER_CUBIC`` computed in numpy, so the data are the same with or
+The bicubic LR is :func:`~vsrlab_tpu_torch.ops.resize.bicubic_down`,
+OpenCV's ``INTER_CUBIC`` computed in numpy, so it is the same with or
 without OpenCV; the JAX package calls its native library or OpenCV, which
-agree with it to about 3e-7. Frames are
-decoded with OpenCV, so the folder datasets raise without it. Degradation
-pipelines are not ported yet: only ``None`` is accepted.
+agree with it to about 3e-7. Frames are decoded with OpenCV, so the
+folder datasets raise without it, as do the JPEG and Resize stages of a
+pipeline (:mod:`vsrlab_tpu_torch.data.augmentations`).
 """
 
 from __future__ import annotations
@@ -25,33 +28,15 @@ from typing import Optional, Sequence
 
 import numpy as np
 
-from vsrlab_tpu_torch.data.video_io import read_video_window, video_frame_count
+from vsrlab_tpu_torch.data.augmentations import build_pipeline
+from vsrlab_tpu_torch.data.video_io import _need_cv2, read_video_window, video_frame_count
 from vsrlab_tpu_torch.ops.resize import bicubic_down
-
-try:
-    import cv2
-except ImportError:  # decoding frames raises without it
-    cv2 = None
-
-
-def build_pipeline(specs: Optional[Sequence]):
-    """``None`` (no augmentation); any augmentation raises: the degradation
-    pipeline is not ported yet."""
-    if specs:
-        raise NotImplementedError("augmentation pipelines (JPEG / video-codec degradation, "
-                                  "crops, flips) are not ported to vsrlab_tpu_torch yet")
-    return None
-
-
-def _need_cv2(what: str):
-    if cv2 is None:
-        raise ImportError(f"{what} needs OpenCV (cv2), which is not importable here")
-    return cv2
 
 
 def load_frame(path) -> np.ndarray:
     """Decode one image file to float32 RGB ``(H, W, 3)`` in [0, 1]."""
-    img = _need_cv2("decoding frames").imread(str(path), cv2.IMREAD_COLOR)
+    cv = _need_cv2("decoding frames")
+    img = cv.imread(str(path), cv.IMREAD_COLOR)
     if img is None:
         raise IOError(f"cannot decode image: {path}")
     return img[..., ::-1].astype(np.float32) / 255.0
@@ -76,7 +61,7 @@ class DatasetVSR:
         elif split == "val":
             self.videos = self.videos[split_point:]
         self.seq, self.scale, self.seed = seq, scale, seed
-        build_pipeline(hr_augmentation), build_pipeline(lr_augmentation)
+        self.hr_aug, self.lr_aug = build_pipeline(hr_augmentation), build_pipeline(lr_augmentation)
         self._epoch = 0
 
     def _list_videos(self, path):
@@ -96,8 +81,13 @@ class DatasetVSR:
         return len(self.videos)
 
     def __getitem__(self, index: int):
-        hr = self._read_window(index, np.random.default_rng((self.seed, self._epoch, index)))
-        return bicubic_down(hr, self.scale), hr
+        rng = np.random.default_rng((self.seed, self._epoch, index))
+        hr = self._read_window(index, rng)
+        if self.hr_aug:
+            hr = self.hr_aug(hr, rng)
+        # the LR pipeline degrades HR, so it has to downscale it too
+        lr = self.lr_aug(hr, rng) if self.lr_aug else bicubic_down(hr, self.scale)
+        return lr, hr
 
 
 class VideoDatasetVSR(DatasetVSR):
@@ -132,7 +122,7 @@ class ValDatasetVSR:
         self.videos_hr = sorted(p for p in Path(path_hr).glob("*") if p.is_dir())
         self.videos_lr = sorted(p for p in Path(path_lr).glob("*") if p.is_dir())
         self.seq, self.seed = seq, seed
-        build_pipeline(hr_augmentation), build_pipeline(lr_augmentation)
+        self.hr_aug, self.lr_aug = build_pipeline(hr_augmentation), build_pipeline(lr_augmentation)
         self._epoch = 0
 
     def set_epoch(self, epoch: int):
@@ -148,6 +138,12 @@ class ValDatasetVSR:
         start = int(rng.integers(0, max(len(hr_frames) - self.seq, 0) + 1))
         hr = load_clip(hr_frames[start : start + self.seq])
         lr = load_clip(lr_frames[start : start + self.seq])
+        # one seed for both sides: a random flip or crop must hit LR and HR alike
+        seeds = (self.seed, self._epoch, index, 1)
+        if self.hr_aug:
+            hr = self.hr_aug(hr, np.random.default_rng(seeds))
+        if self.lr_aug:
+            lr = self.lr_aug(lr, np.random.default_rng(seeds))
         return lr, hr
 
 
@@ -159,7 +155,7 @@ class SyntheticVSR:
                  scale: int = 4, lr_augmentation: Optional[Sequence] = None, seed: int = 0,
                  split: str = "train", freq_max: float = 0.2, **_):
         self.n, self.seq, self.h, self.w, self.scale = num_videos, seq, height, width, scale
-        build_pipeline(lr_augmentation)
+        self.lr_aug = build_pipeline(lr_augmentation)
         self.seed = seed + (1000 if split == "val" else 0)
         # 0.2 exceeds the 4x LR Nyquist (0.125): some clips carry aliased
         # gratings, fine for smoke runs; band-limit (0.11) to make SR learnable
@@ -186,4 +182,7 @@ class SyntheticVSR:
                              for c in range(3)], axis=-1)
             frames.append((base * 0.5 + 0.5).astype(np.float32))
         hr = np.stack(frames)
-        return bicubic_down(hr, self.scale), hr
+        lr = bicubic_down(hr, self.scale)
+        if self.lr_aug:
+            lr = self.lr_aug(lr, np.random.default_rng((self.seed, self._epoch, index)))
+        return lr, hr

@@ -1,36 +1,41 @@
-"""Video file read / write over OpenCV (port of ``vsrlab_tpu/data/video_io.py:29-158``).
+"""Video file read / write over OpenCV (port of ``vsrlab_tpu/data/video_io.py``).
 
 Frames are float32 RGB ``(T, H, W, 3)`` in [0, 1]. Every function needs
-OpenCV and raises ImportError where it is missing; the serving loop
+OpenCV and raises ImportError where it is missing (:func:`_need_cv2`, which
+the datasets and augmentations call too); the serving loop
 (:func:`vsrlab_tpu_torch.evaluation.upscale.upscale_frames`) also takes
-frames as arrays. Requested
-H.264 codecs map onto mp4v, as in the JAX package. The compression helpers
-(``compress_video*``) need the codec emulator and come with the
-degradation slice.
+frames as arrays. Requested H.264 codecs map onto mp4v, as in the JAX
+package. :func:`compress_video` and :func:`compress_video_folder` make
+the degraded LR side of a paired set: a /scale downscale, the codec
+emulator at a CRF (:mod:`vsrlab_tpu_torch.data.codec_emulator`), then an
+encode.
 """
 
 from __future__ import annotations
 
+from pathlib import Path
 from typing import List, Tuple
 
 import numpy as np
 
+from vsrlab_tpu_torch.data.codec_emulator import crf_to_quality, dct_codec_roundtrip
+
 try:
     import cv2
-except ImportError:  # each function raises without it
+except ImportError:  # each function that needs it raises
     cv2 = None
 
 _FOURCC = {"mp4v": "mp4v", "xvid": "XVID", "libx264": "mp4v", "h264": "mp4v"}
 
 
-def _cv2():
+def _need_cv2(what: str = "video I/O"):
     if cv2 is None:
-        raise ImportError("video I/O needs OpenCV (cv2), which is not importable here")
+        raise ImportError(f"{what} needs OpenCV (cv2), which is not importable here")
     return cv2
 
 
 def _open(path):
-    cap = _cv2().VideoCapture(str(path))
+    cap = _need_cv2().VideoCapture(str(path))
     if not cap.isOpened():
         raise IOError(f"not a video: {path}")
     return cap
@@ -124,7 +129,7 @@ class SequentialVideoReader:
 def open_video_writer(path, width: int, height: int, codec: str = "mp4v",
                       fps: float = 24.0, crf: int = 23):
     """An encoder for frames appended as they are produced."""
-    cv = _cv2()
+    cv = _need_cv2()
     fourcc = cv.VideoWriter_fourcc(*_FOURCC.get(codec.lower(), "mp4v"))
     writer = cv.VideoWriter(str(path), fourcc, float(fps), (width, height))
     if not writer.isOpened():
@@ -152,3 +157,29 @@ def write_video(path, frames: np.ndarray, codec: str = "mp4v", fps: float = 24.0
     writer = open_video_writer(path, w, h, codec, fps, crf)
     write_frames(writer, frames)
     writer.release()
+
+
+def compress_video(path_hr, path_lr, crf: int, scale_factor: int):
+    """Downscale a video by ``scale_factor`` (``INTER_AREA``), degrade it
+    with the codec emulator at ``crf`` (none for ``crf <= 0``) and encode
+    it to ``path_lr``. OpenCV's encoder has no working rate control, so
+    the severity is applied to the frames; the file size is not
+    rate-controlled."""
+    cv = _need_cv2("compress_video")
+    frames, _, fps, h, w = read_video(path_hr)
+    if h % scale_factor or w % scale_factor:
+        raise ValueError(f"{h}x{w} does not divide by {scale_factor}")
+    small = np.stack([cv.resize(f, (w // scale_factor, h // scale_factor),
+                                interpolation=cv.INTER_AREA) for f in frames])
+    if crf > 0:
+        small = dct_codec_roundtrip(small, quality=crf_to_quality(crf))
+    write_video(path_lr, small, codec="mp4v", fps=fps, crf=crf)
+
+
+def compress_video_folder(folder, crf: int, scale_factor: int):
+    """``<folder>/lr_crf_<crf>/<name>`` from every ``<folder>/hr/<name>``
+    (made again where it exists)."""
+    out = Path(folder) / f"lr_crf_{crf}"
+    out.mkdir(exist_ok=True)
+    for video in sorted(Path(folder).glob("hr/*")):
+        compress_video(str(video), str(out / video.name), crf, scale_factor)

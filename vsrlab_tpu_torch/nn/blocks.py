@@ -126,6 +126,66 @@ class ConvLeaky(nn.Module):
         return F.leaky_relu(self.conv(x), 0.1)
 
 
+def _l2_normalize(x: torch.Tensor) -> torch.Tensor:
+    return x * torch.rsqrt((x * x).sum() + 1e-12)  # flax SpectralNorm's epsilon
+
+
+class SpectralConv(nn.Module):
+    """Spectral-normalised conv without bias, on ``(N, H, W, C)``, with flax
+    ``nn.SpectralNorm``'s semantics (written out: torch's
+    ``spectral_norm`` differs in each point below).
+
+    * Every call makes one power iteration from the stored ``u`` (buffer
+      ``(1, out)``) over the kernel as a matrix (flax's HWIO ``(kh*kw*in,
+      out)``; the OIHW ``(out, in*kh*kw)`` used here is its transpose with
+      the columns permuted, which gives the same ``u`` and ``sigma``). With
+      ``update_stats`` the new ``u`` and ``sigma`` are stored; without, they
+      are used and dropped (torch skips the iteration in eval mode).
+    * A vector is normalised as ``x * rsqrt(sum(x^2) + 1e-12)``.
+    * ``u`` and ``v`` carry no gradient, ``sigma`` does (through the kernel).
+    * The iteration and the division run in fp32 (``u`` and ``sigma`` are
+      fp32 buffers); the normalised kernel is then cast to the compute type.
+    """
+
+    def __init__(self, in_channels: int, out_channels: int, kernel_size: int = 3,
+                 stride: int = 1, padding: int = 1, dtype: torch.dtype | None = None):
+        super().__init__()
+        self.stride, self.padding, self.dtype = stride, padding, dtype
+        self.weight = nn.Parameter(
+            torch.empty(out_channels, in_channels, kernel_size, kernel_size))
+        self.register_buffer("u", torch.empty(1, out_channels))
+        self.register_buffer("sigma", torch.ones(()))
+        self.reset_parameters()
+
+    def reset_parameters(self, generator: torch.Generator | None = None) -> None:
+        bound = 1.0 / math.sqrt(self.weight[0].numel())
+        with torch.no_grad():
+            self.weight.uniform_(-bound, bound, generator=generator)
+            self.u.normal_(generator=generator)
+            self.sigma.fill_(1.0)
+
+    def normalized_weight(self, update_stats: bool = False) -> torch.Tensor:
+        """The kernel over its spectral norm, in fp32, OIHW."""
+        w = self.weight.float()
+        mat = w.reshape(w.shape[0], -1)
+        with torch.no_grad():
+            v = _l2_normalize(self.u.float() @ mat)
+            u = _l2_normalize(v @ mat.t())
+        sigma = ((v @ mat.t()) @ u.t())[0, 0]
+        if update_stats:
+            # u is a new tensor, so the graph holds no view of the buffer
+            # that a second pass in the same step would write again
+            self.u.copy_(u)
+            self.sigma.copy_(sigma.detach())
+        return w / torch.where(sigma != 0, sigma, torch.ones_like(sigma))
+
+    def forward(self, x: torch.Tensor, update_stats: bool = False) -> torch.Tensor:
+        dt = self.dtype or torch.promote_types(x.dtype, torch.float32)
+        y = F.conv2d(x.to(dt).permute(0, 3, 1, 2), self.normalized_weight(update_stats).to(dt),
+                     None, self.stride, self.padding)
+        return y.permute(0, 2, 3, 1)
+
+
 # torch.optim steps taken in this process, counted by a global post-step hook
 _OPTIMIZER_STEPS = [0]
 
