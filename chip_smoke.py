@@ -31,7 +31,8 @@ Phases, in order; any failure exits non-zero:
    N(0, 3) residue), uniform ones, far ones (most corners outside) and, in
    zeros mode, ones with +-inf, NaN and +-1e30 among them (the result must
    be 0 there and finite everywhere), in zeros and border mode, three
-   launches bitwise equal; the row gather (``packed_row_gather``) against
+   launches bitwise equal (in fp32 the kernel rounds as the plain version
+   does: max error 0); the row gather (``packed_row_gather``) against
    its plain version, exactly, at the alignment shape (table ``(180,
    8001, 80)``, 16384 pixels an image) with realistic and uniform
    coordinates, at a ragged ``(3, 9, 13, 5)``, and at images smaller than
@@ -161,13 +162,44 @@ Phases, in order; any failure exits non-zero:
    serves the last checkpoint on a 10-frame 180x320 request (660 launches),
    bitwise equal to a module loaded with those weights. (d) The host ms of
    the degradation pipeline a clip at 6x64x64 and 10x180x320.
-9. One JSON line ``{"kernels": [...]}``: per kernel its main-path launches
-   (inference, training, serving and GAN fine-tuning) and, summed over
-   those launches (per-launch time at each shape times that shape's
-   count), ``ms``, ``plain_ms``,
+9. The flow paths (run after phase 8, before phase 6), all fp32 as the
+   JAX flow models run, TF32 off for the gates, weights from seeded
+   ``torch.Generator``s, under ``build/chip_smoke_flow/``: (a) the sampler's
+   gradient, ``BilinearSample`` (kernel forward, ``sample_grads`` backward)
+   against autograd through ``bilinear_sample_plain`` in fp64 at RAFT's level-0
+   lookup ``(3072, 48, 64, 1, 49)``, the alignment's ``(180, 128, 128, 10)``
+   and a three-channel warp, zeros and border, realistic, far and
+   non-finite coordinates (1e-4, finite), with the backward's device time
+   beside its bound and ``F.grid_sample``'s forward and backward; (b)
+   ``create_flow_dataset.main`` over 3 seeded 384x512 frames with a
+   surrogate ``raft-small`` checkpoint: 48 sampler launches a pair, 12 at
+   each level's shape, the flows with the kernel against the plain route
+   (1e-3 px), ms a pair, device ms, busy share and the lookups' share; (c)
+   ``OpticalFlowConsistency`` on SR / HR clips ``(4, 6, 256, 256, 3)``: 48
+   launches a branch, the SR branch's through ``BilinearSample``, the loss
+   and its gradient to SR against the plain route (1e-4 of the gradient's
+   largest value), ms forward and backward, peak memory; (d)
+   ``train.spynet.run`` over the 6-level curriculum of
+   ``conf/train/spynet.yaml`` (batch 8, Adam, cosine, clip 1) on
+   ``SyntheticFlowDataset`` with 8 samples a split and one epoch a level:
+   every level's checkpoint and ``final``, a resume from ``start_k = 5``
+   restoring levels 0-4 as saved, ``max(k, 1)`` sampler launches a step at
+   level k by shape, one level-5 step's gradients with the kernel against
+   the plain route (1e-4 of each tensor's largest value), the step's ms,
+   pairs/s, device ms, busy share and peak memory with TF32 off and on, the
+   loader's host ms a batch apart, and a level-1 run with a cleaner (mid
+   64, 20 blocks, fp32): 60 residual-pair launches a cleaner call; (e)
+   ``IRRPWCNet`` on one 384x512 pair: 18 warps by shape, its flows with the
+   kernel against the plain route (1e-3 px). The launches count into the
+   ``kernels`` line; phase 6 times the sampler at these shapes in fp32
+   and the pair at the cleaner's shape in fp32.
+10. One JSON line ``{"kernels": [...]}``: per kernel its main-path launches
+   (inference, training, serving, GAN fine-tuning and the flow paths) and,
+   summed over those launches (per-launch time at each shape times that
+   shape's count), ``ms``, ``plain_ms``,
    ``library_ms`` and ``bound_ms``; ``max_abs_err`` is the largest bf16
-   error, beside ``max_abs_err_fp32``; ``shapes`` holds the per-launch rows.
-   Then the last line ``{"ok": true, "device": {...}}``.
+   error, beside ``max_abs_err_fp32``; ``shapes`` holds the per-launch rows
+   (``dtype`` in each). Then the last line ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -306,12 +338,15 @@ def graph_ms(fn, calls: int = 20, samples: int = 20) -> float:
     return statistics.median(times)
 
 
-def bound(shape) -> tuple[float, str]:
-    """Least time (ms) for one bf16 pair: FLOPs over peak vs bytes over HBM rate."""
+def bound(shape, dname: str = "bf16") -> tuple[float, str]:
+    """Least time (ms) for one pair in ``dname`` (bf16 on the tensor cores,
+    fp32 outside them): FLOPs over peak vs bytes over HBM rate."""
     b, h, w, c = shape
+    item = 2 if dname == "bf16" else 4
     flops = 2 * (2 * b * h * w * c * c * 9)
-    nbytes = 2 * b * h * w * c * 2 + 2 * 9 * c * c * 2 + 2 * c * 4
-    t_ops, t_bytes = flops / PEAK_BF16_FLOPS * 1e3, nbytes / PEAK_BYTES * 1e3
+    nbytes = 2 * b * h * w * c * item + 2 * 9 * c * c * item + 2 * c * 4
+    peak = PEAK_BF16_FLOPS if dname == "bf16" else PEAK_FP32_FLOPS
+    t_ops, t_bytes = flops / peak * 1e3, nbytes / PEAK_BYTES * 1e3
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
@@ -356,22 +391,25 @@ def check_kernels(device):
     return errs
 
 
-def time_kernel(form, launches_by_shape, device):
-    """Phase 5 for one kernel: at each shape the main path gave it, a bf16
-    check against the plain version and per-launch device times (graph
-    replay), the time of eager calls from Python beside the kernel's.
-    Returns the largest error and one row per shape."""
+def time_kernel(form, launches_by_shape, device, dtype=None):
+    """Phase 6 for one kernel: at each shape the main path gave it, a check
+    against the plain version in the path's type (bf16; fp32 for the flow
+    trainer's cleaner) and per-launch device times (graph replay), the time
+    of eager calls from Python beside the kernel's. Returns the largest
+    error and one row per shape."""
     import torch
     import torch.nn.functional as F
 
     from vsrlab_tpu_torch.ops.residual_pair import (
         PAIR_IMPLS, pack_weight_fragments, pair_grads, pair_launch_plan, residual_conv_pair_plain)
 
+    dtype = dtype or torch.bfloat16
+    dname = "bf16" if dtype == torch.bfloat16 else "fp32"
     err, rows = 0.0, []
     for shape, n in sorted(launches_by_shape.items()):
-        x, w1, b1, w2, b2 = ops = pair_operands(shape, torch.bfloat16, 7, device)
-        err = max(err, check_pair(PAIR_IMPLS[form], ops, TOL["bf16"], f"{form:6s} bf16 {shape}"))
-        if form == "taps":  # timed as the model calls it: the weights' kernel order laid out once
+        x, w1, b1, w2, b2 = ops = pair_operands(shape, dtype, 7, device)
+        err = max(err, check_pair(PAIR_IMPLS[form], ops, TOL[dname], f"{form:6s} {dname} {shape}"))
+        if form == "taps" and dname == "bf16":  # timed as the model calls it: the weights' kernel order laid out once
             fragments = pack_weight_fragments(w1), pack_weight_fragments(w2)
             fn = functools.partial(PAIR_IMPLS[form], *ops, fragments=fragments)
         else:
@@ -379,16 +417,17 @@ def time_kernel(form, launches_by_shape, device):
         xc = x.permute(0, 3, 1, 2)  # channels_last NCHW view
         wc1, wc2 = (w.permute(3, 2, 0, 1).contiguous(memory_format=torch.channels_last)
                     for w in (w1, w2))
-        bb1, bb2 = b1.bfloat16(), b2.bfloat16()
+        bb1, bb2 = b1.to(dtype), b2.to(dtype)
 
         def library():
             return xc + F.conv2d(torch.relu(F.conv2d(xc, wc1, bb1, padding=1)), wc2, bb2,
                                  padding=1)
 
         reps = 10 if shape[0] < 10 else 3
-        b_ms, b_by = bound(shape)
+        b_ms, b_by = bound(shape, dname)
         row = {
             "shape": list(shape),
+            "dtype": dname,
             "launches": n,
             "ms": graph_ms(fn),
             "plain_ms": graph_ms(lambda: residual_conv_pair_plain(*ops)),
@@ -399,18 +438,21 @@ def time_kernel(form, launches_by_shape, device):
             "library_eager_ms": cuda_ms(library, reps),
         }
         row["share_of_bound"] = b_ms / row["ms"]
-        if shape in TRAIN_SHAPES:  # the unit's backward in a train step (TF32 on, as there)
+        if shape in TRAIN_SHAPES and dname == "bf16":  # the unit's backward in a train step (TF32 on, as there)
             g = torch.randn(shape, generator=torch.Generator().manual_seed(5)).to(device,
                                                                                  torch.bfloat16)
             before = tf32(True)
             row["backward_ms"] = graph_ms(lambda: pair_grads(*ops, g))
             tf32(before)
         rows.append(row)
-        plan = pair_launch_plan(form, shape, device)  # the library's own account, not measured
-        log(f"  {form:6s} bf16 {shape} x{n}: kernel {row['ms']:.4f} ms "
-            f"({100 * row['share_of_bound']:.1f} % of its bound, {b_ms:.4f} ms by {b_by}; "
-            f"{plan['tiles']} tiles of {plan['tile'][0]}x{plan['tile'][1]}, {plan['rounds']} "
-            f"rounds), plain {row['plain_ms']:.4f} ms, library {row['library_ms']:.4f} ms; called "
+        tiling = ""
+        if dname == "bf16":  # the library's own account of the bf16 tiling, not measured
+            plan = pair_launch_plan(form, shape, device)
+            tiling = (f"; {plan['tiles']} tiles of {plan['tile'][0]}x{plan['tile'][1]}, "
+                      f"{plan['rounds']} rounds")
+        log(f"  {form:6s} {dname} {shape} x{n}: kernel {row['ms']:.4f} ms "
+            f"({100 * row['share_of_bound']:.1f} % of its bound, {b_ms:.4f} ms by {b_by}"
+            f"{tiling}), plain {row['plain_ms']:.4f} ms, library {row['library_ms']:.4f} ms; called "
             f"one by one from Python: kernel {row['eager_ms']:.4f} ms, library "
             f"{row['library_eager_ms']:.4f} ms"
             + (f"; the unit's backward {row['backward_ms']:.4f} ms" if "backward_ms" in row else ""))
@@ -700,20 +742,43 @@ def check_gather_kernel(device) -> dict:
     return {"fp32": 0.0, "bf16": 0.0}
 
 
-def sampler_bound(name, shape, itemsize=2) -> tuple[float, str]:
+def sampler_window_bytes(x, ix, iy) -> int:
+    """The bytes of ``x`` ``(N, H, W, C)`` that samples at ``ix``, ``iy``
+    ``(N, P)`` need: per image the smaller of the image and the box of the
+    corners they cover (clipped to the image; a sample with a non-finite
+    coordinate reads nothing)."""
+    import torch
+
+    n, h, w, c = x.shape
+    ok = torch.isfinite(ix) & torch.isfinite(iy)
+    extent = []
+    for coord, size in ((ix, w), (iy, h)):
+        f = torch.floor(torch.where(ok, coord, 0.0))
+        lo = torch.where(ok, f.clamp(0, size - 1), float(size)).amin(1)
+        hi = torch.where(ok, (f + 1).clamp(0, size - 1), -1.0).amax(1)
+        extent.append((hi - lo + 1).clamp(min=0))
+    return int((extent[0] * extent[1]).sum()) * c * x.element_size()
+
+
+def sampler_bound(name, shape, itemsize=2, image_bytes=None) -> tuple[float, str]:
     """Least time (ms) of one launch, the larger of its bytes over the HBM
     rate and its operations over the fp32 rate:
 
-    * ``bilinear_sample``, shape ``(N, H, W, C, P)``: the image read once,
-      8 bytes of coordinates a pixel, the output written once,
-      ``N * (H*W*C*itemsize + 8*P + P*C*itemsize)`` bytes, against
-      ``8 * N*P*C`` FLOP (four weighted corners an output element);
+    * ``bilinear_sample``, shape ``(N, H, W, C, P)``: the image bytes the
+      samples need read once (``image_bytes``, from
+      :func:`sampler_window_bytes`: per image the smaller of the image and
+      the corner box the samples cover; without it the whole images,
+      ``N*H*W*C*itemsize``, which is what the alignment's samples cover), 8
+      bytes of coordinates a sample, the output written once, against ``8 *
+      N*P*C`` FLOP (four weighted corners an output element);
     * ``packed_row_gather``, shape ``(N, R, Wrow, P)``: the table read once,
       4 bytes of index a pixel, the rows written once, no arithmetic.
     """
     if name == "bilinear_sample":
         n, h, w, c, p = shape
-        nbytes = n * (h * w * c * itemsize + 8 * p + p * c * itemsize)
+        if image_bytes is None:
+            image_bytes = n * h * w * c * itemsize
+        nbytes = image_bytes + n * (8 * p + p * c * itemsize)
         flops = 8 * n * p * c
     else:
         n, r, wrow, p = shape
@@ -722,36 +787,49 @@ def sampler_bound(name, shape, itemsize=2) -> tuple[float, str]:
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
-def time_sampler(launches_by_shape, device):
-    """Phase 5 for ``bilinear_sample``: at each shape the VRT path gave it
-    (bf16, realistic coordinates), a check against the plain version, then
-    device times by CUDA-graph replay of the kernel, the plain version and
-    one ``F.grid_sample`` call (NCHW, the normalised grid, align_corners,
-    zeros; timed only) on the same operands. Returns the largest error and
-    one row per shape."""
+def time_sampler(launches_by_shape, device, dtype=None):
+    """Phase 6 for ``bilinear_sample``: at each shape a path gave it (the
+    VRT paths' in bf16, the flow paths' in fp32; realistic coordinates: the
+    pixel grid plus an N(0, 3) residue where a sample grid has the image's
+    shape, else RAFT's 7x7 windows around it), a check against the plain
+    version, then device times by CUDA-graph replay of the kernel, the
+    plain version and one ``F.grid_sample`` call (NCHW, the normalised
+    grid, align_corners, zeros; timed only) on the same operands, and the
+    bound from the image bytes those samples need. Returns the largest
+    error and one row per shape."""
     import torch
     import torch.nn.functional as F
 
     from vsrlab_tpu_torch.ops import bilinear_sample as bs
 
+    dtype = dtype or torch.bfloat16
+    dname = "bf16" if dtype == torch.bfloat16 else "fp32"
     err, rows = 0.0, []
     for shape, count in sorted(launches_by_shape.items()):
         n, h, w, c, p = shape
-        x, ix, iy = realistic_operands(n, h, w, c, torch.bfloat16, h, device)
+        if p == h * w:
+            x, ix, iy = realistic_operands(n, h, w, c, dtype, h, device)
+        else:
+            x = torch.randn((n, h, w, c), generator=torch.Generator().manual_seed(h)).to(device,
+                                                                                          dtype)
+            ix, iy, _ = window_coords(n, h, w, "realistic", h, device)
         fx, fy = ix.reshape(n, -1), iy.reshape(n, -1)
-        err = max(err, check_sampler(x, fx, fy, True, TOL["bf16"],
-                                     f"bilinear_sample bf16 {shape}"))
+        err = max(err, check_sampler(x, fx, fy, True, TOL[dname],
+                                     f"bilinear_sample {dname} {shape}"))
         xc = x.permute(0, 3, 1, 2).contiguous()
-        grid = torch.stack([2 * ix / (w - 1) - 1, 2 * iy / (h - 1) - 1], -1).bfloat16()
-        b_ms, b_by = sampler_bound("bilinear_sample", shape)
-        row = {"shape": list(shape), "launches": count,
+        grid = torch.stack([2 * ix / (w - 1) - 1, 2 * iy / (h - 1) - 1], -1).to(dtype)
+        if p != h * w:
+            grid = grid[:, None]  # (N, 1, P, 2)
+        b_ms, b_by = sampler_bound("bilinear_sample", shape, x.element_size(),
+                                   sampler_window_bytes(x, fx, fy))
+        row = {"shape": list(shape), "dtype": dname, "launches": count,
                "ms": graph_ms(lambda: bs.bilinear_sample(x, fx, fy, True)),
                "plain_ms": graph_ms(lambda: bs.bilinear_sample_plain(x, fx, fy, True), calls=3),
                "library_ms": graph_ms(
                    lambda: F.grid_sample(xc, grid, "bilinear", "zeros", align_corners=True)),
                "bound_ms": b_ms, "bound_by": b_by}
         row["share_of_bound"] = b_ms / row["ms"]
-        log(f"  bilinear_sample   bf16 {shape} x{count}: kernel {row['ms']:.4f} ms "
+        log(f"  bilinear_sample   {dname} {shape} x{count}: kernel {row['ms']:.4f} ms "
             f"({100 * row['share_of_bound']:.1f} % of its bound, {b_ms:.4f} ms by {b_by}), plain "
             f"{row['plain_ms']:.4f} ms, F.grid_sample {row['library_ms']:.4f} ms (graph replay)")
         rows.append(row)
@@ -2054,6 +2132,605 @@ def gan_phase(device, card):
     return seen
 
 
+# phase 9: the flow paths, fp32 as the JAX flow models run (dtype=None)
+FLOW_PAIR = (384, 512)  # create_flow_dataset's default --height / --width
+OFC_CLIP = (4, 6, 256, 256, 3)  # the GAN leg's HR clips
+# conf/train/spynet.yaml's levels and batch; 8 samples a split
+SPYNET_K, SPYNET_BATCH, SPYNET_SAMPLES = 6, 8, 8
+CLEANER = {"mid_channels": 64, "blocks": 20}
+RAFT_ITERS, RAFT_LEVELS = 12, 4
+
+
+def raft_launches(n_pairs: int, h: int, w: int, forwards: int = 1) -> dict:
+    """The sampler's launches by shape of ``forwards`` RAFT-small forwards
+    on ``n_pairs`` pairs of ``h x w`` frames: one lookup a level a GRU
+    iteration, over the 1/8-scale pixels' 7x7 windows of one channel."""
+    import collections
+
+    h8, w8 = h // 8, w // 8
+    return collections.Counter({(n_pairs * h8 * w8, h8 >> i, w8 >> i, 1, 49): RAFT_ITERS * forwards
+                                for i in range(RAFT_LEVELS)})
+
+
+def spynet_step_launches(k: int, batch: int, steps: int = 1) -> dict:
+    """The sampler's launches by shape of ``steps`` steps at level ``k``:
+    the frozen pyramid's warps at levels 1 .. k-1 and the level's own, one
+    warp of the three-channel frame each (``max(k, 1)`` a step)."""
+    import collections
+
+    from vsrlab_tpu_torch.models.flow import GConf
+
+    sizes = [GConf(i).image_size for i in range(1, k)] + [GConf(k).image_size]
+    return collections.Counter({(batch, h, w, 3, h * w): steps for h, w in sizes})
+
+
+def irr_launches(h: int, w: int, output_level: int = 4) -> dict:
+    """IRR-PWC's warps by shape on one ``h x w`` pair: at every estimated
+    level (0 .. ``output_level``) both images, from level 1 also both
+    feature maps (of the pyramid's channels at that level), one sampler
+    call each."""
+    import collections
+
+    from vsrlab_tpu_torch.models.flow.irr import NUM_CHS
+
+    out = collections.Counter()
+    for level in range(output_level + 1):
+        hh, ww = h, w
+        for _ in range(len(NUM_CHS) - 1 - level):  # the pyramid's stride-2 convs
+            hh, ww = -(-hh // 2), -(-ww // 2)
+        out[(1, hh, ww, 3, hh * ww)] += 2
+        if level:
+            out[(1, hh, ww, NUM_CHS[len(NUM_CHS) - 1 - level], hh * ww)] += 2
+    return out
+
+
+def gate_samples(label, want) -> None:
+    """Raise unless the sampler kernel's launches by shape since its last
+    reset equal ``want``."""
+    from vsrlab_tpu_torch.ops import bilinear_sample as bs
+
+    gate_counts(label, {"bilinear_sample": bs.bilinear_sample.launches_by_shape},
+                {"bilinear_sample": want})
+
+
+def window_coords(n, h, w, kind, seed, device, radius=3):
+    """RAFT's lookup coordinates ``(n, (2r+1)^2)`` over ``n`` one-channel
+    images ``(h, w)``, one for each pixel of the 1/8-scale frame (``n =
+    h*w*s^2`` at the pyramid level of scale ``1/s``): that pixel over ``s``
+    plus an N(0, 3/s) flow, then the window offsets (``realistic``);
+    ``far``: uniform over three image sizes on each side; ``nonfinite``:
+    realistic with +-inf, NaN and +-1e30 among them. Returns the
+    coordinates and the mask of samples that must give 0 (nonfinite), else
+    None."""
+    import torch
+
+    g = torch.Generator().manual_seed(seed)
+    side = 2 * radius + 1
+    if kind == "far":
+        ix = torch.rand((n, side * side), generator=g) * 7 * w - 3 * w
+        iy = torch.rand((n, side * side), generator=g) * 7 * h - 3 * h
+    else:
+        s = max(1, round((n / (h * w)) ** 0.5))
+        idx = torch.arange(n)
+        cx = ((idx % (w * s)).float() + torch.randn(n, generator=g) * 3) / s
+        cy = ((idx // (w * s)).float() + torch.randn(n, generator=g) * 3) / s
+        d = torch.linspace(-radius, radius, side)
+        ix = (cx[:, None, None] + d[:, None]).expand(n, side, side).reshape(n, -1).contiguous()
+        iy = (cy[:, None, None] + d[None, :]).expand(n, side, side).reshape(n, -1).contiguous()
+    bad = None
+    if kind == "nonfinite":
+        special = torch.tensor([float("inf"), float("-inf"), float("nan"), 1e30, -1e30])
+        ix.view(-1)[::7] = special.repeat(ix.numel() // 35 + 1)[: ix.view(-1)[::7].numel()]
+        iy.view(-1)[3::11] = special.flip(0).repeat(iy.numel() // 55 + 1)[
+            : iy.view(-1)[3::11].numel()]
+        bad = ~(torch.isfinite(ix) & torch.isfinite(iy) & (ix.abs() < 1e29) & (iy.abs() < 1e29))
+        bad = bad.to(device)
+    return ix.to(device), iy.to(device), bad
+
+
+def sample_grad_shapes() -> tuple:
+    """Phase 9 (a)'s shapes ``(N, H, W, C, P)``: RAFT's level-0 lookup on a
+    ``FLOW_PAIR`` pair, the alignment's 128x128 stage, and a three-channel
+    warp (the SpyNet trainer's at level 2)."""
+    h8, w8 = FLOW_PAIR[0] // 8, FLOW_PAIR[1] // 8
+    return ((h8 * w8, h8, w8, 1, 49), (180, 128, 128, 10, 128 * 128),
+            (SPYNET_BATCH, 96, 128, 3, 96 * 128))
+
+
+def sample_grad_operands(shape, kind, seed, device):
+    """Phase 9 (a)'s operands at ``shape`` ``(N, H, W, C, P)``: the image
+    ~ N(0, 1), coordinates of ``kind`` (RAFT windows where ``P`` is 49,
+    else :func:`sampler_coords`), the output gradient ~ N(0, 1)."""
+    import torch
+
+    n, h, w, c, p = shape
+    g = torch.Generator().manual_seed(seed)
+    x = torch.randn((n, h, w, c), generator=g).to(device)
+    if p == 49:
+        ix, iy, bad = window_coords(n, h, w, kind, seed, device)
+    else:
+        ix, iy, bad = sampler_coords(n, h, w, kind, seed, device)
+    gout = torch.randn((n, p, c), generator=g).to(device)
+    return x, ix, iy, gout, bad
+
+
+def check_sample_grad(x, ix, iy, gout, zeros, label, bad=None, tol=TOL["fp32"]) -> float:
+    """``BilinearSample`` (the kernel forward, ``sample_grads`` backward)
+    against autograd through ``bilinear_sample_plain`` in fp64 (the exact
+    gradient: an fp32 reference's own sums of the thousands of
+    border-clamped samples on an edge pixel move with the atomics' order):
+    the output, ``dx`` and both coordinate gradients within ``tol +
+    tol*|plain|``, finite, one kernel launch; 0 where ``bad`` marks a sample
+    that must give 0."""
+    import torch
+
+    from vsrlab_tpu_torch.ops import bilinear_sample as bs
+
+    runs = []
+    for fn, dtype in ((bs.bilinear_sample, torch.float32),
+                      (bs.bilinear_sample_plain, torch.float64)):
+        leaves = [t.detach().to(dtype).requires_grad_(True) for t in (x, ix, iy)]
+        before = bs.bilinear_sample.launches
+        out = fn(*leaves, zeros)
+        out.backward(gout.to(dtype))
+        if bs.bilinear_sample.launches - before != (fn is bs.bilinear_sample):
+            raise AssertionError(f"{label}: {bs.bilinear_sample.launches - before} launches")
+        runs.append([out.detach()] + [t.grad for t in leaves])
+    torch.cuda.synchronize()
+    err, ok = 0.0, True
+    for name, a, b in zip(("out", "dx", "dix", "diy"), *runs):
+        d = (a.double() - b).abs()
+        ok = ok and bool(torch.isfinite(a).all()) and bool((d <= tol + tol * b.abs()).all())
+        err = max(err, float(d.max()))
+    if bad is not None:  # the output and both coordinate gradients 0 there
+        ok = ok and all(bool((t[bad] == 0).all()) for t in (runs[0][0], runs[0][2], runs[0][3]))
+    log(f"  {label}: max |grad - autograd(plain)| over out, dx, dix, diy = {err:.3e} (tol {tol}) "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"{label}: BilinearSample disagrees with autograd through plain")
+    return err
+
+
+def sampler_backward_bound(shape, window_bytes) -> tuple[float, str]:
+    """Least time (ms) of one ``sample_grads`` with every gradient, fp32:
+    the corner windows of the image read once (``window_bytes``), the
+    output gradient and the coordinates read, ``dx`` (the whole image) and
+    both coordinate gradients written; ~16 FLOP a sample and channel (four
+    weighted scatters, four products against the corners)."""
+    n, h, w, c, p = shape
+    nbytes = window_bytes + n * p * c * 4 + n * p * 8 + n * h * w * c * 4 + n * p * 8
+    t_ops, t_bytes = 16 * n * p * c / PEAK_FP32_FLOPS * 1e3, nbytes / PEAK_BYTES * 1e3
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def sample_grad_phase(device) -> dict:
+    """Phase 9 (a): the sampler's gradient at RAFT's level-0 lookup (384x512
+    frames), the alignment's 128x128 stage and a three-channel warp, zeros
+    and border mode, then the backward's device time beside its bound and
+    ``F.grid_sample``'s forward and backward. Returns the per-shape rows."""
+    import torch
+    import torch.nn.functional as F
+
+    from vsrlab_tpu_torch.ops import bilinear_sample as bs
+    from vsrlab_tpu_torch.ops.warp import _pad_coords
+
+    rows, err = [], 0.0
+    for i, shape in enumerate(sample_grad_shapes()):
+        n, h, w, c, p = shape
+        for kind in ("realistic", "far", "nonfinite"):
+            x, ix, iy, gout, bad = sample_grad_operands(shape, kind, i, device)
+            label = f"BilinearSample {shape} {kind:9s}"
+            err = max(err, check_sample_grad(x, ix, iy, gout, True, label + " zeros ", bad))
+            if kind != "nonfinite":  # border: the coordinates clamped first, no mask
+                bx, by = _pad_coords(ix, iy, h, w, "border", True)
+                err = max(err, check_sample_grad(x, bx, by, gout, False, label + " border"))
+        x, ix, iy, gout, _ = sample_grad_operands(shape, "realistic", i, device)
+        xc = x.permute(0, 3, 1, 2).contiguous().requires_grad_(True)
+        grid = torch.stack([2 * ix / (w - 1) - 1, 2 * iy / (h - 1) - 1], -1)[:, None]
+        gc = gout.permute(0, 2, 1)[:, :, None].contiguous()
+
+        def library():  # F.grid_sample forward and backward to the image
+            return torch.autograd.grad(F.grid_sample(xc, grid, "bilinear", "zeros",
+                                                     align_corners=True), xc, gc)
+
+        window = sampler_window_bytes(x, ix, iy)
+        b_ms, b_by = sampler_backward_bound(shape, window)
+        f_ms, f_by = sampler_bound("bilinear_sample", shape, 4, window)
+        row = {"shape": list(shape), "ms": graph_ms(lambda: bs.bilinear_sample(x, ix, iy, True)),
+               "bound_ms": f_ms, "bound_by": f_by,
+               "backward_ms": graph_ms(lambda: bs.sample_grads(x, ix, iy, True, gout), calls=5),
+               "backward_image_only_ms": graph_ms(
+                   lambda: bs.sample_grads(x, ix, iy, True, gout, need_coords=False), calls=5),
+               "backward_bound_ms": b_ms, "backward_bound_by": b_by,
+               "library_fwd_bwd_ms": graph_ms(library, calls=5)}
+        log(f"  sampler fp32 {shape}: forward kernel {row['ms']:.4f} ms (bound {f_ms:.4f} by "
+            f"{f_by}); backward (sample_grads) {row['backward_ms']:.4f} ms, image only "
+            f"{row['backward_image_only_ms']:.4f} ms (bound {b_ms:.4f} by {b_by}); F.grid_sample "
+            f"forward + backward {row['library_fwd_bwd_ms']:.4f} ms (graph replay)")
+        rows.append(row)
+        del x, ix, iy, gout, xc, grid, gc
+    torch.cuda.empty_cache()
+    return {"max_abs_err": err, "shapes": rows}
+
+
+def write_flow_frames(root, h, w, n=3, seed=0):
+    """``n`` frames of one video under ``root/clip``: blurred uniform noise
+    (OpenCV) moved (2, 1) px a frame, as 8-bit PNGs."""
+    import cv2
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    big = cv2.GaussianBlur(rng.random((h + 16, w + 16, 3)).astype(np.float32), (0, 0), 2.0)
+    os.makedirs(os.path.join(root, "clip"), exist_ok=True)
+    for t in range(n):
+        frame = big[8 - t:8 - t + h, 8 - 2 * t:8 - 2 * t + w]
+        cv2.imwrite(os.path.join(root, "clip", f"{t:04d}.png"),
+                    np.clip(frame * 255.0 + 0.5, 0, 255).astype(np.uint8))
+    return root
+
+
+def median_ms(fn, n: int = 10, warmup: int = 3) -> float:
+    """Median host ms of ``fn()`` ending in a device sync, after ``warmup``."""
+    import torch
+
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    return median_s(fn, n) * 1e3
+
+
+def teacher_phase(device, card, root) -> dict:
+    """Phase 9 (b): ``create_flow_dataset.main`` over 3 frames at its
+    default 384x512 with a surrogate checkpoint, then one pair's flow with
+    the kernel against the plain route, its time and profile."""
+    import cv2
+    import numpy as np
+    import torch
+
+    from vsrlab_tpu_torch.data import create_flow_dataset as cfd
+    from vsrlab_tpu_torch.data.datasets import load_frame
+    from vsrlab_tpu_torch.models.flow import RAFT
+    from vsrlab_tpu_torch.nn.blocks import init_weights
+    from vsrlab_tpu_torch.ops import bilinear_sample as bs
+
+    h, w = FLOW_PAIR
+    frames = write_flow_frames(os.path.join(root, "frames"), h, w)
+    ckpt = os.path.join(root, "raft-small.pth")
+    raft = init_weights(RAFT(small=True, scale_factor=8), torch.Generator().manual_seed(11))
+    torch.save({f"module.{k}": v for k, v in raft.state_dict().items()}, ckpt)
+    out = os.path.join(root, "flows")
+    bs.reset_launch_counts()
+    t0 = time.perf_counter()
+    cfd.main(["--frames", frames, "--out", out, "--height", str(h), "--width", str(w),
+              "--raft-ckpt", ckpt, "--device", device.type])
+    cli_s = time.perf_counter() - t0
+    gate_samples("create_flow_dataset (2 pairs)", raft_launches(1, h, w, forwards=2))
+    files = sorted(os.listdir(out))
+    saved = np.load(os.path.join(out, files[0]))["flow"]
+    if len(files) != 2 or saved.shape != (h, w, 2) or not np.isfinite(saved).all():
+        raise AssertionError(f"teacher flows: {files}, {saved.shape}")
+
+    fwd = cfd.build_teacher(ckpt, device)
+    pair = [cv2.resize(load_frame(os.path.join(frames, "clip", f)), (w, h))
+            for f in sorted(os.listdir(os.path.join(frames, "clip")))[:2]]
+    a, b = (torch.from_numpy(f[None]).to(device) for f in pair)
+    flow_k = fwd(a, b)
+    fwd.model.sampler_impl = "plain"
+    flow_p = fwd(a, b)
+    ms_plain = median_ms(lambda: fwd(a, b), n=5, warmup=1)
+    fwd.model.sampler_impl = "fused"
+    d_plain = float((flow_k - flow_p).abs().max())
+    d_file = float((flow_k[0].cpu() - torch.from_numpy(saved)).abs().max())
+    inner = flow_k[0, h // 8:-(h // 8), w // 8:-(w // 8)]
+    median_flow = [float(v) for v in inner.reshape(-1, 2).median(0).values]
+    log(f"  teacher: max |kernel - plain| = {d_plain:.3e} px, against the CLI's file "
+        f"{d_file:.3e} px (gate 1e-3); median flow {median_flow} px (frames moved (2, 1) px; "
+        "random weights)")
+    if not (d_plain <= 1e-3 and d_file <= 1e-3 and bool(torch.isfinite(flow_k).all())):
+        raise AssertionError("teacher flows with the kernel differ from the plain route's")
+    ms = median_ms(lambda: fwd(a, b))
+    prof = profile_request(lambda: fwd(a, b), ms / 1e3, top=8, ours=("bilinear_sample",))
+    row = {"ms_per_pair": ms, "plain_ms_per_pair": ms_plain, "cli_s_2_pairs": cli_s,
+           "max_abs_diff_plain_px": d_plain, "max_abs_diff_file_px": d_file, "profile": prof}
+    if "wall_ms" in prof:
+        row["lookup_share_of_device"] = prof["own_kernels_ms"] / prof["device_ms"]
+        log(f"  teacher: {ms:.2f} ms a pair (plain route {ms_plain:.2f}), device "
+            f"{prof['device_ms']:.2f} ms (busy {100 * prof['device_busy_share']:.1f} %), the 48 "
+            f"lookups {prof['own_kernels_ms']:.3f} ms ({100 * row['lookup_share_of_device']:.1f} "
+            f"%), {prof['device_ops']} kernels and copies, on {card}")
+    del fwd, a, b, flow_k, flow_p
+    return row
+
+
+def consistency_phase(device, card) -> dict:
+    """Phase 9 (c): ``OpticalFlowConsistency`` on SR and HR clips of
+    ``OFC_CLIP``: 48 lookups a branch (the SR branch's through
+    ``BilinearSample``), the loss and its gradient to SR against the plain
+    route, its time and peak memory."""
+    import torch
+
+    from vsrlab_tpu_torch.core.losses import OpticalFlowConsistency
+    from vsrlab_tpu_torch.ops import bilinear_sample as bs
+
+    b, t, h, w, _ = OFC_CLIP
+    loss = OpticalFlowConsistency()
+    g = torch.Generator().manual_seed(21)
+    hr = torch.rand(OFC_CLIP, generator=g)
+    sr = (hr + 0.05 * torch.randn(OFC_CLIP, generator=g)).clamp(0, 1)
+    hr, sr = hr.to(device), sr.to(device)
+    calls = []
+    apply = bs.BilinearSample.apply
+    bs.BilinearSample.apply = lambda *a: calls.append(a[0].shape) or apply(*a)
+    try:  # count the lookups that run through the Function (under grad)
+        bs.reset_launch_counts()
+        leaf = sr.clone().requires_grad_(True)
+        value = loss(leaf, hr)
+        value.backward()
+        value = value.detach()
+        torch.cuda.synchronize()
+    finally:
+        del bs.BilinearSample.apply  # the inherited classmethod again
+    gate_samples("OpticalFlowConsistency", raft_launches(b * (t - 1), h, w, forwards=2))
+    if len(calls) != RAFT_ITERS * RAFT_LEVELS:
+        raise AssertionError(f"{len(calls)} lookups under grad, not {RAFT_ITERS * RAFT_LEVELS}")
+    if any(p.grad is not None for p in loss.model.parameters()):
+        raise AssertionError("the frozen RAFT got a gradient")
+    loss.model.sampler_impl = "plain"
+    leaf_p = sr.clone().requires_grad_(True)
+    value_p = loss(leaf_p, hr)
+    value_p.backward()
+    value_p = value_p.detach()
+    loss.model.sampler_impl = "fused"
+    gk, gp = leaf.grad, leaf_p.grad
+    d_val = abs(float(value) - float(value_p))
+    d_grad = float((gk - gp).abs().max())
+    scale = float(gp.abs().max())
+    ok = (d_val <= 1e-4 * abs(float(value_p)) and d_grad <= 1e-4 * scale
+          and bool(torch.isfinite(gk).all()) and scale > 0)
+    log(f"  OpticalFlowConsistency {OFC_CLIP}: loss {float(value):.6f} (plain {float(value_p):.6f}),"
+        f" max |dSR - dSR(plain)| = {d_grad:.3e} of max {scale:.3e} (gate 1e-4 of it); "
+        f"{len(calls)} lookups through BilinearSample {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("OpticalFlowConsistency with the kernel differs from the plain route")
+
+    def step():
+        x = sr.clone().requires_grad_(True)
+        loss(x, hr).backward()
+
+    ms = median_ms(step, n=5, warmup=2)
+    torch.cuda.reset_peak_memory_stats()
+    step()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    prof = profile_request(step, ms / 1e3, top=8, ours=("bilinear_sample",))
+    row = {"ms_fwd_bwd": ms, "peak_gib": peak, "loss": float(value), "max_abs_grad_diff": d_grad,
+           "grad_max": scale, "profile": prof}
+    log(f"  OpticalFlowConsistency forward + backward {ms:.2f} ms, peak {peak:.2f} GiB"
+        + (f", device {prof['device_ms']:.2f} ms (busy {100 * prof['device_busy_share']:.1f} %),"
+           f" the sampler's kernels {prof['own_kernels_ms']:.3f} ms" if "wall_ms" in prof else "")
+        + f" on {card}")
+    del loss, leaf, leaf_p, gk, gp, hr, sr
+    torch.cuda.empty_cache()
+    return row
+
+
+def spynet_overrides(root, *more):
+    return ["+experiment=spynet", "device=cuda", f"train.k={SPYNET_K}", "train.max_epochs=1",
+            f"train.data.batch_size={SPYNET_BATCH}", "train.data.num_workers=8",
+            "train.data.datasets.train={_target_: SyntheticFlowDataset, num_samples: "
+            f"{SPYNET_SAMPLES}}}", f"train.checkpoint_dir={root}/spynet",
+            f"core.storage_dir={root}", f"train.logger.save_dir={root}/logs", *more]
+
+
+def spynet_phase(device, card, root) -> dict:
+    """Phase 9 (d): ``train.spynet.run`` over the full curriculum, its
+    checkpoints and a resume from ``start_k = 5``, the sampler's launch
+    plan, one level-5 step's gradients with the kernel against the plain
+    route, the step's time with the loader's apart, and a level-1 run with
+    a cleaner."""
+    import collections
+    import shutil
+
+    import torch
+
+    from vsrlab_tpu_torch.core.checkpoint import CheckpointManager
+    from vsrlab_tpu_torch.core.config import load_config
+    from vsrlab_tpu_torch.data.loader import to_device
+    from vsrlab_tpu_torch.models.spynet import SpyNetBasicModule
+    from vsrlab_tpu_torch.nn.blocks import IterativeRefinement, init_weights
+    from vsrlab_tpu_torch.ops import bilinear_sample as bs
+    from vsrlab_tpu_torch.ops import residual_pair as rp
+    from vsrlab_tpu_torch.train import spynet
+    from vsrlab_tpu_torch.train.builders import build_tx
+
+    cfg = load_config(overrides=spynet_overrides(root))
+    k_max = int(cfg.train.k)
+    # one train and one val batch a level: 8 samples a split, batch 8
+    want = collections.Counter()
+    for k in range(k_max):
+        want += spynet_step_launches(k, SPYNET_BATCH, steps=2)
+    bs.reset_launch_counts()
+    t0 = time.perf_counter()
+    trained = spynet.run(cfg, device=device)
+    run_s = time.perf_counter() - t0
+    gate_samples(f"train.spynet.run, levels 0-{k_max - 1}", want)
+    for k in range(k_max):
+        key, payload = CheckpointManager(f"{root}/spynet/level_{k}").restore()
+        if key != 0 or not all(torch.equal(v, trained[f"unit_{k}"][n])
+                               for n, v in payload["params"].items()):
+            raise AssertionError(f"level {k}'s checkpoint differs from its trained head")
+    final = CheckpointManager(f"{root}/spynet/final").restore()[1]["params"]
+    if sorted(final) != [f"unit_{k}" for k in range(k_max)]:
+        raise AssertionError(f"final pyramid holds {sorted(final)}")
+    bs.reset_launch_counts()
+    t0 = time.perf_counter()
+    k = k_max - 1
+    resumed = spynet.run(load_config(overrides=spynet_overrides(root, f"train.start_k={k}")),
+                         device=device)
+    resume_s = time.perf_counter() - t0
+    gate_samples(f"resume at level {k}", spynet_step_launches(k, SPYNET_BATCH, steps=2))
+    for i in range(k):
+        if not all(torch.equal(v, trained[f"unit_{i}"][n]) for n, v in resumed[f"unit_{i}"].items()):
+            raise AssertionError(f"the resumed run's level {i} differs from the saved one")
+    log(f"  train.spynet.run: {k_max} levels in {run_s:.1f} s, checkpoints level_0 .. level_{k} "
+        f"and final written; start_k={k} restored levels 0-{k - 1} equal to those saved "
+        f"({resume_s:.1f} s)")
+
+    train_ds, _ = spynet.load_level_data(cfg, k, k_max - 1)
+    t0 = time.perf_counter()
+    train_ds[0]
+    sample_s = time.perf_counter() - t0
+    # the loader's host time a batch, apart from the step; its batch, pre-collated
+    # on the card, is the timed steps' input
+    loader = spynet.FlowLoader(train_ds, batch_size=SPYNET_BATCH, num_workers=8,
+                               device_put=to_device(device))
+    t0 = time.perf_counter()
+    (batch,) = list(loader)
+    torch.cuda.synchronize()
+    loader_ms = (time.perf_counter() - t0) * 1e3
+    log(f"  loader at level {k} (codec emulator at CRF 34, 8 threads): {loader_ms:.1f} ms a batch of "
+        f"{SPYNET_BATCH} ({1e3 * sample_s:.1f} ms a sample on one thread), on {card}'s host")
+    unit = SpyNetBasicModule()
+    unit.load_state_dict(trained[f"unit_{k}"])
+    unit.to(device).train()
+    pyramid = spynet.frozen_pyramid(cfg, k, trained, device)
+    grads = {}
+    for impl in ("fused", "plain"):
+        pyramid.sampler_impl = impl
+        unit.zero_grad(set_to_none=True)
+        loss, _ = spynet.level_forward(unit, pyramid, None, k, batch)
+        loss.backward()
+        grads[impl] = {n: p.grad.detach().clone() for n, p in unit.named_parameters()}
+    pyramid.sampler_impl = "fused"
+    worst = 0.0
+    for n, gk in grads["fused"].items():
+        gp = grads["plain"][n]
+        rel = float((gk - gp).abs().max()) / max(float(gp.abs().max()), 1e-30)
+        worst = max(worst, rel)
+        if not (rel <= 1e-4 and bool(torch.isfinite(gk).all()) and float(gp.abs().max()) > 0):
+            raise AssertionError(f"level-{k} gradient of {n}: {rel:.3e} of its max")
+    log(f"  level-{k} step gradients, kernel against plain route: worst {worst:.3e} of a tensor's "
+        "max (gate 1e-4)")
+
+    tx = build_tx(unit.parameters(), cfg.train.optimizer, cfg.train.get("scheduler"),
+                  cfg.train.get("gradient_clip_val"))
+    step = spynet.make_level_step(unit, pyramid, None, k, tx, train=True)
+    bs.reset_launch_counts()
+    step(batch)
+    gate_samples(f"one level-{k} step", spynet_step_launches(k, SPYNET_BATCH))
+    timing = {}
+    for on in (False, True):
+        before = tf32(on)
+        ms = median_ms(lambda: step(batch))
+        torch.cuda.reset_peak_memory_stats()
+        step(batch)
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        prof = profile_request(lambda: step(batch), ms / 1e3, top=6, ours=("bilinear_sample",))
+        tf32(before)
+        timing["tf32" if on else "fp32"] = {"step_ms": ms, "pairs_per_s": SPYNET_BATCH / ms * 1e3,
+                                            "peak_gib": peak, "profile": prof}
+        log(f"  level-{k} step ({'TF32 on' if on else 'TF32 off'}): {ms:.2f} ms, "
+            f"{SPYNET_BATCH / ms * 1e3:.2f} pairs/s, peak {peak:.2f} GiB"
+            + (f", device {prof['device_ms']:.2f} ms (busy {100 * prof['device_busy_share']:.1f} "
+               f"%), the sampler {prof['own_kernels_ms']:.3f} ms" if "wall_ms" in prof else ""))
+
+    cleaner = init_weights(IterativeRefinement(**CLEANER), torch.Generator().manual_seed(31))
+    CheckpointManager(f"{root}/cleaner").save(0, cleaner.state_dict())
+    shutil.copytree(f"{root}/spynet/level_0", f"{root}/spynet_clean/level_0")
+    ccfg = load_config(overrides=spynet_overrides(
+        root, "train.k=2", "train.start_k=1", f"train.checkpoint_dir={root}/spynet_clean",
+        f"train.cleaner_ckpt={root}/cleaner",
+        f"train.cleaner={{mid_channels: {CLEANER['mid_channels']}, blocks: {CLEANER['blocks']}}}"))
+    rp.reset_launch_counts()
+    bs.reset_launch_counts()
+    spynet.run(ccfg, device=device)
+    h1, w1 = spynet.GConf(1).image_size
+    # a cleaner call a step: 3 refinement steps x 20 units on both frames
+    per_call = 3 * CLEANER["blocks"]
+    gate_counts("level 1 with a cleaner (1 train + 1 val step)", pair_counts(),
+                {"taps": collections.Counter({(2 * SPYNET_BATCH, h1, w1, CLEANER["mid_channels"]):
+                                               2 * per_call})})
+    gate_samples("level 1 with a cleaner", spynet_step_launches(1, SPYNET_BATCH, steps=2))
+    seen = pair_counts()
+    return {"run_s": run_s, "resume_s": resume_s, "grad_worst_rel": worst, "step": timing,
+            "loader_ms_per_batch": loader_ms, "sample_ms_one_thread": 1e3 * sample_s,
+            "cleaner_pairs": seen, "samplers": want + spynet_step_launches(k, SPYNET_BATCH, 2)
+            + spynet_step_launches(1, SPYNET_BATCH, 2)}
+
+
+def irr_phase(device, card, root) -> dict:
+    """Phase 9 (e): ``IRRPWCNet`` (seeded) on one 384x512 pair: its warps
+    by shape and its flows with the kernel against the plain route."""
+    import cv2
+    import torch
+
+    from vsrlab_tpu_torch.data.datasets import load_frame
+    from vsrlab_tpu_torch.models.flow import IRRPWCNet
+    from vsrlab_tpu_torch.nn.blocks import init_weights
+    from vsrlab_tpu_torch.ops import bilinear_sample as bs
+
+    h, w = FLOW_PAIR
+    clip = os.path.join(root, "frames", "clip")
+    a, b = (torch.from_numpy(cv2.resize(load_frame(os.path.join(clip, f)), (w, h))[None]).to(device)
+            for f in sorted(os.listdir(clip))[:2])
+    model = init_weights(IRRPWCNet(), torch.Generator().manual_seed(13)).to(device).eval()
+    bs.reset_launch_counts()
+    with torch.no_grad():
+        flows_k = model(a, b)
+        gate_samples("IRR-PWC forward", irr_launches(h, w, model.output_level))
+        model.sampler_impl = "plain"
+        flows_p = model(a, b)
+        model.sampler_impl = "fused"
+        ms = median_ms(lambda: model(a, b), n=5, warmup=2)
+    d = max(float((fk - fp).abs().max()) for fk, fp in zip(flows_k[0] + flows_k[1],
+                                                          flows_p[0] + flows_p[1]))
+    finite = all(bool(torch.isfinite(f).all()) for f in flows_k[0] + flows_k[1])
+    log(f"  IRR-PWC {h}x{w}: {sum(irr_launches(h, w).values())} warps, max |kernel - plain| = "
+        f"{d:.3e} px over both directions' 4 levels (gate 1e-3), {ms:.2f} ms a pair on {card}")
+    if not (d <= 1e-3 and finite):
+        raise AssertionError("IRR-PWC flows with the kernel differ from the plain route's")
+    return {"max_abs_diff_plain_px": d, "ms_per_pair": ms, "samplers": irr_launches(h, w)}
+
+
+def flow_phase(device, card):
+    """Phase 9. Returns the sampler's launches by shape over the phase's
+    main path (teacher, consistency loss, curriculum, IRR-PWC; fp32) and the
+    residual pair's (the cleaner's, fp32), with the phase's record."""
+    import collections
+    import shutil
+
+    import torch
+
+    root = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "chip_smoke_flow")
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    torch.backends.cudnn.allow_tf32 = False
+    record = {"card": card}
+    log("  (a) the sampler's gradient (BilinearSample) against autograd through the plain version")
+    record["sample_grads"] = sample_grad_phase(device)
+    samplers = collections.Counter()
+    h, w = FLOW_PAIR
+    log(f"  (b) the RAFT teacher: create_flow_dataset at {h}x{w}, a surrogate raft-small")
+    record["teacher"] = teacher_phase(device, card, root)
+    samplers += raft_launches(1, h, w, forwards=2)
+    log(f"  (c) OpticalFlowConsistency on SR / HR clips {OFC_CLIP}")
+    record["consistency"] = consistency_phase(device, card)
+    b, t, ch, cw, _ = OFC_CLIP
+    samplers += raft_launches(b * (t - 1), ch, cw, forwards=2)
+    log(f"  (d) train.spynet.run: the full curriculum (k = {SPYNET_K}, batch {SPYNET_BATCH}, one "
+        "epoch a level)")
+    spy = spynet_phase(device, card, root)
+    samplers += spy.pop("samplers")
+    pairs = spy.pop("cleaner_pairs")
+    record["spynet"] = spy
+    log(f"  (e) IRR-PWC on one {h}x{w} pair")
+    irr = irr_phase(device, card, root)
+    samplers += irr.pop("samplers")
+    record["irr"] = irr
+    log(json.dumps({"flow": record}, default=str))
+    return samplers, pairs
+
+
 def pair_counts() -> dict:
     """Each residual-pair kernel's launches by input shape so far."""
     from vsrlab_tpu_torch.ops.residual_pair import PAIR_IMPLS
@@ -2405,15 +3082,25 @@ def main() -> int:
         pair_launches[form] += by_shape
     torch.cuda.empty_cache()
 
+    log("phase 9: the flow paths (RAFT teacher, OpticalFlowConsistency, the SpyNet curriculum, "
+        "IRR-PWC; fp32)")
+    flow_samplers, flow_pairs = flow_phase(device, card)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.cuda.empty_cache()
+
     log("phase 6: each kernel at its paths' shapes")
     kernels = []
     for form, (name, replaces) in KERNELS.items():
         err, rows = time_kernel(form, pair_launches[form], device)
+        if flow_pairs[form]:  # the flow trainer's cleaner runs the fp32 kernel
+            rows += time_kernel(form, flow_pairs[form], device, torch.float32)[1]
         kernels.append({"name": name, "route": "cuda", "source": SOURCE, "replaces": replaces,
                         **kernel_summary(rows, err, errs[form])})
     timers = {"bilinear_sample": time_sampler, "packed_row_gather": time_gather}
     for name, (source, replaces, also) in VRT_KERNELS.items():
         err, rows = timers[name](vrt_launches[name], device)
+        if name == "bilinear_sample":  # the flow paths' launches, fp32
+            rows += time_sampler(flow_samplers, device, torch.float32)[1]
         kernels.append({"name": name, "route": "cuda", "source": source, "replaces": replaces,
                         "also_replaces": also, **kernel_summary(rows, err, vrt_errs[name])})
     pair_host_split(device)

@@ -106,8 +106,12 @@ def test_non_finite_coordinates_give_zero_in_zeros_mode(rng, dtype):
 def test_bilinear_sample_refuses_what_the_kernel_does_not_take():
     x = torch.zeros((2, 4, 5, 3))
     ix = torch.zeros((2, 6))
-    with pytest.raises(ValueError, match="forward-only"):
-        bs.bilinear_sample(x.clone().requires_grad_(), ix, ix, True)
+    # under grad a CPU call is autograd through the plain version, checked as
+    # any other call
+    out = bs.bilinear_sample(x.clone().requires_grad_(), ix, ix, True)
+    assert out.grad_fn is not None
+    with pytest.raises(ValueError, match="fp32"):
+        bs.bilinear_sample(x.clone().requires_grad_(), ix.double(), ix, True)
     with pytest.raises(ValueError, match=r"\(N, P\)"):
         bs.bilinear_sample(x, ix[:1], ix[:1], True)
     with pytest.raises(ValueError, match=r"\(N, P\)"):

@@ -356,6 +356,48 @@ def test_packed_sampler_matches_four_corner_on_the_card(cuda, impl, size):
     assert wrapper.launches == before + 2
 
 
+@pytest.mark.parametrize("c", [1, 3, 4, 8, 10])
+def test_bilinear_sample_fp32_is_the_plain_version_bit_for_bit(cuda, c):
+    """In fp32 the kernel rounds each corner's product before the sum, as
+    the plain version does: the two agree in every bit (fast and generic
+    paths, zeros and border)."""
+    g = torch.Generator().manual_seed(c)
+    x = torch.randn((5, 17, 23, c), generator=g).to(cuda)
+    ix = (torch.rand((5, 300), generator=g) * 27 - 2).to(cuda)
+    iy = (torch.rand((5, 300), generator=g) * 21 - 2).to(cuda)
+    for zeros in (True, False):
+        if not zeros:
+            ix, iy = ix.clamp(0, 22), iy.clamp(0, 16)
+        got = bs.bilinear_sample(x, ix, iy, zeros)
+        assert torch.equal(got, bs.bilinear_sample_plain(x, ix, iy, zeros))
+
+
+@pytest.mark.parametrize("zeros", [True, False])
+@pytest.mark.parametrize("shape", [(96, 12, 16, 1, 49), (6, 9, 13, 3, 117), (4, 16, 16, 10, 256)])
+def test_bilinear_sample_gradient_matches_autograd_through_plain(cuda, shape, zeros):
+    """``BilinearSample`` (the kernel forward, ``sample_grads`` backward)
+    against autograd through the plain version, fp32 at 1e-4: the output,
+    ``dx`` and both coordinate gradients; one kernel launch a forward."""
+    n, h, w, c, p = shape
+    g = torch.Generator().manual_seed(2)
+    x = torch.randn((n, h, w, c), generator=g).to(cuda)
+    ix = (torch.rand((n, p), generator=g) * (w + 4) - 2).to(cuda)
+    iy = (torch.rand((n, p), generator=g) * (h + 4) - 2).to(cuda)
+    if not zeros:
+        ix, iy = ix.clamp(0, w - 1), iy.clamp(0, h - 1)
+    gout = torch.randn((n, p, c), generator=g).to(cuda)
+    res = []
+    for fn in (bs.bilinear_sample, bs.bilinear_sample_plain):
+        leaves = [t.clone().requires_grad_() for t in (x, ix, iy)]
+        before = bs.bilinear_sample.launches
+        out = fn(*leaves, zeros)
+        out.backward(gout)
+        res.append([out.detach()] + [t.grad for t in leaves])
+        assert bs.bilinear_sample.launches == before + (fn is bs.bilinear_sample)
+    for a, b in zip(*res):
+        torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-4 * float(b.abs().max()))
+
+
 def test_packed_kernels_refuse_what_they_do_not_take(cuda):
     xf, fields = _packed_operands(2, 6, 8, 4, 2, torch.bfloat16, cuda)
     x = torch.randn((2, 6, 8, 4), device=cuda).bfloat16()
@@ -373,6 +415,9 @@ def test_packed_kernels_refuse_what_they_do_not_take(cuda):
         bs.bilinear_sample(x.transpose(1, 2), ix, ix, True)
     with pytest.raises(ValueError, match="one CUDA device"):
         bs.bilinear_sample(x, ix, ix.cpu(), True)
-    with pytest.raises(ValueError, match="forward-only"):
-        bs.bilinear_sample(x, ix.clone().requires_grad_(), ix, True)
+    # the gradient route (BilinearSample) refuses what the kernel does not take
+    with pytest.raises(ValueError, match="bf16 or fp32"):
+        bs.bilinear_sample(x.half(), ix.clone().requires_grad_(), ix, True)
+    with pytest.raises(ValueError, match="one CUDA device"):
+        bs.bilinear_sample(x, ix.clone().requires_grad_(), ix.cpu(), True)
     assert (pg.packed_row_gather.launches, bs.bilinear_sample.launches) == before

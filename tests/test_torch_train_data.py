@@ -56,13 +56,18 @@ def test_registry_builds_this_slice_and_names_the_slice_of_the_rest():
     vrt = instantiate({"_target_": "TinyVRT", "window_size": [2, 4, 4], "depths": [1] * 7,
                        "embed_dims": [8] * 7, "num_heads": [2] * 7, "deformable_groups": 2})
     assert isinstance(vrt, TinyVRT)
-    # the GAN slice's names build; the flow slice's name it
+    # the GAN slice's names build, and the flow slice's; wandb is named as not ported
     assert isinstance(instantiate({"_target_": "UNetDiscriminator", "mid_channels": 8}),
                       UNetDiscriminator)
     assert isinstance(instantiate({"_target_": "vsrlab.core.losses.PerceptualLoss"}),
                       PerceptualLoss)
-    for name, slice_ in (("RAFT", "flow"), ("EPELoss", "flow"), ("OpticalFlowConsistency", "flow")):
-        with pytest.raises(KeyError, match=slice_):
+    from vsrlab_tpu_torch.core.losses import OpticalFlowConsistency, epe_loss
+    from vsrlab_tpu_torch.models.flow import RAFT
+    assert isinstance(instantiate({"_target_": "RAFT", "iters": 2}), RAFT)
+    assert instantiate({"_target_": "EPELoss"}) is epe_loss
+    assert isinstance(instantiate({"_target_": "OpticalFlowConsistency"}), OpticalFlowConsistency)
+    for name in ("WandbLogger", "vsrlab.core.loggers.WandbLogger"):
+        with pytest.raises(KeyError, match="wandb is not ported"):
             instantiate({"_target_": name})
     with pytest.raises(KeyError, match="unknown _target_"):
         instantiate({"_target_": "NoSuchThing"})

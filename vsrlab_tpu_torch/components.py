@@ -1,7 +1,8 @@
 """Component registry of the port: the ``_target_`` names a config
 instantiates (supervised RealBasicVSR / BasicVSR training; GAN fine-tuning
 with its discriminator and losses; VRT / TinyVRT, which the serving entry
-points rebuild from a run's config snapshot).
+points rebuild from a run's config snapshot; the optical-flow models,
+datasets and losses).
 
 Importing this module fills :data:`vsrlab_tpu_torch.core.config.REGISTRY`.
 Names the JAX package's configs use for components the port does not have
@@ -15,11 +16,13 @@ import functools
 from vsrlab_tpu_torch.core.config import NOT_PORTED, register
 from vsrlab_tpu_torch.core.loggers import JsonlLogger, build_logger
 from vsrlab_tpu_torch.core.losses import (
-    LossPipeline, adversarial_loss, charbonnier_loss, l1_loss)
+    LossPipeline, OpticalFlowConsistency, adversarial_loss, charbonnier_loss, epe_loss, l1_loss)
 from vsrlab_tpu_torch.core.metrics import MetricCollection
 from vsrlab_tpu_torch.core.perceptual import PerceptualLoss
 from vsrlab_tpu_torch.data import DatasetVSR, SyntheticVSR, ValDatasetVSR, VideoDatasetVSR
-from vsrlab_tpu_torch.models import VRT, BasicVSR, RealBasicVSR, TinyVRT, UNetDiscriminator
+from vsrlab_tpu_torch.data.flow_dataset import FlowDataset, SyntheticFlowDataset
+from vsrlab_tpu_torch.models import VRT, BasicVSR, RealBasicVSR, SpyNet, TinyVRT, UNetDiscriminator
+from vsrlab_tpu_torch.models.flow import RAFT, IRRPWCNet, SpyNetProgressive
 
 register("RealBasicVSR", RealBasicVSR)
 register("BasicVSR", BasicVSR)
@@ -31,6 +34,12 @@ register("VideoDatasetVSR", VideoDatasetVSR)
 register("VRT", VRT)
 register("TinyVRT", TinyVRT)
 register("SyntheticVSR", SyntheticVSR)
+register("SpyNet", SpyNet)
+register("RAFT", RAFT)
+register("IRRPWCNet", IRRPWCNet)
+register("SpyNetProgressive", SpyNetProgressive)
+register("FlowDataset", FlowDataset)
+register("SyntheticFlowDataset", SyntheticFlowDataset)
 register("UNetDiscriminator", UNetDiscriminator)
 register("MetricCollection", MetricCollection)
 register("Logger", build_logger)
@@ -52,6 +61,8 @@ for _prefix in ("", "vsrlab.core.losses."):
     register(f"{_prefix}CharbonnierLoss", _charbonnier)
 register("WL1Loss", lambda weight=1.0: lambda x, y: l1_loss(x, y, weight))
 register("LossPipeline", LossPipeline)
+register("EPELoss", lambda: epe_loss)
+register("OpticalFlowConsistency", OpticalFlowConsistency)
 
 
 def _spec(name: str, **kw) -> tuple:
@@ -63,11 +74,7 @@ def _spec(name: str, **kw) -> tuple:
 for _name in ("adam", "adamw", "sgd", "cosine", "cosine_warmup"):
     register(_name, functools.partial(_spec, _name))
 
-_FLOW = "the flow slice (ROADMAP queue 1, item 5)"
 NOT_PORTED.update({
-    "SpyNet": _FLOW, "RAFT": _FLOW, "IRRPWCNet": _FLOW, "SpyNetProgressive": _FLOW,
-    "FlowDataset": _FLOW, "SyntheticFlowDataset": _FLOW, "EPELoss": _FLOW,
-    "OpticalFlowConsistency": _FLOW,
     "WandbLogger": "no slice: wandb is not ported", "vsrlab.core.loggers.WandbLogger":
     "no slice: wandb is not ported",
 })

@@ -18,6 +18,9 @@ params)``), with the paths that ``vsrlab_tpu``'s ``init`` produces:
   its spectral-norm state from the ``batch_stats`` collection into each
   conv's ``u`` / ``sigma`` buffers; the perceptual VGG19
   (:func:`vgg19_state_dict`) is a list of ``conv_{i}`` convs.
+* the flow models: RAFT (:func:`raft_state_dict`) takes the reference
+  checkpoint's names, IRR-PWC keeps flax's, the progressive SpyNet's
+  ``unit_{k}`` become ``units.{k}``.
 
 Each ``*_state_dict`` function returns a flat ``{name: tensor}`` dict for
 ``load_state_dict(..., strict=True)`` of the matching port module.
@@ -154,6 +157,55 @@ def vgg19_state_dict(params: Tree) -> dict:
     out = {}
     for name, conv in params.items():
         out.update(conv_state_dict(conv, f"{name}."))
+    return out
+
+
+def _conv_tree_state_dict(p: Tree, prefix: str = "", rename=lambda name: name) -> dict:
+    """A tree whose leaves are flax ``nn.Conv`` nodes (``{kernel, bias}``)
+    -> ``{path.weight, path.bias}``, each path component through ``rename``."""
+    out = {}
+    for name, sub in p.items():
+        if "kernel" in sub:
+            out.update(conv_state_dict(sub, f"{prefix}{rename(name)}."))
+        else:
+            out.update(_conv_tree_state_dict(sub, f"{prefix}{rename(name)}.", rename))
+    return out
+
+
+def _raft_name(name: str) -> str:
+    """flax's ``layer1_0`` / ``downsample`` -> the reference's ``layer1.0`` /
+    ``downsample.0``."""
+    if name.startswith("layer") and "_" in name:
+        return name.replace("_", ".")
+    return "downsample.0" if name == "downsample" else name
+
+
+def raft_state_dict(params: Tree) -> dict:
+    """``RAFT`` params (small or basic) -> the port's ``state_dict``, whose
+    names are the reference checkpoint's (``fnet.layer1.0.conv1.weight``,
+    ``update_block.gru.convz.weight``, ...)."""
+    return _conv_tree_state_dict(params, rename=_raft_name)
+
+
+def irr_pwc_state_dict(params: Tree) -> dict:
+    """``IRRPWCNet`` params -> the port's ``state_dict`` (flax's names)."""
+    return _conv_tree_state_dict(params)
+
+
+def spynet_progressive_state_dict(params: Tree) -> dict:
+    """``SpyNetProgressive`` params (``unit_{k}/conv_{j}/Conv_0``) -> the
+    port's ``state_dict`` (``units.{k}.convs.{j}``); the units present."""
+    out = {}
+    for name, unit in params.items():
+        out.update(spynet_unit_state_dict(unit, f"units.{int(name.split('_')[1])}."))
+    return out
+
+
+def spynet_unit_state_dict(params: Tree, prefix: str = "") -> dict:
+    """One ``SpyNetBasicModule`` (``conv_{j}/Conv_0``) -> ``{prefix}convs.{j}``."""
+    out = {}
+    for j in range(len(params)):
+        out.update(conv_state_dict(params[f"conv_{j}"]["Conv_0"], f"{prefix}convs.{j}."))
     return out
 
 

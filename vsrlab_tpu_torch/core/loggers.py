@@ -1,8 +1,8 @@
-"""Experiment logging (port of ``vsrlab_tpu/core/loggers.py:48-136, 205-214``).
+"""Experiment logging (port of ``vsrlab_tpu/core/loggers.py:33-136, 205-214``).
 
 :class:`JsonlLogger` writes scalars to ``<save_dir>/<project>/<id>/metrics.jsonl``
-and image grids to PNGs under ``media/`` (with OpenCV; without it the
-grids are skipped). :func:`build_logger` gives it for ``backend: auto``
+and image grids (frames, or flows as :func:`flow_to_image` colours them) to
+PNGs under ``media/`` (with OpenCV; without it the grids are skipped). :func:`build_logger` gives it for ``backend: auto``
 and ``jsonl``; the wandb backend is not ported.
 """
 
@@ -14,6 +14,23 @@ from pathlib import Path
 from typing import Dict, Optional
 
 import numpy as np
+
+
+def flow_to_image(flow: np.ndarray) -> np.ndarray:
+    """A ``(H, W, 2)`` flow as an RGB uint8 image on the HSV wheel: hue the
+    direction, value the magnitude over the largest (OpenCV's HSV -> RGB;
+    without OpenCV the grey value image)."""
+    dx, dy = flow[..., 0], flow[..., 1]
+    mag = np.sqrt(dx * dx + dy * dy)
+    ang = (np.arctan2(dy, dx) + np.pi) / (2 * np.pi)
+    maxmag = max(float(mag.max()), 1e-6)
+    hsv = np.stack([ang * 179.0, np.full_like(ang, 255.0),
+                    np.clip(mag / maxmag, 0, 1) * 255.0], axis=-1).astype(np.uint8)
+    try:
+        import cv2
+    except ImportError:  # no OpenCV: the value channel as grey
+        return np.repeat(hsv[..., 2:3], 3, axis=-1)
+    return cv2.cvtColor(hsv, cv2.COLOR_HSV2RGB)
 
 
 def _make_grid(frames: np.ndarray, nrow: int = 8, pad: int = 2) -> np.ndarray:
@@ -68,6 +85,23 @@ class JsonlLogger:
                 arr = arr.reshape((-1,) + arr.shape[2:])
             cv2.imwrite(str(self.dir / "media" / f"{key}_{stage}_{epoch}.png"),
                         _make_grid(arr)[..., ::-1])
+
+    def log_flow(self, epoch: int, stage: str = "Train", **flows):
+        """``flows``: name -> ``(N, H, W, 2)`` or ``(B, T, H, W, 2)`` flows,
+        each written as one grid of :func:`flow_to_image` images."""
+        try:
+            import cv2
+        except ImportError:  # no OpenCV: no grids
+            return
+        for key, flow in flows.items():
+            if flow is None:
+                continue
+            arr = np.asarray(flow, np.float32)
+            if arr.ndim == 5:
+                arr = arr.reshape((-1,) + arr.shape[2:])
+            imgs = np.stack([flow_to_image(f) for f in arr]).astype(np.float32) / 255.0
+            cv2.imwrite(str(self.dir / "media" / f"{key}_{stage}_{epoch}.png"),
+                        _make_grid(imgs)[..., ::-1])
 
     def save(self, path: str):
         """Note a checkpoint artifact."""

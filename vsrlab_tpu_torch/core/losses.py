@@ -2,17 +2,19 @@
 
 Each pixel loss takes two tensors of one shape, computes in fp32 and
 returns a 0-d fp32 tensor. The perceptual VGG loss, which carries
-parameters, lives in :mod:`vsrlab_tpu_torch.core.perceptual`. The
-optical-flow losses (``epe_loss``, ``OpticalFlowConsistency``) belong to
-the flow slice.
+parameters, lives in :mod:`vsrlab_tpu_torch.core.perceptual`; the
+optical-flow consistency loss holds a frozen RAFT-small.
 """
 
 from __future__ import annotations
 
+import os
 from typing import Callable, Dict, List, Optional
 
 import torch
 
+from vsrlab_tpu_torch.models.flow.raft import RAFT, load_raft_state_dict
+from vsrlab_tpu_torch.nn.blocks import init_weights
 from vsrlab_tpu_torch.ops.resize import resize_bilinear
 
 
@@ -32,6 +34,13 @@ def rmse_loss(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
     """Root-mean-square error."""
     diff = x.float() - y.float()
     return torch.sqrt((diff * diff).mean())
+
+
+def epe_loss(pred: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
+    """End-point error of ``(..., 2)`` flows: the mean over pixels of the L2
+    norm of the difference (``+1e-16`` under the root)."""
+    diff = pred.float() - target.float()
+    return torch.sqrt((diff * diff).sum(-1) + 1e-16).mean()
 
 
 def bce_with_logits(logits: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
@@ -99,3 +108,43 @@ class LossPipeline:
     @staticmethod
     def _match(matching, target):
         return resize_bilinear(matching, target.shape[-3:-1]), target
+
+
+class OpticalFlowConsistency:
+    """L1 between the flows a frozen RAFT-small (``scale_factor=8``)
+    computes on adjacent frame pairs of the SR and of the HR clip
+    ``(B, T, H, W, 3)``, times ``weight``.
+
+    The RAFT loads ``raft_ckpt`` (a reference checkpoint, such as
+    ``raft-small.pth``) where that file exists; else it is a random
+    RAFT-small drawn from ``torch.Generator().manual_seed(0)`` (torch's
+    conv init), which is not the JAX package's ``PRNGKey(0)`` He-normal
+    init: carry those weights over with ``convert.raft_state_dict`` to
+    compare the two. Its parameters take no gradient. The HR branch runs
+    without a gradient, the SR branch under one: RAFT's correlation
+    lookups then run as ``BilinearSample`` (the sampler kernel forward,
+    PyTorch ops backward). The model moves to the SR clip's device at the
+    first call."""
+
+    def __init__(self, weight: float = 1.0, raft_ckpt: Optional[str] = None):
+        self.weight = float(weight)
+        self.model = RAFT(small=True, scale_factor=8)
+        if raft_ckpt and os.path.exists(raft_ckpt):
+            load_raft_state_dict(self.model, torch.load(raft_ckpt, map_location="cpu",
+                                                        weights_only=True))
+        else:
+            init_weights(self.model, torch.Generator().manual_seed(0))
+        self.model.eval().requires_grad_(False)
+
+    def _flows(self, clip: torch.Tensor) -> torch.Tensor:
+        b, t, h, w, c = clip.shape
+        img1 = clip[:, :-1].reshape(-1, h, w, c)
+        img2 = clip[:, 1:].reshape(-1, h, w, c)
+        return self.model(img2, img1)
+
+    def __call__(self, sr: torch.Tensor, hr: torch.Tensor) -> torch.Tensor:
+        self.model.to(sr.device)
+        flow_sr = self._flows(sr)
+        with torch.no_grad():
+            flow_hr = self._flows(hr)
+        return l1_loss(flow_sr, flow_hr) * self.weight

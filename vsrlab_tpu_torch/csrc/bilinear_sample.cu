@@ -5,7 +5,8 @@
 //                    of (wy * wx) * x[i, y, x, :]
 //
 // with x0 = floor(ix[i, p]), wx1 = ix - x0, wx0 = 1 - wx1 and the same for y,
-// summed in fp32 in that order and rounded to x's type once.
+// summed in fp32 in that order (each term rounded, then added: no fused
+// multiply-add) and rounded to x's type once.
 //
 // Replaces the Pallas TPU kernel pallas_fused of
 // scripts/bench_pallas_deform_gather.py (_fused_kernel and pallas_fused, lines
@@ -85,6 +86,15 @@ template <typename T> __device__ __forceinline__ T from_float(float v);
 template <> __device__ __forceinline__ float from_float<float>(float v) { return v; }
 template <> __device__ __forceinline__ bf16 from_float<bf16>(float v) {
   return __float2bfloat16_rn(v);
+}
+
+// acc + w * v with the product rounded before the sum, never one fused
+// multiply-add: the plain version's arithmetic (a product, then a sum), so
+// that the kernel's result is the plain version's bit for bit in fp32. A
+// recurrence over sampled values (RAFT's 12 lookups a forward) then follows
+// the same path with either sampler.
+__device__ __forceinline__ float add_term(float acc, float w, float v) {
+  return __fadd_rn(acc, __fmul_rn(w, v));
 }
 
 // One axis of a sample: the corners' weights, whether each is read, and
@@ -193,7 +203,7 @@ __device__ __forceinline__ void fold_row(const uint32_t (&span)[2 * WP], float w
     if (!vx[k]) continue;
     const float wgt = wy * wx[k];
 #pragma unroll
-    for (int c = 0; c < C; ++c) acc[c] = fmaf(wgt, slot[k] ? p1[c] : p0[c], acc[c]);
+    for (int c = 0; c < C; ++c) acc[c] = add_term(acc[c], wgt, slot[k] ? p1[c] : p0[c]);
   }
 }
 
@@ -285,17 +295,18 @@ __global__ void __launch_bounds__(NTHREADS)
   }
 }
 
-// The generic path: any C, any alignment, any W. One thread a pixel, one
-// channel at a time, element loads through the read-only path.
+// The generic path: any C, any alignment, any W. One thread a sample, one
+// channel at a time, element loads through the read-only path. The threads
+// run over the N*P samples as one sequence, so that a launch of many images
+// of few samples each (RAFT's lookups: 49 an image) fills its CTAs.
 template <typename T>
 __global__ void __launch_bounds__(NTHREADS)
     bilinear_sample_generic_kernel(const T* __restrict__ x, const float* __restrict__ ix,
                                    const float* __restrict__ iy, T* __restrict__ out, int H,
-                                   int W, int C, int P, int tiles, bool zeros) {
-  const int img = blockIdx.x / tiles;
-  const int64_t p = static_cast<int64_t>(blockIdx.x - img * tiles) * NTHREADS + threadIdx.x;
-  if (p >= P) return;
-  const int64_t m = static_cast<int64_t>(img) * P + p;
+                                   int W, int C, int P, int64_t total, bool zeros) {
+  const int64_t m = static_cast<int64_t>(blockIdx.x) * NTHREADS + threadIdx.x;
+  if (m >= total) return;
+  const int64_t img = m / P;
   const Axis ax = axis(__ldg(ix + m), W, zeros), ay = axis(__ldg(iy + m), H, zeros);
   const float wx[2] = {ax.w0, ax.w1}, wy[2] = {ay.w0, ay.w1};
   const bool vx[2] = {ax.v0, ax.v1}, vy[2] = {ay.v0, ay.v1};
@@ -310,18 +321,11 @@ __global__ void __launch_bounds__(NTHREADS)
       for (int k = 0; k < 2; ++k) {
         if (!vx[k]) continue;
         const int64_t e = (img_pix + static_cast<int64_t>(ys[r]) * W + xs[k]) * C + c;
-        acc = fmaf(wy[r] * wx[k], to_float(x[e]), acc);
+        acc = add_term(acc, wy[r] * wx[k], to_float(x[e]));
       }
     }
     out[m * C + c] = from_float<T>(acc);
   }
-}
-
-// CTAs for N images of P pixels, `per` pixels a CTA; 0 if the grid would not fit.
-int64_t grid_ctas(int N, int P, int per, int* tiles) {
-  *tiles = (P + per - 1) / per;
-  const int64_t ctas = static_cast<int64_t>(N) * *tiles;
-  return ctas <= 2147483647LL ? ctas : 0;
 }
 
 template <typename T, int C>
@@ -355,12 +359,12 @@ int launch(const void* x, const void* ix, const void* iy, void* out, int N, int 
     case 10: return launch_fast<T, 10>(x, ix, iy, out, N, H, W, P, zeros != 0, s);
     default: break;
   }
-  int tiles;
-  const int64_t ctas = grid_ctas(N, P, NTHREADS, &tiles);
-  if (ctas == 0) return static_cast<int>(cudaErrorInvalidConfiguration);
+  const int64_t total = static_cast<int64_t>(N) * P;
+  const int64_t ctas = (total + NTHREADS - 1) / NTHREADS;
+  if (ctas > 2147483647LL) return static_cast<int>(cudaErrorInvalidConfiguration);
   bilinear_sample_generic_kernel<T><<<static_cast<unsigned>(ctas), NTHREADS, 0, s>>>(
       static_cast<const T*>(x), static_cast<const float*>(ix), static_cast<const float*>(iy),
-      static_cast<T*>(out), H, W, C, P, tiles, zeros != 0);
+      static_cast<T*>(out), H, W, C, P, total, zeros != 0);
   return static_cast<int>(cudaGetLastError());
 }
 

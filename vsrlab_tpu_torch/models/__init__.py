@@ -1,5 +1,5 @@
-"""Models of the port: RealBasicVSR, BasicVSR, SpyNet, VRT, TinyVRT and the GAN's
-UNetDiscriminator."""
+"""Models of the port: RealBasicVSR, BasicVSR, SpyNet, VRT, TinyVRT, the GAN's
+UNetDiscriminator; the optical-flow models are in :mod:`vsrlab_tpu_torch.models.flow`."""
 
 from vsrlab_tpu_torch.models.basicvsr import BasicVSR
 from vsrlab_tpu_torch.models.realbasicvsr import RealBasicVSR

@@ -44,16 +44,18 @@ from vsrlab_tpu_torch.ops.warp import SAMPLER_IMPLS
 
 
 class Conv2d(nn.Module):
-    """2-D conv with torch-default init, on ``(N, H, W, C)``."""
+    """2-D conv with torch-default init, on ``(N, H, W, C)``; ``kernel_size``
+    and ``padding`` an int or an ``(h, w)`` pair."""
 
-    def __init__(self, in_channels: int, out_channels: int, kernel_size: int = 3,
-                 stride: int = 1, padding: int = 1, dtype: torch.dtype | None = None,
-                 zero_init: bool = False):
+    def __init__(self, in_channels: int, out_channels: int, kernel_size=3,
+                 stride: int = 1, padding=1, dtype: torch.dtype | None = None,
+                 zero_init: bool = False, dilation: int = 1):
         super().__init__()
         self.stride, self.padding, self.dtype = stride, padding, dtype
+        self.dilation = dilation
         self.zero_init = zero_init
-        self.weight = nn.Parameter(
-            torch.empty(out_channels, in_channels, kernel_size, kernel_size))
+        kh, kw = (kernel_size, kernel_size) if isinstance(kernel_size, int) else kernel_size
+        self.weight = nn.Parameter(torch.empty(out_channels, in_channels, kh, kw))
         self.bias = nn.Parameter(torch.empty(out_channels))
         self.reset_parameters()
 
@@ -70,7 +72,7 @@ class Conv2d(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         dt = self.compute_dtype(x)
         y = F.conv2d(x.to(dt).permute(0, 3, 1, 2), self.weight.to(dt), self.bias.to(dt),
-                     self.stride, self.padding)
+                     self.stride, self.padding, self.dilation)
         return y.permute(0, 2, 3, 1)
 
 

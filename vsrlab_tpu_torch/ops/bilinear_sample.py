@@ -19,8 +19,10 @@ It is the counterpart of ``pallas_fused`` of
 kernel reads a packed-window table and seven per-pixel fields.
 :func:`bilinear_sample_plain` is the plain PyTorch version. The wrapper
 given a CPU tensor returns the plain version; given a CUDA tensor it
-launches the kernel or raises. It is forward-only and raises on an input
-that requires grad. It counts its kernel launches in
+launches the kernel or raises. Where an input requires grad (and grad mode
+is on), a CUDA call runs as :class:`BilinearSample`: the same kernel
+launch forward, and :func:`sample_grads`, PyTorch ops, backward; a CPU call
+is autograd through the plain version. It counts its kernel launches in
 ``bilinear_sample.launches``, and by shape in ``launches_by_shape`` (a
 ``Counter`` of ``(N, H, W, C, P)``); :func:`reset_launch_counts` zeroes
 both.
@@ -56,12 +58,15 @@ def _axis(coord, size: int, zeros: bool):
 def bilinear_sample_plain(x: torch.Tensor, ix: torch.Tensor, iy: torch.Tensor,
                           zeros: bool) -> torch.Tensor:
     """Plain PyTorch version: four gathers of whole pixels, weighted and
-    summed in fp32, rounded to ``x.dtype`` once."""
+    summed in fp32 (fp64 for an fp64 image: the exact reference that the
+    gradient checks hold :func:`sample_grads` against), rounded to
+    ``x.dtype`` once."""
     n, h, w, c = x.shape
-    xf = x.reshape(n, h * w, c).float()
-    xi, wx, vx = _axis(ix.float(), w, zeros)
-    yi, wy, vy = _axis(iy.float(), h, zeros)
-    out = torch.zeros((n, ix.shape[1], c), device=x.device)
+    acc = torch.float64 if x.dtype == torch.float64 else torch.float32
+    xf = x.reshape(n, h * w, c).to(acc)
+    xi, wx, vx = _axis(ix.to(acc), w, zeros)
+    yi, wy, vy = _axis(iy.to(acc), h, zeros)
+    out = torch.zeros((n, ix.shape[1], c), dtype=acc, device=x.device)
     for r in range(2):
         for k in range(2):
             lin = (yi[r] * w + xi[k])[..., None].expand(-1, -1, c)
@@ -89,8 +94,6 @@ def _check_shapes(x, ix, iy) -> None:
 def _check(x, ix, iy) -> None:
     name = "bilinear_sample"
     tensors = (x, ix, iy)
-    if any(t.requires_grad for t in tensors):
-        raise ValueError(f"{name} is forward-only: an input requires grad")
     _check_shapes(x, ix, iy)
     if x.device.type == "cpu" and all(t.device.type == "cpu" for t in tensors):
         return
@@ -127,6 +130,11 @@ def bilinear_sample(x: torch.Tensor, ix: torch.Tensor, iy: torch.Tensor,
     ``vsrlab::bilinear_sample``)."""
     if torch.compiler.is_exporting():
         return torch.ops.vsrlab.bilinear_sample(x, ix, iy, zeros)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (x, ix, iy)):
+        _check(x, ix, iy)
+        if x.device.type == "cpu":
+            return bilinear_sample_plain(x, ix, iy, zeros)
+        return BilinearSample.apply(x, ix, iy, zeros)
     return _sample(x, ix, iy, zeros)
 
 
@@ -134,6 +142,11 @@ def _sample(x, ix, iy, zeros: bool) -> torch.Tensor:
     _check(x, ix, iy)
     if x.device.type == "cpu":
         return bilinear_sample_plain(x, ix, iy, zeros)
+    return _launch(x, ix, iy, zeros)
+
+
+def _launch(x, ix, iy, zeros: bool) -> torch.Tensor:
+    """One launch of the kernel on checked CUDA operands, counted."""
     n, h, w, c = x.shape
     p = ix.shape[1]
     out = torch.empty((n, p, c), dtype=x.dtype, device=x.device)
@@ -146,6 +159,75 @@ def _sample(x, ix, iy, zeros: bool) -> torch.Tensor:
     bilinear_sample.launches += 1
     bilinear_sample.launches_by_shape[(n, h, w, c, p)] += 1
     return out
+
+
+def sample_grads(x: torch.Tensor, ix: torch.Tensor, iy: torch.Tensor, zeros: bool,
+                 g: torch.Tensor, need_coords: bool = True):
+    """The sampler's vector-Jacobian product, plain PyTorch: for the output
+    gradient ``g`` ``(N, P, C)``, ``(dx, dix, diy)`` with ``dx`` ``(N, H, W,
+    C)`` in ``x.dtype`` and ``dix``, ``diy`` ``(N, P)`` fp32 (None without
+    ``need_coords``: the corners' values are then not read). It is
+    autograd's through :func:`bilinear_sample_plain`: each corner's weight
+    times ``g`` is scatter-added (``index_add_``) into its pixel; ``floor``
+    has zero gradient, so ``d wx1 / d ix = 1`` and ``d wx0 / d ix = -1``
+    and the coordinate gradients are the per-axis weight derivatives
+    against the corners' values; a corner masked in zeros mode contributes
+    nothing. A sample with a NaN or +-inf coordinate contributes nothing
+    either, so its gradients are 0 where autograd would give NaN in border
+    mode. ``dx`` is accumulated in fp64 and rounded once: thousands of
+    samples may land on one pixel (border-clamped coordinates pile onto the
+    edge), and an fp32 sum of them in the atomics' varying order would move
+    a cancelling pixel's gradient by a few 1e-4."""
+    n, h, w, c = x.shape
+    p = ix.shape[1]
+    gf = g.float()
+    gd = gf.double()
+    xf = x.detach().reshape(n * h * w, c).float() if need_coords else None
+    finite = torch.isfinite(ix) & torch.isfinite(iy)
+    xi, wx, vx = _axis(ix.detach().float(), w, zeros)
+    yi, wy, vy = _axis(iy.detach().float(), h, zeros)
+    wx = tuple(torch.where(finite, t, 0.0) for t in wx)
+    wy = tuple(torch.where(finite, t, 0.0) for t in wy)
+    base = (torch.arange(n, device=x.device) * (h * w))[:, None]
+    dxd = torch.zeros((n * h * w, c), dtype=torch.float64, device=x.device)
+    dwx, dwy = [0.0, 0.0], [0.0, 0.0]
+    for r in range(2):
+        for k in range(2):
+            live = finite if not zeros else finite & vy[r] & vx[k]
+            lin = (base + yi[r] * w + xi[k]).reshape(-1)
+            wgt = torch.where(live, wy[r] * wx[k], 0.0)
+            dxd.index_add_(0, lin, (wgt.double()[..., None] * gd).reshape(-1, c))
+            if need_coords:
+                # <g, corner value> of each sample, zero where the corner is masked
+                s = torch.where(live, (gf * xf.index_select(0, lin).reshape(n, p, c)).sum(-1),
+                                0.0)
+                dwx[k] = dwx[k] + wy[r] * s
+                dwy[r] = dwy[r] + wx[k] * s
+    dx = dxd.reshape(n, h, w, c).to(x.dtype)
+    if not need_coords:
+        return dx, None, None
+    return dx, dwx[1] - dwx[0], dwy[1] - dwy[0]
+
+
+class BilinearSample(torch.autograd.Function):
+    """The sampler with a gradient: ``forward`` is the kernel launch of
+    inference (counted as one), ``backward`` is :func:`sample_grads`. The
+    JAX package differentiates its XLA gather and has no backward kernel,
+    so the backward is PyTorch ops here too."""
+
+    @staticmethod
+    def forward(ctx, x, ix, iy, zeros: bool):
+        ctx.zeros = zeros
+        ctx.save_for_backward(x, ix, iy)
+        return _launch(x.detach(), ix.detach(), iy.detach(), zeros)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, ix, iy = ctx.saved_tensors
+        need = ctx.needs_input_grad
+        dx, dix, diy = sample_grads(x, ix, iy, ctx.zeros, g, need_coords=need[1] or need[2])
+        return (dx if need[0] else None, dix if need[1] else None,
+                diy if need[2] else None, None)
 
 
 # the kernel as a custom op, so that torch.export keeps it in its graph; its

@@ -158,8 +158,10 @@ def sample_pixel_coords(
     sampler with ``window_group`` x-positions a table row (``None``: the
     heuristic), kept as the counterpart of the formulation the JAX package
     ships (row gather kernel, weights and fold in torch) and slower than
-    either of the others. Both kernel formulations are forward-only and
-    take every image size; ``window_group`` affects ``"take"`` only.
+    either of the others. ``"fused"`` has a gradient (the kernel forward,
+    PyTorch ops backward: :class:`~vsrlab_tpu_torch.ops.bilinear_sample.BilinearSample`);
+    ``"take"`` is forward-only. Both take every image size;
+    ``window_group`` affects ``"take"`` only.
     """
     n, h, w, c = x.shape
     if impl not in (None, *SAMPLER_IMPLS):
@@ -228,9 +230,12 @@ def flow_warp(
     interpolation: str = "bilinear",
     padding_mode: str = "zeros",
     align_corners: bool = True,
+    impl: str | None = None,
 ) -> torch.Tensor:
     """Warp ``x`` ``(N, H, W, C)`` by ``flow`` ``(N, H, W, 2)``: output
-    pixel ``p`` samples ``x`` at ``p + flow[p]``.
+    pixel ``p`` samples ``x`` at ``p + flow[p]``. ``impl`` is the bilinear
+    formulation of :func:`sample_pixel_coords` (default: the plain gather;
+    the flow models pass ``"fused"``).
 
     With ``align_corners=False`` the torch reference's normalise (size-1
     convention) / unnormalise (align_corners=False) round trip is not an
@@ -256,4 +261,4 @@ def flow_warp(
                 (torch.ceil(vx), torch.floor(vy)), (torch.ceil(vx), torch.ceil(vy)))
         return torch.cat([sample_pixel_coords(x, tx, ty, "nearest", padding_mode, align_corners)
                           for tx, ty in taps], -1)
-    return sample_pixel_coords(x, vx, vy, interpolation, padding_mode, align_corners)
+    return sample_pixel_coords(x, vx, vy, interpolation, padding_mode, align_corners, impl=impl)
