@@ -3,7 +3,8 @@
 
     python3 chip_smoke.py
     python3 chip_smoke.py --pair-times [TREE]     # only the residual pair's device
-                                                  # times, for the package in TREE
+                                                  # times (bf16 and fp32), for the
+                                                  # package in TREE
     python3 chip_smoke.py --sampler-times [TREE]  # only the fused sampler route's
                                                   # device times, the same way
 
@@ -22,7 +23,10 @@ Phases, in order; any failure exits non-zero:
    and ``(24,64,64,64)`` (64 rows and columns: ragged tiles at both edges)
    and, in bf16, shapes that cross the
    persistent kernels' tilings (one tile exactly, one pixel more, three
-   ragged frames that make three rounds of tiles), each launched three
+   ragged frames that make three rounds of tiles), in fp32 those that
+   cross the fp32 kernel's two tiles (12x16 and 12x20: exactly, one pixel
+   more, fewer rows than a tile, ragged frames) and the flow trainer's
+   cleaner's ``(16,48,64,64)``, each launched three
    times with bitwise-equal results; the sampler kernel
    (``bilinear_sample``) against ``bilinear_sample_plain`` at the
    alignment's 180 images of 128x128x10, a row pitch that is no multiple
@@ -50,6 +54,10 @@ Phases, in order; any failure exits non-zero:
    run's deviation from fp32), the frames/s of a 10-frame and a 20-frame
    request, and a torch.profiler breakdown of the 10-frame one (device ms
    of the request and of the pair kernels inside it, beside its frames/s).
+   Then the same weights at ``precision: fp32`` (TF32 off): one
+   ``make_forward`` 10-frame request through the fp32 pair kernel, exactly
+   660 launches by shape, its output within ``FP32_REQUEST_TOL`` of the
+   same model on the plain route, its frames/s, device ms and busy share.
 4. The VRT path: VRT 4x at the paper configuration (13 depths, 120 x 7 +
    180 x 6 channels, 6 heads, 12 offset groups, window (6, 8, 8), bf16),
    weights from the same kind of generator with the zero-initialised offset
@@ -106,7 +114,9 @@ Phases, in order; any failure exits non-zero:
    replay (calls captured in a graph, median of 20 replays: a launch from
    Python takes longer than many of these kernels run), and each kernel's
    share of its bound; at the training shapes also the unit's backward
-   (``pair_grads``). The sampler and the row gather run on the same
+   (``pair_grads``); the fp32 kernel at the fp32 paths' shapes (phase 3's
+   request, phase 9's cleaner) beside cuDNN with TF32 off (its
+   ``library_ms``) and on (``library_tf32_ms``, for information). The sampler and the row gather run on the same
    realistic operands at each image size; beside the row gather, the
    ``take`` route's table and fields. For the residual pair also the time
    of the calls made one by one from Python and the tiling the library
@@ -221,7 +231,19 @@ CHECK_SHAPES = ((1, 180, 320, 64), (10, 180, 320, 64), (2, 13, 21, 64)) + TRAIN_
 # three ragged frames that make three rounds of the taps kernel's deep tiles
 EDGE_SHAPES = ((1, 15, 30, 64), (1, 16, 31, 64), (1, 7, 30, 64), (1, 8, 16, 64), (1, 9, 17, 64),
                (3, 121, 151, 64))
+# fp32: the fp32 kernel's 12x16 output tile exactly, one pixel more in H and
+# W, fewer rows than a tile, five ragged frames in five rounds of tiles;
+# then frames it cuts into 12x20 tiles: three ragged ones, exactly whole
+# tiles and one pixel more in H and W
+FP32_EDGE_SHAPES = ((1, 12, 16, 64), (1, 13, 17, 64), (1, 7, 30, 64), (5, 121, 151, 64),
+                    (3, 121, 151, 64), (1, 168, 300, 64), (1, 169, 301, 64))
+# the flow trainer's cleaner (16 frames of 48x64, PR 8's phase 9 shape)
+CLEANER_SHAPE = (16, 48, 64, 64)
 TOL = {"fp32": 1e-4, "bf16": 2e-2}
+# the fp32 request's output against the plain route's, absolute, on outputs
+# of about unit range: the two add each conv's products in other orders
+# (~1e-6 a pair) through 30 blocks a step of a 10-step recurrence each way
+FP32_REQUEST_TOL = 1e-3
 # residual pairs per forward of one 10-frame window: 2 directions x 10
 # steps x 30 blocks, and 3 cleaning steps x 20 blocks
 LAUNCHES_PER_FORWARD = 660
@@ -382,20 +404,21 @@ def check_kernels(device):
     for form in KERNELS:
         errs[form] = {}
         for dname, dtype in (("fp32", torch.float32), ("bf16", torch.bfloat16)):
-            shapes = CHECK_SHAPES + (EDGE_SHAPES if dname == "bf16" else ())
+            shapes = CHECK_SHAPES + (EDGE_SHAPES if dname == "bf16"
+                                     else FP32_EDGE_SHAPES + (CLEANER_SHAPE,))
             errs[form][dname] = max(
                 check_pair(PAIR_IMPLS[form], pair_operands(shape, dtype, i, device),
-                           TOL[dname], f"{form:6s} {dname} {shape}",
-                           repeats=3 if dname == "bf16" else 1)
+                           TOL[dname], f"{form:6s} {dname} {shape}", repeats=3)
                 for i, shape in enumerate(shapes))
     return errs
 
 
 def time_kernel(form, launches_by_shape, device, dtype=None):
     """Phase 6 for one kernel: at each shape the main path gave it, a check
-    against the plain version in the path's type (bf16; fp32 for the flow
-    trainer's cleaner) and per-launch device times (graph replay), the time
-    of eager calls from Python beside the kernel's. Returns the largest
+    against the plain version in the path's type (bf16; fp32 for the fp32
+    request and the flow trainer's cleaner; three launches bitwise equal)
+    and per-launch device times (graph replay), the time of eager calls
+    from Python beside the kernel's. Returns the largest
     error and one row per shape."""
     import torch
     import torch.nn.functional as F
@@ -408,7 +431,8 @@ def time_kernel(form, launches_by_shape, device, dtype=None):
     err, rows = 0.0, []
     for shape, n in sorted(launches_by_shape.items()):
         x, w1, b1, w2, b2 = ops = pair_operands(shape, dtype, 7, device)
-        err = max(err, check_pair(PAIR_IMPLS[form], ops, TOL[dname], f"{form:6s} {dname} {shape}"))
+        err = max(err, check_pair(PAIR_IMPLS[form], ops, TOL[dname], f"{form:6s} {dname} {shape}",
+                                  repeats=3))
         if form == "taps" and dname == "bf16":  # timed as the model calls it: the weights' kernel order laid out once
             fragments = pack_weight_fragments(w1), pack_weight_fragments(w2)
             fn = functools.partial(PAIR_IMPLS[form], *ops, fragments=fragments)
@@ -438,6 +462,10 @@ def time_kernel(form, launches_by_shape, device, dtype=None):
             "library_eager_ms": cuda_ms(library, reps),
         }
         row["share_of_bound"] = b_ms / row["ms"]
+        if dname == "fp32":  # the yardstick is cuDNN with TF32 off (library_ms); TF32 on for information
+            before = tf32(True)
+            row["library_tf32_ms"] = graph_ms(library)
+            tf32(before)
         if shape in TRAIN_SHAPES and dname == "bf16":  # the unit's backward in a train step (TF32 on, as there)
             g = torch.randn(shape, generator=torch.Generator().manual_seed(5)).to(device,
                                                                                  torch.bfloat16)
@@ -445,16 +473,16 @@ def time_kernel(form, launches_by_shape, device, dtype=None):
             row["backward_ms"] = graph_ms(lambda: pair_grads(*ops, g))
             tf32(before)
         rows.append(row)
-        tiling = ""
-        if dname == "bf16":  # the library's own account of the bf16 tiling, not measured
-            plan = pair_launch_plan(form, shape, device)
-            tiling = (f"; {plan['tiles']} tiles of {plan['tile'][0]}x{plan['tile'][1]}, "
-                      f"{plan['rounds']} rounds")
+        plan = pair_launch_plan(form, shape, device, dtype)  # the library's own account, not measured
+        tiling = (f"; {plan['tiles']} tiles of {plan['tile'][0]}x{plan['tile'][1]}, "
+                  f"{plan['rounds']} rounds")
         log(f"  {form:6s} {dname} {shape} x{n}: kernel {row['ms']:.4f} ms "
             f"({100 * row['share_of_bound']:.1f} % of its bound, {b_ms:.4f} ms by {b_by}"
             f"{tiling}), plain {row['plain_ms']:.4f} ms, library {row['library_ms']:.4f} ms; called "
             f"one by one from Python: kernel {row['eager_ms']:.4f} ms, library "
             f"{row['library_eager_ms']:.4f} ms"
+            + (f"; cuDNN with TF32 on {row['library_tf32_ms']:.4f} ms" if "library_tf32_ms" in row
+               else "")
             + (f"; the unit's backward {row['backward_ms']:.4f} ms" if "backward_ms" in row else ""))
     return err, rows
 
@@ -578,8 +606,8 @@ def train_host_split(device) -> dict:
 
 def pair_times(tree: str) -> int:
     """``--pair-times [TREE]``: only the residual pair's device time a launch
-    (graph replay of ``ResidualConv``'s call, bf16) at the main path's
-    shapes, for the package in TREE (default: this checkout). Two trees of
+    (graph replay of ``ResidualConv``'s call, bf16, and fp32 at the fp32
+    paths' shapes) at the main path's shapes, for the package in TREE (default: this checkout). Two trees of
     the port are compared by one such run each, one after the other on one card."""
     import torch
 
@@ -592,12 +620,16 @@ def pair_times(tree: str) -> int:
     device = torch.device("cuda")
     log(card_line())
     unit = ResidualConv(64, dtype=torch.bfloat16).to(device)
+    unit32 = ResidualConv(64).to(device)
     times = {}
     with torch.inference_mode():
         for form, batches in (("taps", (1, 2, 10, 20)), ("im2col", (1, 10))):
             for b in batches:
                 x = pair_operands((b, 180, 320, 64), torch.bfloat16, 7, device)[0]
                 times[f"{form} B={b}"] = graph_ms(lambda: unit(x, form))
+        for shape in (CLEANER_SHAPE, (1, 180, 320, 64), (10, 180, 320, 64)):  # the fp32 kernel
+            x = pair_operands(shape, torch.float32, 7, device)[0]
+            times[f"fp32 {shape}"] = graph_ms(lambda: unit32(x, "taps"))
     log(json.dumps({"pair_times_ms": times, "tree": tree}))
     return 0
 
@@ -1429,7 +1461,59 @@ def realbasicvsr_phase(device, card):
             f"host's clock; on the device {prof['device_ms']:.2f} ms, of which the residual "
             f"pair's kernels {prof['own_kernels_ms']:.2f} ms (torch.profiler, one request)")
     log(json.dumps({"profile_clip10": prof}))
-    return res["launches_by_shape"]
+    return res["launches_by_shape"], fp32_request(model32, windows[0], device, card)
+
+
+def fp32_request(model32, clip, device, card):
+    """Phase 3, fp32: one ``make_forward`` clip10 request of the headline
+    model in fp32 (``precision: fp32``) with the ``taps`` route, TF32 off:
+    660 pair launches by shape, all in the fp32 kernel; the output finite,
+    of the right shape and within ``FP32_REQUEST_TOL`` of the same model on
+    the plain route; frames/s (median of 5), device ms and busy share.
+    Returns each kernel's launches by shape."""
+    import torch
+
+    from vsrlab_tpu_torch.evaluation.harness import make_forward
+    from vsrlab_tpu_torch.nn.blocks import set_pair_impl
+    from vsrlab_tpu_torch.ops.residual_pair import reset_launch_counts
+
+    before = tf32(False)
+    forward = make_forward(model32, device=device)
+    set_pair_impl(model32, "taps")
+    reset_launch_counts()
+    got = forward(clip)
+    torch.cuda.synchronize()
+    launches = pair_counts()
+    gate_counts("fp32 clip10 request (taps)", launches,
+                {"taps": window_launches(1, *clip.shape[2:4])})
+    set_pair_impl(model32, "plain")
+    want = forward(clip)
+    set_pair_impl(model32, "taps")
+    shape = (1, 10, 4 * clip.shape[2], 4 * clip.shape[3], 3)
+    if tuple(got.shape) != shape or not bool(torch.isfinite(got).all()):
+        raise AssertionError(f"fp32 request: shape {tuple(got.shape)} (want {shape}) or non-finite")
+    err = float((got - want).abs().max())
+    log(f"  fp32 clip10: max |kernel - plain| = {err:.3e} (tol {FP32_REQUEST_TOL}, output range "
+        f"[{float(want.min()):.3f}, {float(want.max()):.3f}])")
+    if not err <= FP32_REQUEST_TOL:
+        raise AssertionError("the fp32 request with the kernel differs from the plain route's")
+    times = []
+    for _ in range(5):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        forward(clip)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    wall = statistics.median(times)
+    prof = profile_request(lambda: forward(clip), wall, ours=("pair_fp32",))
+    log(f"  fp32 clip10 on {card}: {10 / wall:.2f} frames/s (median of 5, host clock, upload "
+        "included)" + (f"; device {prof['device_ms']:.2f} ms (busy {100 * prof['device_busy_share']:.1f}"
+                       f" %), the fp32 pair kernel {prof['own_kernels_ms']:.2f} ms (torch.profiler, "
+                       "one request)" if "wall_ms" in prof else ""))
+    log(json.dumps({"fp32_clip10": {"fps": 10 / wall, "max_abs_err_plain": err, "card": card,
+                                    "profile": prof}}))
+    tf32(before)
+    return launches
 
 
 def tf32(on: bool):
@@ -3054,8 +3138,8 @@ def main() -> int:
     vrt_errs = {"bilinear_sample": check_sampler_kernel(device),
                 "packed_row_gather": check_gather_kernel(device)}
 
-    log("phase 3: RealBasicVSR path (4x, mid 64, 30+20 blocks, bf16)")
-    pair_launches = realbasicvsr_phase(device, card)
+    log("phase 3: RealBasicVSR path (4x, mid 64, 30+20 blocks, bf16; one fp32 request)")
+    pair_launches, fp32_launches = realbasicvsr_phase(device, card)
     torch.cuda.empty_cache()
 
     log("phase 4: VRT path (4x, paper configuration, 16x256x256 request, bf16)")
@@ -3085,6 +3169,7 @@ def main() -> int:
     log("phase 9: the flow paths (RAFT teacher, OpticalFlowConsistency, the SpyNet curriculum, "
         "IRR-PWC; fp32)")
     flow_samplers, flow_pairs = flow_phase(device, card)
+    fp32_pairs = {form: flow_pairs[form] + fp32_launches[form] for form in KERNELS}
     torch.backends.cudnn.allow_tf32 = False
     torch.cuda.empty_cache()
 
@@ -3092,8 +3177,8 @@ def main() -> int:
     kernels = []
     for form, (name, replaces) in KERNELS.items():
         err, rows = time_kernel(form, pair_launches[form], device)
-        if flow_pairs[form]:  # the flow trainer's cleaner runs the fp32 kernel
-            rows += time_kernel(form, flow_pairs[form], device, torch.float32)[1]
+        if fp32_pairs[form]:  # the fp32 request and the flow trainer's cleaner: the fp32 kernel
+            rows += time_kernel(form, fp32_pairs[form], device, torch.float32)[1]
         kernels.append({"name": name, "route": "cuda", "source": SOURCE, "replaces": replaces,
                         **kernel_summary(rows, err, errs[form])})
     timers = {"bilinear_sample": time_sampler, "packed_row_gather": time_gather}

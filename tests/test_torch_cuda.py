@@ -157,6 +157,76 @@ def test_launch_plan_refuses_what_has_no_kernel(cuda):
         pair_launch_plan("taps", (0, 8, 8, 64), cuda)
 
 
+# fp32: the 12x16 tile exactly, one pixel more in H and W, fewer rows than a
+# tile, five ragged frames in five rounds of tiles; frames the plan cuts
+# into 12x20 tiles: three ragged ones, exactly whole tiles and one pixel
+# more; the shapes the fp32 paths time (the flow trainer's cleaner, a
+# precision-fp32 window's recurrence and cleaner)
+FP32_EDGE_SHAPES = [(1, 12, 16, 64), (1, 13, 17, 64), (1, 7, 30, 64), (5, 121, 151, 64),
+                    (3, 121, 151, 64), (1, 168, 300, 64), (1, 169, 301, 64)]
+FP32_PATH_SHAPES = [(16, 48, 64, 64), (1, 180, 320, 64), (10, 180, 320, 64)]
+
+
+def _fp32_tile(shape, sms):
+    """The fp32 plan's rule: the 12x20 tile where its rounds of tiles over
+    the SMs take fewer thread-pixel passes (10 + 8 a thread against 8 + 6),
+    else 12x16."""
+    b, h, w, _ = shape
+
+    def cost(th, tw, passes):
+        tiles = b * -(-h // th) * -(-w // tw)
+        return -(-tiles // min(tiles, sms)) * passes
+
+    return (12, 20) if cost(12, 20, 18) < cost(12, 16, 14) else (12, 16)
+
+
+@pytest.mark.parametrize("wrapper", WRAPPERS)
+@pytest.mark.parametrize("shape", FP32_EDGE_SHAPES + FP32_PATH_SHAPES)
+def test_fp32_kernel_at_tile_edges_is_right_and_repeats_bitwise(cuda, wrapper, shape):
+    """The fp32 kernel (both formulations route to it) against the plain
+    version with TF32 off, 1e-4, three launches bitwise equal."""
+    x, w1, b1, w2, b2 = _operands(shape, torch.float32, cuda, seed=7)
+    x[:, 0], x[:, -1], x[:, :, 0], x[:, :, -1] = 8.0, -8.0, 6.0, -6.0
+    ops = (x, w1, b1, w2, b2)
+    want = residual_conv_pair_plain(*ops)
+    runs = [wrapper(*ops) for _ in range(3)]
+    torch.cuda.synchronize()
+    assert torch.equal(runs[0], runs[1]) and torch.equal(runs[0], runs[2])
+    torch.testing.assert_close(runs[0], want, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("formulation", ["taps", "im2col"])
+@pytest.mark.parametrize("shape", FP32_EDGE_SHAPES + FP32_PATH_SHAPES + [(1, 1, 1, 64),
+                                                                         (16, 768, 1024, 64)])
+def test_fp32_launch_plan_matches_a_brute_force_count(cuda, formulation, shape):
+    """The fp32 plan: the tile by the rule, the tiles that hold a pixel,
+    one CTA an SM at a time and the rounds of the busiest SM."""
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    plan = pair_launch_plan(formulation, shape, cuda, torch.float32)
+    assert plan["tile"] == _fp32_tile(shape, sms)
+    th, tw = plan["tile"]
+    b, h, w, _ = shape
+    tiles = b * len({r // th for r in range(h)}) * len({c // tw for c in range(w)})
+    assert plan["tiles"] == tiles
+    assert plan["ctas"] == min(tiles, sms)
+    assert plan["rounds"] == max(len(range(i, tiles, plan["ctas"])) for i in range(plan["ctas"]))
+
+
+def test_fp32_edge_shapes_cover_both_tiles(cuda):
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    plans = {s: pair_launch_plan("taps", s, cuda, torch.float32) for s in FP32_EDGE_SHAPES}
+    assert {p["tile"] for p in plans.values()} == {(12, 16), (12, 20)}
+    assert any(p["tiles"] == 1 for p in plans.values())
+    assert any(p["rounds"] > 2 for p in plans.values())
+    assert all(p["tile"] == _fp32_tile(s, sms) for s, p in plans.items())
+    # for each tile, frames of whole tiles and of one pixel more each way
+    square = [s for s, p in plans.items() if p["tile"] == (12, 16)]
+    wide = [s for s, p in plans.items() if p["tile"] == (12, 20)]
+    assert (1, 12, 16, 64) in square and (1, 13, 17, 64) in square
+    assert any(s[1] % 12 == 0 and s[2] % 20 == 0 for s in wide)
+    assert any(s[1] % 12 == 1 and s[2] % 20 == 1 for s in wide)
+
+
 @pytest.mark.parametrize("inference", [False, True])
 @pytest.mark.parametrize("fragments", [False, True])
 def test_taps_kernel_follows_a_weight_written_in_place(cuda, inference, fragments):
@@ -247,7 +317,7 @@ PACKED_SHAPES = [(3, 9, 13, 10, 2), (2, 7, 10, 3, 1), (5, 16, 16, 8, 2)]
 
 
 @pytest.mark.parametrize("wrapper,formulation", FORMULATIONS)
-@pytest.mark.parametrize("shape", [(4, 64, 64, 64), (2, 25, 17, 64)])
+@pytest.mark.parametrize("shape", [(4, 64, 64, 64), (2, 25, 17, 64), (1, 169, 301, 64)])
 def test_residual_pair_gradient_matches_autograd_through_plain(cuda, wrapper, formulation, shape):
     """fp32 (TF32 off): the kernel's forward and the PyTorch backward of
     ``ResidualPair`` against autograd through the plain version, each

@@ -22,14 +22,16 @@ torch = pytest.importorskip("torch")
 from vsrlab_tpu.core.losses import OpticalFlowConsistency as JOpticalFlowConsistency  # noqa: E402
 from vsrlab_tpu.models.flow import RAFT as JRAFT  # noqa: E402
 from vsrlab_tpu.models.flow import IRRPWCNet as JIRRPWCNet  # noqa: E402
-from vsrlab_tpu.models.flow import SpyNetProgressive as JSpyNetProgressive  # noqa: E402
 from vsrlab_tpu.models.flow import irr as jirr  # noqa: E402
+from vsrlab_tpu.models.flow import SpyNetProgressive as JSpyNetProgressive  # noqa: E402
 from vsrlab_tpu.models.flow import load_torch_raft  # noqa: E402
+from vsrlab_tpu.ops import warp as jwarp  # noqa: E402
 from vsrlab_tpu_torch import convert  # noqa: E402
 from vsrlab_tpu_torch.core.losses import OpticalFlowConsistency  # noqa: E402
 from vsrlab_tpu_torch.models.flow import (  # noqa: E402
     RAFT, GConf, IRRPWCNet, SpyNetProgressive, load_raft_state_dict)
-from vsrlab_tpu_torch.models.flow.irr import window_inside  # noqa: E402
+from vsrlab_tpu_torch.models.flow import irr  # noqa: E402
+from vsrlab_tpu_torch.models.flow.irr import window_mask  # noqa: E402
 from vsrlab_tpu_torch.ops import warp  # noqa: E402
 from vsrlab_tpu_torch.nn.blocks import init_weights  # noqa: E402
 from vsrlab_tpu_torch.ops import bilinear_sample as bs  # noqa: E402
@@ -100,44 +102,81 @@ def test_raft_importer_loads_a_reference_layout_checkpoint_in_both_packages(rng)
         load_raft_state_dict(RAFT(small=True), sd)
 
 
-def test_irr_window_mask_is_the_warped_ones_away_from_the_rounding_edge(rng):
-    """``window_inside`` against the reference's mask, a warp of ones
-    ``>= 1``: equal wherever that rounded sum is more than 1e-6 from 1 (it
-    is exactly the per-corner test there); a pixel whose sum rounds to 1
-    ulp below 1 is the one place the two may differ."""
-    flow = torch.from_numpy((rng.standard_normal((2, 16, 16, 2)) * 4).astype(np.float32))
-    flow[0, 0, :3] = torch.tensor([[float("nan"), 0.0], [-1e-9, 0.0], [0.0, 15.0]])
-    ones = warp.flow_warp(torch.ones((2, 16, 16, 1)), flow, padding_mode="zeros")
-    exact = window_inside(flow)
-    away = (ones - 1.0).abs() > 1e-6
-    assert bool(((ones >= 1.0) == exact)[away].all())
-    assert exact[0, 0, :3, 0].tolist() == [False, True, True]
-    assert 0 < int(exact.sum()) < exact.numel()
+# image sizes of the mask test: the JAX sampler's packed path and, at one
+# row or one group of x-positions, its four-corner path (IRR-PWC's coarsest
+# levels on small frames)
+MASK_SIZES = ((48, 64), (16, 16), (3, 17), (2, 9), (8, 8), (4, 4), (2, 2), (1, 1))
+
+
+@pytest.mark.parametrize("channels", [3, 16, 32, 64, 96, 128, 196])
+def test_irr_window_mask_equals_the_jax_warp_of_ones(channels):
+    """``window_mask`` against the JAX model's mask, ``flow_warp(ones) >=
+    1`` through the JAX sampler, at each channel count IRR-PWC warps (3:
+    the images; 16-196: the features): 0 mismatches over 100,000 seeded
+    fractional coordinates, some 1e-7 from whole pixels, with NaN and inf
+    among them. The sample holds pixels whose weights sum to 1 ulp below
+    1: there the rounded test masks a window that lies in the image."""
+    rng = np.random.default_rng(channels)
+    n_px = below = 0
+    for h, w in MASK_SIZES:
+        n = -(-12_500 // (h * w))
+        flow = rng.standard_normal((n, h, w, 2)) * rng.choice([0.3, 1.0, 4.0], (n, 1, 1, 1))
+        near = rng.random((n, h, w, 2)) < 0.3
+        flow[near] = np.round(flow[near]) + rng.choice([1e-7, -1e-7, 3e-8, -3e-8], near.sum())
+        flow = flow.astype(np.float32)
+        flow[0, 0, 0] = [np.nan, 0.0]
+        flow[-1, -1, -1] = [0.0, np.inf]
+        ones = jnp.ones((n, h, w, channels), jnp.float32)
+        sums = np.asarray(jwarp.flow_warp(ones, jnp.asarray(flow), padding_mode="zeros"))[..., :1]
+        got = window_mask(torch.from_numpy(flow), channels).numpy()
+        assert (got == (sums >= 1.0)).all(), (h, w, int((got != (sums >= 1.0)).sum()))
+        n_px += flow[..., 0].size
+        below += int(((sums < 1.0) & (sums > 1.0 - 1e-6)).sum())
+    assert n_px >= 100_000 and below > 0, (n_px, below)
 
 
 def test_irr_pwc_matches_jax(rng, monkeypatch):
-    """With the JAX model's window mask made exact as the port's is (its
-    warp of ones replaced by ``window_inside``): the rounded-sum test of
-    the JAX package zeroes a few pixels whose window lies inside the image
-    (the sum lands 1 ulp below 1), which moves the flows of the levels
-    after by about 1 %."""
-    orig = jirr.flow_warp
-
-    def exact_mask_warp(x, flow, padding_mode="zeros", **kw):
-        if bool(jnp.all(x == 1.0)):  # the mask's warp of ones (the model runs eagerly)
-            mask = window_inside(torch.from_numpy(np.array(flow))).numpy()
-            return jnp.asarray(np.broadcast_to(mask, x.shape).astype(np.float32))
-        return orig(x, flow, padding_mode=padding_mode, **kw)
-
+    """The port's IRR-PWC against the JAX model as it is. The JAX model's
+    warps are watched, not changed: at each of its 18 masks the port's
+    ``window_mask`` of the flow it warps by equals its mask, pixel for
+    pixel. That mask is a rounded sum, so a flow 1 ulp away flips it at
+    about 1 % of the pixels, and the two frameworks' convolutions add in
+    other orders: the port's flows differ from the JAX ones by up to 7.3e-7
+    by the 8x8 level, which flips 5 pixels of the 16x16 feature masks and
+    moves the finest flows by 1.6e-3 (11 % of some). So the port's run computes each mask with its
+    own ``window_mask`` from the flow the JAX run warped by at that call,
+    after holding its own flow to that one, and its flows must equal the
+    JAX model's within the tolerance."""
     a, b = _frames(rng)
     jm = JIRRPWCNet(return_levels=(-1, -2, -3, -4))
     params = draw_params(rng, jm, jnp.asarray(a), jnp.asarray(b))
-    monkeypatch.setattr(jirr, "flow_warp", exact_mask_warp)
+    jax_warp, port_mask, seen = jirr.flow_warp, irr.window_mask, []
+
+    def watch(x, flow, padding_mode="zeros", **kw):
+        out = jax_warp(x, flow, padding_mode=padding_mode, **kw)
+        if bool(jnp.all(x == 1.0)):  # the mask's warp of ones (the model runs eagerly)
+            flow = torch.from_numpy(np.array(flow))
+            assert bool((port_mask(flow, x.shape[-1]) == torch.from_numpy(
+                np.array(out[..., :1]) >= 1.0)).all())
+            seen.append(flow)
+        return out
+
+    monkeypatch.setattr(jirr, "flow_warp", watch)
     want_f, want_b = jm.apply({"params": params}, jnp.asarray(a), jnp.asarray(b))
+    assert len(seen) == 18
+    masks = iter(seen)
+
+    def on_jax_flow(flow, channels, itemsize=4):
+        jflow = next(masks)
+        close(flow, jflow.numpy())
+        return port_mask(jflow, channels, itemsize)
+
+    monkeypatch.setattr(irr, "window_mask", on_jax_flow)
     model = IRRPWCNet(return_levels=(-1, -2, -3, -4))
     model.load_state_dict(convert.irr_pwc_state_dict(params))
     with torch.no_grad():
         got_f, got_b = model(torch.from_numpy(a), torch.from_numpy(b))
+    assert next(masks, None) is None
     assert [tuple(f.shape) for f in got_f] == [(1, 64, 64, 2), (1, 32, 32, 2), (1, 16, 16, 2),
                                                (1, 8, 8, 2)]
     for g, w in zip(got_f + got_b, list(want_f) + list(want_b)):

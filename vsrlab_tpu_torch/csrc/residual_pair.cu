@@ -57,8 +57,22 @@
 //           through shared memory, which is what bounds it.
 // No kernel spills (ptxas: 255 and 244 registers for the taps kernel's two
 // tile sizes, 87 for im2col).
-// fp32 inputs take a plain FMA path (pair_fp32_kernel), used for the
-// on-card parity check; it serves both formulations.
+//
+// fp32 inputs of either formulation go to pair_fp32_kernel: IEEE fp32 FFMAs
+// on the CUDA cores (no TF32, no tensor-core split), for the flow trainer's
+// cleaner, `precision: fp32` serving and training of RealBasicVSR /
+// BasicVSR, and the fp32 parity checks. The FMA pipes bound it: 147 kFLOP
+// a pixel against 512 bytes of x and out (288 FLOP a byte; the fp32 ridge
+// is 67 TFLOP/s over 3.35 TB/s, 20). Each thread keeps 8 output channels
+// of 6-10 pixels in registers and reads x and the weights as 16-byte
+// vectors from shared memory, 14-18 FFMAs a load; the weights pass through
+// a two-slab ring, one tap a slab (design below).
+// Measured (the same card, chip_smoke.py phase 6, graph replay):
+// 0.1965 / 0.2665 / 2.2256 ms at (16,48,64) / (1,180,320) / (10,180,320),
+// 55 / 48 / 57 % of the bound, against cuDNN's fp32 pair with TF32 off at
+// 0.3147 / 0.3235 / 3.0352 ms; PR 1's kernel (one channel and 8 pixels a
+// thread, every weight read from L2 in the inner loop) took 1.7447 /
+// 2.5068 / 19.6808 ms. ptxas: 167 and 168 registers, no spills.
 //
 // Interface: plain C, loaded with ctypes. Every entry point takes NHWC
 // x/out, fp32 biases and the weights in x's type: HWIO flattened to (9*C, C),
@@ -66,7 +80,8 @@
 // ops/residual_pair.py pack_weight_fragments. It launches on the given device
 // and stream, does not synchronise, allocates nothing and returns
 // cudaGetLastError() (0 on success). vsr_residual_pair_plan reports the tile
-// and grid a bf16 launch would get, by the rule the entries themselves use.
+// and grid a launch of each kernel would get, by the rule the entries
+// themselves use.
 
 #include <cuda.h>
 #include <cuda_bf16.h>
@@ -882,103 +897,205 @@ __global__ void __launch_bounds__(NTHREADS, 1)
   }
 }
 
-// ---- fp32: plain FMA path (parity checks with TF32 off) ------------------
+// ---- fp32: register-tiled FFMA (IEEE fp32 products, no TF32) -------------
+//
+// One CTA of 256 threads a 12x16 or 12x20 output tile, one launch for the
+// whole grid of tiles (one CTA an SM at a time: its shared memory). A thread
+// owns a block of pixels x 8 output channels in registers: channels
+// 4g..4g+3 and 32+4g..32+4g+3 of channel group g = tid % 8, pixels q, q+32,
+// ... of pixel group q = tid / 8 (12x16: conv1 8 pixels of the 252-pixel y
+// tile, conv2 6 of the 192 outputs; 12x20: 10 of 308, 8 of 240). For each
+// tap and four input channels it reads, as 16-byte vectors, one x vector of
+// 4 channels a pixel and 8 weight vectors, for 32 FFMAs a pixel: 16 FFMAs a
+// load at 8 pixels, so the FMA pipes and not the load/store unit set the
+// pace. The vector axis of x is the channel axis: a tap moves the window by
+// whole pixels, and every pixel row starts on 16 bytes, so no tap shift
+// misaligns a vector.
+//
+// Shared memory: the x tile (16x20 / 16x24 px), the y tile (14x18 / 14x22
+// px), rows of 68 floats (8 successive pixels in distinct banks: a warp's 4
+// pixel groups are 4 successive pixels, its 8 channel groups 128 contiguous
+// bytes of a weight row), and a ring of two weight slabs, one tap's 64x64
+// [ci][co] (16 KB each): 188,352 / 220,992 B of 227 KB. Tap t+1's slab lands
+// by cp.async while tap t is multiplied, so each weight byte crosses L2 once
+// a CTA and conv. Each output's sum runs over the taps, then the input
+// channels in order, in one register: launches agree bit for bit. The plan
+// takes the 12x20 tile where it saves a round of tiles over the SMs that
+// costs more than its larger passes ((1, 180, 320): 240 tiles in 2 rounds
+// against 300 in 3), else 12x16.
+constexpr int F32_LD = C + 4;               // floats a pixel row in shared memory
+constexpr int F32_CG = 8;                   // channel groups
+constexpr int F32_PG = NTHREADS / F32_CG;   // pixel groups
+constexpr int F32_TAPF = C * C;             // floats of one tap's weights
 
-constexpr int F32_TH = 12, F32_TW = 16;
+template <int TH_, int TW_, int UNROLL_>
+struct F32Tile {
+  static constexpr int TH = TH_, TW = TW_;
+  static constexpr int UNROLL = UNROLL_;  // of the input-channel loop (measured best)
+  using G = Geom<TH, TW>;
+  static constexpr int PX1 = (G::NY + F32_PG - 1) / F32_PG;  // conv1 pixels a thread
+  static constexpr int PX2 = (G::NO + F32_PG - 1) / F32_PG;  // conv2 pixels a thread
+  static constexpr size_t SMEM =
+      (static_cast<size_t>(G::NX + G::NY) * F32_LD + 2 * F32_TAPF) * sizeof(float);
+  static_assert(SMEM <= 232448, "more shared memory than a CTA may have");
+};
+using F32Square = F32Tile<12, 16, 8>;  // 8 + 6 pixels a thread, 188,352 B
+using F32Wide = F32Tile<12, 20, 2>;    // 10 + 8 pixels a thread, 220,992 B
 
-// Copy the x tile of the fp32 kernel (row stride LD elements, no swizzle);
-// pixels outside the image are zero.
-template <class G, class T, int LD>
-__device__ __forceinline__ void load_x_tile(T* xs, const T* x, int b, int r0, int c0, int H,
-                                            int W) {
-  constexpr int EPV = 16 / sizeof(T);  // elements per 16-byte vector
-  constexpr int VPP = C / EPV;         // vectors per pixel
+// The x tile of frame b, rows r0-2 .. r0+TH+1 and columns c0-2 .. c0+TW+1,
+// a pixel a row of LD floats; pixels outside the image are zero (the convs'
+// zero padding).
+template <class G>
+__device__ __forceinline__ void load_x_tile_f32(float* xs, const float* x, int b, int r0, int c0,
+                                                int H, int W) {
+  constexpr int VPP = C / 4;  // 16-byte vectors a pixel
   for (int i = threadIdx.x; i < G::NX * VPP; i += NTHREADS) {
     const int p = i / VPP, v = i % VPP;
     const int gr = r0 - 2 + p / G::XW, gc = c0 - 2 + p % G::XW;
     const bool ok = gr >= 0 && gr < H && gc >= 0 && gc < W;
-    const T* src = ok ? x + ((static_cast<size_t>(b) * H + gr) * W + gc) * C + v * EPV : x;
-    cp_async16(xs + p * LD + v * EPV, src, ok);
+    const float* src = ok ? x + ((static_cast<size_t>(b) * H + gr) * W + gc) * C + v * 4 : x;
+    cp_async16(xs + p * F32_LD + v * 4, src, ok);
   }
 }
 
-template <int TH, int TW>
-__global__ void __launch_bounds__(NTHREADS)
+// One tap's 64x64 weights (16 KB, contiguous in HWIO) into a slab.
+__device__ __forceinline__ void load_slab(float* dst, const float* src) {
+  for (int i = threadIdx.x; i < F32_TAPF / 4; i += NTHREADS) cp_async16(dst + 4 * i, src + 4 * i, true);
+}
+
+__device__ __forceinline__ float4 ld4(const float* p) { return *reinterpret_cast<const float4*>(p); }
+__device__ __forceinline__ void st4(float* p, float4 v) { *reinterpret_cast<float4*>(p) = v; }
+
+// acc[j][0..7] += sum over ci of src[j][ci] * w[ci][co + {0..3, 32..35}] for
+// one tap: src[j] is pixel j's row of the tap-shifted tile, ws the slab at
+// the thread's first channel.
+template <int PX, int UNROLL>
+__device__ __forceinline__ void tap_ffma(float (&acc)[PX][8], const float* (&src)[PX],
+                                         const float* ws) {
+#pragma unroll UNROLL
+  for (int ci = 0; ci < C; ci += 4) {
+    float4 xv[PX];
+#pragma unroll
+    for (int j = 0; j < PX; ++j) xv[j] = ld4(src[j] + ci);
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      const float4 wa = ld4(ws + (ci + k) * C), wb = ld4(ws + (ci + k) * C + 32);
+#pragma unroll
+      for (int j = 0; j < PX; ++j) {
+        const float v = k == 0 ? xv[j].x : k == 1 ? xv[j].y : k == 2 ? xv[j].z : xv[j].w;
+        acc[j][0] = fmaf(v, wa.x, acc[j][0]);
+        acc[j][1] = fmaf(v, wa.y, acc[j][1]);
+        acc[j][2] = fmaf(v, wa.z, acc[j][2]);
+        acc[j][3] = fmaf(v, wa.w, acc[j][3]);
+        acc[j][4] = fmaf(v, wb.x, acc[j][4]);
+        acc[j][5] = fmaf(v, wb.y, acc[j][5]);
+        acc[j][6] = fmaf(v, wb.z, acc[j][6]);
+        acc[j][7] = fmaf(v, wb.w, acc[j][7]);
+      }
+    }
+  }
+}
+
+template <class T>
+__global__ void __launch_bounds__(NTHREADS, 1)
     pair_fp32_kernel(const float* __restrict__ x, const float* __restrict__ w1,
                      const float* __restrict__ b1, const float* __restrict__ w2,
                      const float* __restrict__ b2, float* __restrict__ out, int H, int W) {
-  using G = Geom<TH, TW>;
-  constexpr int PG = NTHREADS / C;  // pixel groups
-  constexpr int PB = 8;             // pixels per thread per pass
+  using G = typename T::G;
+  constexpr int TH = T::TH, TW = T::TW, PX1 = T::PX1, PX2 = T::PX2;
+  constexpr int LD = F32_LD, PG = F32_PG, TAPF = F32_TAPF;
   extern __shared__ __align__(16) unsigned char smem[];
   float* xs = reinterpret_cast<float*>(smem);
-  float* ys = xs + G::NX * C;
+  float* ys = xs + G::NX * LD;
+  float* ws = ys + G::NY * LD;  // slab s of the 18 (conv1's taps, then conv2's) in ws + (s & 1) * TAPF
   const int b = blockIdx.z, r0 = blockIdx.y * TH, c0 = blockIdx.x * TW;
-  const int co = threadIdx.x % C, pg = threadIdx.x / C;
+  const int co = 4 * (threadIdx.x % F32_CG), pg = threadIdx.x / F32_CG;
 
-  load_x_tile<G, float, C>(xs, x, b, r0, c0, H, W);
-  cp_async_wait_all();
-  __syncthreads();
+  load_x_tile_f32<G>(xs, x, b, r0, c0, H, W);
+  load_slab(ws, w1);
+  cp_async_commit();
 
-  for (int base = pg; base < G::NY; base += PG * PB) {
-    float acc[PB];
-    int src[PB];
+  // conv1 over the (TH+2) x (TW+2) y tile; a thread's last pixel may lie
+  // past it (read at the tile's last pixel, never stored)
+  float acc[PX1][8];
+  const float* src[PX1];
 #pragma unroll
-    for (int j = 0; j < PB; ++j) {
-      int p = base + j * PG;
-      p = p < G::NY ? p : G::NY - 1;
-      src[j] = (p / G::YW) * G::XW + p % G::YW;
-      acc[j] = 0.f;
-    }
-    for (int tap = 0; tap < 9; ++tap) {
-      const int toff = (tap / 3) * G::XW + tap % 3;
-      const float* wt = w1 + tap * C * C + co;
-      for (int ci = 0; ci < C; ++ci) {
-        const float wv = __ldg(wt + ci * C);
+  for (int j = 0; j < PX1; ++j) {
+    const int p = min(pg + PG * j, G::NY - 1);
+    src[j] = xs + ((p / G::YW) * G::XW + p % G::YW) * LD;
 #pragma unroll
-        for (int j = 0; j < PB; ++j) acc[j] = fmaf(xs[(src[j] + toff) * C + ci], wv, acc[j]);
-      }
-    }
+    for (int c = 0; c < 8; ++c) acc[j][c] = 0.f;
+  }
+  for (int tap = 0; tap < 9; ++tap) {
+    cp_async_wait_all();
+    __syncthreads();  // slab `tap` (and at tap 0 the x tile) in; the other slab read
+    load_slab(ws + ((tap + 1) & 1) * TAPF, tap < 8 ? w1 + (tap + 1) * TAPF : w2);
+    cp_async_commit();
+    const float* shifted[PX1];
 #pragma unroll
-    for (int j = 0; j < PB; ++j) {
-      const int p = base + j * PG;
+    for (int j = 0; j < PX1; ++j) shifted[j] = src[j] + ((tap / 3) * G::XW + tap % 3) * LD;
+    tap_ffma<PX1, T::UNROLL>(acc, shifted, ws + (tap & 1) * TAPF + co);
+  }
+  // y = relu(conv1 + b1) inside the image, 0 outside it (conv2's padding)
+  {
+    const float4 ba = __ldg(reinterpret_cast<const float4*>(b1 + co));
+    const float4 bb = __ldg(reinterpret_cast<const float4*>(b1 + 32 + co));
+#pragma unroll
+    for (int j = 0; j < PX1; ++j) {
+      const int p = pg + PG * j;
       if (p >= G::NY) continue;
       const int gr = r0 - 1 + p / G::YW, gc = c0 - 1 + p % G::YW;
       const bool inside = gr >= 0 && gr < H && gc >= 0 && gc < W;
-      ys[p * C + co] = inside ? fmaxf(acc[j] + __ldg(b1 + co), 0.f) : 0.f;
+      float4 lo = make_float4(0.f, 0.f, 0.f, 0.f), hi = lo;
+      if (inside) {
+        lo = make_float4(fmaxf(acc[j][0] + ba.x, 0.f), fmaxf(acc[j][1] + ba.y, 0.f),
+                         fmaxf(acc[j][2] + ba.z, 0.f), fmaxf(acc[j][3] + ba.w, 0.f));
+        hi = make_float4(fmaxf(acc[j][4] + bb.x, 0.f), fmaxf(acc[j][5] + bb.y, 0.f),
+                         fmaxf(acc[j][6] + bb.z, 0.f), fmaxf(acc[j][7] + bb.w, 0.f));
+      }
+      st4(ys + p * LD + co, lo);
+      st4(ys + p * LD + 32 + co, hi);
     }
   }
-  __syncthreads();
 
-  for (int base = pg; base < G::NO; base += PG * PB) {
-    float acc[PB];
-    int src[PB];
+  // conv2 over the TH x TW output tile; slab 9 + tap sits in ws + ((tap + 1) & 1) * TAPF
+  float acc2[PX2][8];
+  const float* src2[PX2];
 #pragma unroll
-    for (int j = 0; j < PB; ++j) {
-      int p = base + j * PG;
-      p = p < G::NO ? p : G::NO - 1;
-      src[j] = (p / G::TW) * G::YW + p % G::TW;
-      acc[j] = 0.f;
-    }
-    for (int tap = 0; tap < 9; ++tap) {
-      const int toff = (tap / 3) * G::YW + tap % 3;
-      const float* wt = w2 + tap * C * C + co;
-      for (int ci = 0; ci < C; ++ci) {
-        const float wv = __ldg(wt + ci * C);
+  for (int j = 0; j < PX2; ++j) {
+    const int p = min(pg + PG * j, G::NO - 1);
+    src2[j] = ys + ((p / TW) * G::YW + p % TW) * LD;
 #pragma unroll
-        for (int j = 0; j < PB; ++j) acc[j] = fmaf(ys[(src[j] + toff) * C + ci], wv, acc[j]);
-      }
+    for (int c = 0; c < 8; ++c) acc2[j][c] = 0.f;
+  }
+  for (int tap = 0; tap < 9; ++tap) {
+    cp_async_wait_all();
+    __syncthreads();  // at tap 0 also: the y tile written
+    if (tap < 8) {
+      load_slab(ws + (tap & 1) * TAPF, w2 + (tap + 1) * TAPF);
+      cp_async_commit();
     }
+    const float* shifted[PX2];
 #pragma unroll
-    for (int j = 0; j < PB; ++j) {
-      const int p = base + j * PG;
-      if (p >= G::NO) continue;
-      const int qr = p / G::TW, qc = p % G::TW;
-      const int gr = r0 + qr, gc = c0 + qc;
-      if (gr >= H || gc >= W) continue;
-      out[((static_cast<size_t>(b) * H + gr) * W + gc) * C + co] =
-          xs[((qr + 2) * G::XW + qc + 2) * C + co] + (acc[j] + __ldg(b2 + co));
-    }
+    for (int j = 0; j < PX2; ++j) shifted[j] = src2[j] + ((tap / 3) * G::YW + tap % 3) * LD;
+    tap_ffma<PX2, T::UNROLL>(acc2, shifted, ws + ((tap + 1) & 1) * TAPF + co);
+  }
+  // out = x + (conv2 + b2), the residual from the x tile
+  const float4 ca = __ldg(reinterpret_cast<const float4*>(b2 + co));
+  const float4 cb = __ldg(reinterpret_cast<const float4*>(b2 + 32 + co));
+#pragma unroll
+  for (int j = 0; j < PX2; ++j) {
+    const int p = pg + PG * j;
+    if (p >= G::NO) continue;
+    const int qr = p / TW, qc = p % TW, gr = r0 + qr, gc = c0 + qc;
+    if (gr >= H || gc >= W) continue;
+    const float* res = xs + ((qr + 2) * G::XW + qc + 2) * LD + co;
+    const float4 ra = ld4(res), rb = ld4(res + 32);
+    float* o = out + ((static_cast<size_t>(b) * H + gr) * W + gc) * C + co;
+    st4(o, make_float4(ra.x + (acc2[j][0] + ca.x), ra.y + (acc2[j][1] + ca.y),
+                       ra.z + (acc2[j][2] + ca.z), ra.w + (acc2[j][3] + ca.w)));
+    st4(o + 32, make_float4(rb.x + (acc2[j][4] + cb.x), rb.y + (acc2[j][5] + cb.y),
+                            rb.z + (acc2[j][6] + cb.z), rb.w + (acc2[j][7] + cb.w)));
   }
 }
 
@@ -1006,9 +1123,11 @@ int sm_count(int device) {
   return cached[device];
 }
 
-// How a bf16 launch is cut up: the output tile, the tiles of a frame and of
-// the launch, and the CTAs of the persistent grid: one an SM at most, CTA i
-// walking over the tiles i, i + grid, ... (grid 0: a launch that is refused).
+// How a launch is cut up: the output tile, the tiles of a frame and of the
+// launch, and the CTAs that run at once. The bf16 kernels run a persistent
+// grid of that many CTAs, one an SM at most, CTA i walking over the tiles
+// i, i + grid, ...; the fp32 kernel launches one CTA a tile, of which one an
+// SM runs at a time. grid 0: a launch that is refused.
 struct Plan {
   int th, tw, tiles_x, tiles_y, ntiles, grid;
 };
@@ -1033,6 +1152,24 @@ Plan plan_taps(int B, int H, int W, int device) {
 
 Plan plan_im2col(int B, int H, int W, int device) {
   return plan_tiles<I2C_TH, I2C_TW>(B, H, W, device);
+}
+
+// fp32: of the two tiles, the one whose rounds (tiles over the SMs) take the
+// fewest thread-pixel passes, the square one on a tie; the grid is
+// (tiles_x, tiles_y, B)
+template <class T>
+long long fp32_cost(const Plan& p) {
+  return p.grid > 0 ? (p.ntiles + p.grid - 1) / p.grid * static_cast<long long>(T::PX1 + T::PX2)
+                    : -1;
+}
+
+Plan plan_fp32(int B, int H, int W, int device) {
+  const Plan sq = plan_tiles<F32Square::TH, F32Square::TW>(B, H, W, device);
+  const Plan wide = plan_tiles<F32Wide::TH, F32Wide::TW>(B, H, W, device);
+  Plan p = fp32_cost<F32Wide>(wide) >= 0 && fp32_cost<F32Wide>(wide) < fp32_cost<F32Square>(sq)
+               ? wide : sq;
+  if (B > 65535 || p.tiles_y > 65535) p.grid = 0;
+  return p;
 }
 
 // The im2col kernel on its persistent grid.
@@ -1064,6 +1201,20 @@ TensorMapEncodeTiled tensor_map_encoder() {
       fn = reinterpret_cast<TensorMapEncodeTiled>(p);
   }
   return fn;
+}
+
+// The fp32 kernel: one CTA a tile.
+template <class T>
+int launch_fp32(const Plan& p, const void* x, const void* w1, const void* b1, const void* w2,
+                const void* b2, void* out, int B, int H, int W, int device, void* stream) {
+  auto kernel = pair_fp32_kernel<T>;
+  cudaError_t err = prepare(kernel, T::SMEM, device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  kernel<<<dim3(p.tiles_x, p.tiles_y, B), NTHREADS, T::SMEM, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(x), static_cast<const float*>(w1), static_cast<const float*>(b1),
+      static_cast<const float*>(w2), static_cast<const float*>(b2), static_cast<float*>(out), H,
+      W);
+  return static_cast<int>(cudaGetLastError());
 }
 
 // The taps kernel: a tensor map over x as (B, H, W, C) whose box is one x
@@ -1126,11 +1277,13 @@ int vsr_residual_pair_im2col_bf16(const void* x, const void* w1, const void* b1,
                            x, w1, b1, w2, b2, out, H, W, device, stream);
 }
 
-// What a bf16 launch of (B, H, W, 64) on `device` would be given, by the
-// entries' own rule: plan[0..3] = tile rows, tile columns, tiles, CTAs.
-// Launches nothing.
-int vsr_residual_pair_plan(int im2col, int B, int H, int W, int device, int* plan) {
-  const Plan p = im2col ? plan_im2col(B, H, W, device) : plan_taps(B, H, W, device);
+// What a launch of (B, H, W, 64) on `device` by `kernel` (0 bf16 taps, 1
+// bf16 im2col, 2 fp32) would be given, by the entries' own rule: plan[0..3]
+// = tile rows, tile columns, tiles, CTAs at once. Launches nothing.
+int vsr_residual_pair_plan(int kernel, int B, int H, int W, int device, int* plan) {
+  const Plan p = kernel == 2 ? plan_fp32(B, H, W, device)
+                 : kernel    ? plan_im2col(B, H, W, device)
+                             : plan_taps(B, H, W, device);
   if (p.grid <= 0) return static_cast<int>(cudaErrorInvalidValue);
   plan[0] = p.th, plan[1] = p.tw, plan[2] = p.ntiles, plan[3] = p.grid;
   return 0;
@@ -1139,18 +1292,10 @@ int vsr_residual_pair_plan(int im2col, int B, int H, int W, int device, int* pla
 int vsr_residual_pair_fp32(const void* x, const void* w1, const void* b1, const void* w2,
                            const void* b2, void* out, int B, int H, int W, int device,
                            void* stream) {
-  using G = Geom<F32_TH, F32_TW>;
-  constexpr size_t smem = static_cast<size_t>(G::NX + G::NY) * C * sizeof(float);
-  auto kernel = pair_fp32_kernel<F32_TH, F32_TW>;
-  cudaError_t err = prepare(kernel, smem, device);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  // one CTA per (column tile, row tile, frame)
-  const dim3 grid((W + F32_TW - 1) / F32_TW, (H + F32_TH - 1) / F32_TH, B);
-  kernel<<<grid, NTHREADS, smem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(x), static_cast<const float*>(w1), static_cast<const float*>(b1),
-      static_cast<const float*>(w2), static_cast<const float*>(b2), static_cast<float*>(out), H,
-      W);
-  return static_cast<int>(cudaGetLastError());
+  const Plan p = plan_fp32(B, H, W, device);
+  if (p.grid <= 0) return static_cast<int>(cudaErrorInvalidValue);
+  if (p.tw == F32Wide::TW) return launch_fp32<F32Wide>(p, x, w1, b1, w2, b2, out, B, H, W, device, stream);
+  return launch_fp32<F32Square>(p, x, w1, b1, w2, b2, out, B, H, W, device, stream);
 }
 
 const char* vsr_cuda_error_string(int code) {

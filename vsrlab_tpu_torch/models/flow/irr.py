@@ -11,13 +11,11 @@ kernel; 18 a forward at ``output_level = 4``: two at level 0, four at
 levels 1 to 4), zeroed where its bilinear window leaves the image.
 Submodules keep the JAX package's names.
 
-The window mask is exact here: a pixel is kept where every corner that
-carries weight lies in the image, the intent of the reference's ``mask >=
-1`` on a warped image of ones. That test reads a rounded sum of four
-weights, which lands 1 ulp below 1 at some pixels whose window lies inside
-the image, and where it does depends on the order of the sum (the JAX
-package's packed sampler sums in another order than this one): each such
-pixel is zeroed there and kept here.
+The window mask is the reference's, ``flow_warp(ones) >= 1`` (a warp of
+an image of ones through the JAX package's sampler), with the sum of the
+four corner weights rounded as that sampler rounds it
+(:func:`window_mask`): a pixel whose weights sum to 1 ulp below 1 is
+zeroed here as there.
 """
 
 from __future__ import annotations
@@ -31,7 +29,7 @@ from torch import nn
 from vsrlab_tpu_torch.nn.blocks import Conv2d
 from vsrlab_tpu_torch.ops.correlation import cost_volume
 from vsrlab_tpu_torch.ops.resize import resize_bilinear
-from vsrlab_tpu_torch.ops.warp import flow_warp
+from vsrlab_tpu_torch.ops.warp import _window_group, flow_warp
 
 NUM_CHS = (3, 16, 32, 64, 96, 128, 196)
 
@@ -126,22 +124,38 @@ class RefineFlow(nn.Module):
         return (taps * kernel[..., None, :]).sum(-1).to(flow.dtype)
 
 
-def window_inside(flow: torch.Tensor) -> torch.Tensor:
-    """``(N, H, W, 1)`` bool: whether every corner with nonzero weight of the
-    bilinear window at ``p + flow[p]`` lies in the image (NaN: no)."""
-    h, w = flow.shape[1:3]
+def window_mask(flow: torch.Tensor, channels: int, itemsize: int = 4) -> torch.Tensor:
+    """``(N, H, W, 1)`` bool: the JAX package's IRR-PWC mask, ``flow_warp(
+    ones, flow) >= 1`` for an image of ``channels`` channels of ``itemsize``
+    bytes, with the warp of ones written out. Its value is the sum of the
+    four corner weights, each a product of two axis weights (zero where the
+    corner leaves the image), in fp32 and in the order the JAX sampler adds
+    them on the CPU: its packed path (``_bilinear_packed``, taken where the
+    image has two rows and two groups of ``_window_group`` x-positions)
+    contracts the window column by column, ``((y0x0 + y1x0) + y0x1) +
+    y1x1``; its four-corner path adds them row by row, ``((y0x0 + y0x1) +
+    y1x0) + y1x1``. Each add is one tensor op, so a card rounds as the CPU
+    does. NaN coordinates give no weight: masked."""
+    n, h, w = flow.shape[:3]
     ys, xs = torch.meshgrid(torch.arange(h, device=flow.device, dtype=torch.float32),
                             torch.arange(w, device=flow.device, dtype=torch.float32),
                             indexing="ij")
-    inside = None
+    axes = []
     for grid, d, size in ((xs, flow[..., 0], w), (ys, flow[..., 1], h)):
         v = grid + d.float()
         f = torch.floor(v)
-        w1 = v - f  # the sampler's weights: corner f gets 1 - w1, corner f + 1 gets w1
-        ok = (((f >= 0) & (f <= size - 1)) | (1.0 - w1 == 0)) & (
-            ((f + 1 >= 0) & (f + 1 <= size - 1)) | (w1 == 0))
-        inside = ok if inside is None else inside & ok
-    return inside[..., None]
+        w1 = v - f
+        zero = torch.zeros((), device=flow.device)
+        axes.append((torch.where((f >= 0) & (f <= size - 1), 1.0 - w1, zero),
+                     torch.where((f + 1 >= 0) & (f + 1 <= size - 1), w1, zero)))
+    (wx0, wx1), (wy0, wy1) = axes
+    y0x0, y0x1, y1x0, y1x1 = wy0 * wx0, wy0 * wx1, wy1 * wx0, wy1 * wx1
+    gp = _window_group(channels, n * h * w, itemsize)
+    if h >= 2 and -(-w // gp) >= 2:
+        total = ((y0x0 + y1x0) + y0x1) + y1x1
+    else:
+        total = ((y0x0 + y0x1) + y1x0) + y1x1
+    return (total >= 1.0)[..., None]
 
 
 class IRRPWCNet(nn.Module):
@@ -166,13 +180,13 @@ class IRRPWCNet(nn.Module):
 
     def _warp_units(self, x, flow_units, h_im: int, w_im: int):
         """Warp by a ``div_flow``-unit flow (one sampler call), zeroed where
-        the window leaves the image (:func:`window_inside`)."""
+        the reference's mask is (:func:`window_mask`)."""
         hh, ww = x.shape[1:3]
         scale = torch.tensor([(ww - 1) / max(w_im - 1, 1), (hh - 1) / max(h_im - 1, 1)],
                              dtype=flow_units.dtype, device=x.device)
         fpix = flow_units / self.div_flow * scale
         warped = flow_warp(x, fpix, padding_mode="zeros", impl=self.sampler_impl)
-        return warped * window_inside(fpix).to(warped.dtype)
+        return warped * window_mask(fpix, x.shape[-1], x.element_size()).to(warped.dtype)
 
     def _rescale(self, flow, to_local: bool, h_im: int, w_im: int):
         """Pixels at this level <-> ``div_flow`` units."""

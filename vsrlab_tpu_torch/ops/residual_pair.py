@@ -31,11 +31,17 @@ both.
 
 The bf16 kernels run a persistent grid, one CTA a streaming multiprocessor
 at most, each walking over image tiles; :func:`pair_launch_plan` asks the
-library which tile and grid a launch gets. The ``taps`` kernel keeps the
-weights in registers and takes them in its own order
+library which tile and grid a launch gets. The bf16 ``taps`` kernel keeps
+the weights in registers and takes them in its own order
 (:func:`pack_weight_fragments`): :func:`residual_conv_pair` lays them out
 on every call unless the caller hands them in as ``fragments``, as
 ``ResidualConv`` does from the cache that holds its operands.
+
+fp32 operands go to one kernel for both formulations: IEEE fp32 FFMAs on
+the CUDA cores (no TF32), each thread a register tile of pixels x 8 output
+channels, the weights staged a tap at a time in shared memory, one CTA a
+12x16 output tile. It serves the flow trainer's cleaner, ``precision:
+fp32`` serving and training, and the fp32 parity checks.
 """
 
 from __future__ import annotations
@@ -52,7 +58,8 @@ C = 64  # the kernels are compiled for 64 channels
 _FUNCS = {
     ("taps", torch.bfloat16): "vsr_residual_pair_taps_bf16",
     ("im2col", torch.bfloat16): "vsr_residual_pair_im2col_bf16",
-    # fp32 (parity checks with TF32 off) has one FMA kernel for both
+    # fp32 (IEEE products: the cleaner, precision fp32, parity checks) has one
+    # register-tiled FFMA kernel for both
     ("taps", torch.float32): "vsr_residual_pair_fp32",
     ("im2col", torch.float32): "vsr_residual_pair_fp32",
 }
@@ -153,19 +160,24 @@ def _lib() -> ctypes.CDLL:
     return lib
 
 
-def pair_launch_plan(formulation: str, shape, device) -> dict:
-    """The tiling a bf16 launch of ``formulation`` on ``(B, H, W, 64)`` gets
-    on CUDA ``device``, as the library's entry would choose it: the output
-    tile ``(rows, columns)``, the number of tiles, the CTAs of the persistent
-    grid and the rounds the busiest CTA makes. Launches nothing."""
+def pair_launch_plan(formulation: str, shape, device, dtype=torch.bfloat16) -> dict:
+    """The tiling a launch of ``formulation`` on ``(B, H, W, 64)`` in
+    ``dtype`` gets on CUDA ``device``, as the library's entry would choose
+    it: the output tile ``(rows, columns)``, the number of tiles, the CTAs
+    that run at once (bf16: the persistent grid; fp32: one CTA a tile, one
+    an SM at a time) and the rounds the busiest SM makes. Launches
+    nothing."""
     if formulation not in ("taps", "im2col"):
         raise ValueError(f"no kernel for formulation {formulation!r}")
+    if dtype not in (torch.bfloat16, torch.float32):
+        raise ValueError(f"no kernel for {dtype}")
+    kernel = 2 if dtype == torch.float32 else int(formulation == "im2col")
     lib = _lib()
     b, h, w, _ = shape
     plan = (ctypes.c_int * 4)()
     index = torch.device(device).index
     index = torch.cuda.current_device() if index is None else index
-    rc = lib.vsr_residual_pair_plan(formulation == "im2col", b, h, w, index, plan)
+    rc = lib.vsr_residual_pair_plan(kernel, b, h, w, index, plan)
     if rc != 0:
         raise RuntimeError(f"no launch plan for {tuple(shape)}: "
                            f"{lib.vsr_cuda_error_string(rc).decode()}")
