@@ -7,6 +7,10 @@
                                                   # package in TREE
     python3 chip_smoke.py --sampler-times [TREE]  # only the fused sampler route's
                                                   # device times, the same way
+    python3 chip_smoke.py --dp-cards              # phase 10 (c) with one rank a card
+                                                  # over every visible card (NCCL),
+                                                  # then train.train under torchrun
+    (``--dp-rank DIR`` is one rank of phase 10 (c); the script starts it)
 
 Phases, in order; any failure exits non-zero:
 
@@ -203,13 +207,55 @@ Phases, in order; any failure exits non-zero:
    kernel against the plain route (1e-3 px). The launches count into the
    ``kernels`` line; phase 6 times the sampler at these shapes in fp32
    and the pair at the cleaner's shape in fp32.
-10. One JSON line ``{"kernels": [...]}``: per kernel its main-path launches
-   (inference, training, serving, GAN fine-tuning and the flow paths) and,
+10. VRT training and data parallelism (run after phase 9, before phase 6):
+   (a) ``+experiment=vrt`` through the port's config: the paper VRT of
+   ``conf/train/model/vrt.yaml`` (30.68 M parameters, ``remat: true``),
+   bf16, seeded weights with the offset heads drawn, a batch of 8 clips of
+   6 frames at 64x64 -> 256x256 in 4 microbatches of 2, Adam 1e-4 (0.9,
+   0.99), the cosine schedule, clip 1.0, through
+   ``make_supervised_train_step``. Gates: on one microbatch the SR output
+   and every parameter's gradient with the ``fused`` and the ``take``
+   kernels each within twice plain bf16's deviation from the fp32 plain
+   route, SpyNet's gradients zero, each route's launches by shape those of
+   one forward and backward with every Stage recomputed (twice
+   ``expected_vrt_launches``); the main path, one step with ``fused`` and
+   one with ``take``, each exactly 4 microbatches' launches by shape; the
+   losses finite, SpyNet bitwise unchanged. Then the step's ms and train
+   frames/s (median of 5 after 2), one step's device ms and busy share
+   (torch.profiler tracing the card alone), one microbatch's device ms by
+   part (attention, MLP, LayerNorm and SpyNet, forward with the recompute
+   and backward; the sampler kernel; ``sample_grads``; the rest), and a
+   microbatch's peak memory with and without remat. (b) At every shape (a)
+   gave the samplers: ``PackedRowGather`` against autograd through the
+   plain gather (fp32 1e-4, bf16 2e-2 of the largest gradient) and
+   ``BilinearSample`` (fp32, 1e-4), then ``gather_grads`` and
+   ``sample_grads`` timed by graph replay in bf16 beside their bounds,
+   ``index_select`` + ``index_add_`` and ``F.grid_sample`` forward +
+   backward. (c) Two gloo ranks on the one card (subprocesses with
+   torchrun's environment; NCCL refuses two ranks on one device), each
+   training the headline RealBasicVSR at ``precision: fp32`` (TF32 off) on
+   2 of the train leg's 4 clips for 2 steps: the ranks' parameters bitwise
+   equal after each step, the first step's averaged gradient within
+   ``1e-5 + 1e-4*|b|`` of this process's gradient on the 4 clips, 420 pair
+   launches a step on each rank by shape; the step's ms beside one
+   process's on the 4 clips, the all-reduce's ms; then a one-rank NCCL
+   group and an all-reduce. (d) The phase's wall seconds.
+   ``--dp-cards`` runs (c) alone with one rank a card over every visible
+   card (two or more; NCCL, each rank on ``cuda:LOCAL_RANK``, the 4 clips
+   split over the ranks) under the same gates, then ``python -m
+   torch.distributed.run`` of ``vsrlab_tpu_torch.train.train`` on
+   SyntheticVSR over those cards (the trainer's barrier after each save
+   and its replica check after each epoch), and ends in the same last
+   line with ``count`` the cards used.
+11. One JSON line ``{"kernels": [...]}``: per kernel its main-path launches
+   (inference, training, serving, GAN fine-tuning, the flow paths and VRT
+   training) and,
    summed over those launches (per-launch time at each shape times that
    shape's count), ``ms``, ``plain_ms``,
    ``library_ms`` and ``bound_ms``; ``max_abs_err`` is the largest bf16
    error, beside ``max_abs_err_fp32``; ``shapes`` holds the per-launch rows
-   (``dtype`` in each). Then the last line ``{"ok": true, "device": {...}}``.
+   (``dtype`` in each); for the two samplers ``backward`` holds phase 10
+   (b)'s rows. Then the last line ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -219,6 +265,7 @@ import functools
 import json
 import math
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -977,25 +1024,33 @@ def module_breakdown(model, request, classes) -> dict:
     return out
 
 
-def build_vrt(dtype, tiny=False, **kw):
-    """Full-width VRT (or the default TinyVRT) with seeded weights; the
-    offset / mask heads, which start at zero, are drawn too (std 0.05), so
-    that offsets carry a residue of a few pixels on top of the flow prior
-    and masks vary."""
+def seed_offset_heads(model, g):
+    """Draw the zero-initialised offset / mask heads of every deformable
+    alignment (std 0.05), so that offsets carry a residue of a few pixels on
+    top of the flow prior and masks vary."""
     import torch
 
-    from vsrlab_tpu_torch.models import VRT, TinyVRT
     from vsrlab_tpu_torch.models.vrt import FlowGuidedDeformAlign
-    from vsrlab_tpu_torch.nn.blocks import init_weights
 
-    g = torch.Generator().manual_seed(0)
-    model = init_weights((TinyVRT if tiny else VRT)(upscale=4, dtype=dtype, **kw), g)
     with torch.no_grad():
         for m in model.modules():
             if isinstance(m, FlowGuidedDeformAlign):
                 m.conv_offset_3.weight.normal_(0.0, 0.05, generator=g)
                 m.conv_offset_3.bias.normal_(0.0, 0.05, generator=g)
     return model
+
+
+def build_vrt(dtype, tiny=False, **kw):
+    """Full-width VRT (or the default TinyVRT) with seeded weights, the
+    offset / mask heads drawn too (:func:`seed_offset_heads`)."""
+    import torch
+
+    from vsrlab_tpu_torch.models import VRT, TinyVRT
+    from vsrlab_tpu_torch.nn.blocks import init_weights
+
+    g = torch.Generator().manual_seed(0)
+    return seed_offset_heads(init_weights((TinyVRT if tiny else VRT)(upscale=4, dtype=dtype,
+                                                                      **kw), g), g)
 
 
 def expected_vrt_launches(clip_shape, kernel, scales=VRT_SCALES, groups=VRT_GROUPS, cg=VRT_CG,
@@ -1256,18 +1311,20 @@ def vrt_phase(device, card):
 
 
 def profile_request(request, wall_s: float, top: int = 12,
-                    ours=("pair_taps", "pair_im2col"), groups=()) -> dict:
+                    ours=("pair_taps", "pair_im2col"), groups=(), host=True) -> dict:
     """Device time of one ``request()`` by kernel (``torch.profiler``), its
     share of ``wall_s`` (the request's unprofiled time), the time in the
     port's own kernels (names holding one of ``ours``), the top kernels and,
     with ``groups`` (``(name, substrings)`` pairs), the device ms of each
     group: a kernel counts in the first group one of whose substrings its
-    name holds, else in ``other``."""
+    name holds, else in ``other``. ``host=False`` traces the card alone,
+    which a request of hundreds of thousands of kernels parses much faster."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    activities = [ProfilerActivity.CPU] * host + [ProfilerActivity.CUDA]
+    with profile(activities=activities) as prof:
         request()
         torch.cuda.synchronize()
     kernels, launches = {}, 0
@@ -2375,14 +2432,16 @@ def check_sample_grad(x, ix, iy, gout, zeros, label, bad=None, tol=TOL["fp32"]) 
     return err
 
 
-def sampler_backward_bound(shape, window_bytes) -> tuple[float, str]:
-    """Least time (ms) of one ``sample_grads`` with every gradient, fp32:
-    the corner windows of the image read once (``window_bytes``), the
-    output gradient and the coordinates read, ``dx`` (the whole image) and
-    both coordinate gradients written; ~16 FLOP a sample and channel (four
-    weighted scatters, four products against the corners)."""
+def sampler_backward_bound(shape, window_bytes, itemsize=4) -> tuple[float, str]:
+    """Least time (ms) of one ``sample_grads`` with every gradient, in an
+    image type of ``itemsize`` bytes: the corner windows of the image read
+    once (``window_bytes``), the output gradient and the fp32 coordinates
+    read, ``dx`` (the whole image) and both coordinate gradients written;
+    ~16 FLOP a sample and channel (four weighted scatters, four products
+    against the corners)."""
     n, h, w, c, p = shape
-    nbytes = window_bytes + n * p * c * 4 + n * p * 8 + n * h * w * c * 4 + n * p * 8
+    nbytes = (window_bytes + n * p * c * itemsize + n * p * 8 + n * h * w * c * itemsize
+              + n * p * 8)
     t_ops, t_bytes = 16 * n * p * c / PEAK_FP32_FLOPS * 1e3, nbytes / PEAK_BYTES * 1e3
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
@@ -3101,6 +3160,802 @@ def serving_phase(device, card):
     return pair_seen, sampler_seen
 
 
+# phase 10: VRT training at +experiment=vrt's shape (conf/experiment/vrt.yaml) and
+# data parallelism on one card
+# +experiment=vrt through the port's config: the paper VRT of conf/train/model/vrt.yaml
+# (remat on), Adam 1e-4 (0.9, 0.99), the cosine schedule, clip 1.0, 4 microbatches
+VRT_TRAIN_OVERRIDES = ("+experiment=vrt", "train.precision=bf16")
+VRT_TRAIN_CLIP = (8, 6, 64, 64)  # the experiment's global batch of 8 clips of 6 frames, LR 64x64
+VRT_TRAIN_STEPS, VRT_TRAIN_WARMUP = 5, 2
+DP_RANKS = 2
+DP_STEPS = 2
+DP_TOL = (1e-5, 1e-4)  # the all-reduced gradient against one process's: atol + rtol*|b|
+DP_TIMEOUT = 600
+
+
+def check_paper_config(tcfg) -> None:
+    """Raise unless the experiment is the paper VRT at the batch this phase
+    reckons with."""
+    got = (tuple(tcfg.model.depths), tuple(tcfg.model.embed_dims),
+           int(tcfg.model.deformable_groups), bool(tcfg.model.remat), int(tcfg.data.batch_size),
+           int(tcfg.num_grad_acc))
+    if got != ((8,) * 7 + (4,) * 6, (120,) * 7 + (180,) * 6, VRT_GROUPS, True,
+               VRT_TRAIN_CLIP[0], 4):
+        raise AssertionError(f"+experiment=vrt is not the paper configuration: {got}")
+
+
+def build_train_vrt(cfg, dtype_name, device):
+    """The configured VRT with seeded weights (the offset heads drawn), in
+    ``dtype_name`` (``bf16`` or ``fp32``), on ``device``, in train mode."""
+    import torch
+
+    import vsrlab_tpu_torch.components  # noqa: F401  (fills the registry)
+    from vsrlab_tpu_torch.nn.blocks import init_weights
+    from vsrlab_tpu_torch.train import builders
+
+    g = torch.Generator().manual_seed(0)
+    model = builders.build_model(cfg.train.model.to_dict(), dtype_name)
+    model = seed_offset_heads(init_weights(model, g), g)
+    return model.to(device).train()
+
+
+def vrt_train_batch(device):
+    """``VRT_TRAIN_CLIP`` LR clips and their x4 HR, uniform in [0, 1) from a
+    seeded numpy generator."""
+    import numpy as np
+    import torch
+
+    b, t, h, w = VRT_TRAIN_CLIP
+    rng = np.random.default_rng(10)
+    lr = torch.from_numpy(rng.random((b, t, h, w, 3), dtype=np.float32)).to(device)
+    hr = torch.from_numpy(rng.random((b, t, 4 * h, 4 * w, 3), dtype=np.float32)).to(device)
+    return {"lr": lr, "hr": hr}
+
+
+def vrt_grads(model, batch, impl):
+    """One microbatch's loss, SR output and gradient by parameter name
+    (zeros where a parameter gets none), with the sampler route ``impl``;
+    the sampler launches it made by kernel and shape."""
+    from vsrlab_tpu_torch.nn.blocks import set_sampler_impl
+    from vsrlab_tpu_torch.train.step import supervised_loss
+
+    set_sampler_impl(model, impl)
+    model.zero_grad(set_to_none=True)
+    reset_vrt_counts()
+    out = model(batch["lr"])
+    loss, _ = supervised_loss(out, batch)
+    loss.backward()
+    launches = {k: fn.launches_by_shape.copy() for k, fn in vrt_wrappers().items()}
+    grads = {n: (p.grad if p.grad is not None else p.new_zeros(p.shape)).detach().float().clone()
+             for n, p in model.named_parameters()}
+    set_sampler_impl(model, "fused")
+    model.zero_grad(set_to_none=True)
+    return float(loss.detach()), out[0].detach().float(), grads, launches
+
+
+def remat_launches(clip, kernel, microbatches=1):
+    """Sampler launches of ``microbatches`` forward and backward passes of a
+    remat'd VRT over microbatches of ``clip``: every sampler call lies in a
+    Stage, and each Stage's forward runs again in the backward."""
+    import collections
+
+    once = expected_vrt_launches(clip, kernel, groups=VRT_GROUPS, cg=VRT_CG, gp=VRT_GP)
+    return collections.Counter({k: 2 * microbatches * v for k, v in once.items()})
+
+
+def gate_vrt_grads(cfg, model, batch, device) -> dict:
+    """Phase 10 (a)'s gradient gates on one microbatch: the SR output and
+    every parameter's gradient with the ``fused`` and the ``take`` kernels
+    (bf16) each within twice plain bf16's deviation from the fp32 plain
+    route (TF32 off), in max and rms; finite; SpyNet's zero (frozen); each
+    route's launches by shape those of one remat'd forward and backward.
+    Returns the worst ratios."""
+    import torch
+
+    mb = {k: v[: v.shape[0] // int(cfg.train.num_grad_acc)] for k, v in batch.items()}
+    clip = (*mb["lr"].shape[:4], 3)
+    runs = {impl: vrt_grads(model, mb, impl) for impl in ("fused", "take", "plain")}
+    model32 = build_train_vrt(cfg, "fp32", device)
+    model32.load_state_dict(model.state_dict())
+    before = tf32(False)
+    ref_loss, ref_sr, ref, _ = vrt_grads(model32, mb, "plain")
+    tf32(before)
+    del model32
+    torch.cuda.empty_cache()
+    worst = {}
+    plain_sr, plain = runs["plain"][1], runs["plain"][2]
+    for impl, kernel in (("fused", "bilinear_sample"), ("take", "packed_row_gather")):
+        loss, sr, grads, launches = runs[impl]
+        want = {"bilinear_sample": {}, "packed_row_gather": {}}
+        want[kernel] = remat_launches(clip, kernel)
+        gate_counts(f"VRT microbatch {clip} forward and backward ({impl}, remat)", launches, want)
+        if not math.isfinite(loss):
+            raise AssertionError(f"{impl}: loss {loss}")
+        out = within_twice(f"{impl} SR vs fp32", sr, ref_sr, dev(plain_sr, ref_sr))
+        w = {"max": (out[0], "sr"), "rms": (out[1], "sr")}
+        for name in ref:
+            g = grads[name]
+            if not bool(torch.isfinite(g).all()):
+                raise AssertionError(f"{impl}: {name} gradient not finite")
+            if name.startswith("optical_flow."):
+                if bool(g.abs().sum() > 0):
+                    raise AssertionError(f"{impl}: SpyNet's {name} got a gradient")
+                continue
+            r = within_twice(f"{impl} gradient of {name} vs fp32", g, ref[name],
+                             dev(plain[name], ref[name]))
+            for i, k in enumerate(("max", "rms")):
+                w[k] = max(w[k], (r[i], name))
+        worst[impl] = {"loss": loss, "ratio_max": w["max"], "ratio_rms": w["rms"]}
+        log(f"  {impl} route, one microbatch {clip}: loss {loss:.6f} (fp32 plain "
+            f"{ref_loss:.6f}); SR and {len(ref)} gradients within twice plain bf16's deviation "
+            f"from fp32, worst max {w['max'][0]:.2f} ({w['max'][1]}), rms {w['rms'][0]:.2f} "
+            f"({w['rms'][1]}); SpyNet's gradients zero")
+    return worst
+
+
+def part_breakdown(model, run, parts, units=(), methods=(), weigh=None) -> dict:
+    """Device ms of one ``run()`` (forward and backward) by part, with the
+    device's total and its kernel count. A part is a module class
+    (``(label, class)`` pairs) or a method (``(label, object, name)``
+    triples: a forward that no module call wraps): its forwards (the
+    recompute of a remat'd unit included) run inside a profiler range, and
+    its backward is the autograd nodes that its forward ops created
+    (matched by thread and sequence number). The forwards of ``units`` (the
+    remat'd module classes) run in a range too, so that a unit's recompute
+    outside the parts counts as ``other`` and not as the backward node that
+    asked for it. The sampler kernels' launches and the backward nodes of
+    ``BilinearSample`` (``sample_grads``) and ``PackedRowGather`` count
+    apart; what no part claims is ``other``. ``weigh(event)`` gives an
+    event's ``(name, us)`` pairs (default: its kernels on the card)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    handles, stack = [], []
+
+    def enter(label):
+        def pre(mod, args):
+            rf = record_function(label if label == "unit::" else f"part::{label}")
+            rf.__enter__()
+            stack.append(rf)
+        return pre
+
+    def leave(mod, args, out):
+        stack.pop().__exit__(None, None, None)
+
+    for m in model.modules():
+        label = next((lb for lb, cls in parts if isinstance(m, cls)), None)
+        if label is None and isinstance(m, tuple(units)):
+            label = "unit::"
+        if label is not None:
+            # always_call: a recompute that stops early leaves a unit by an exception
+            handles += [m.register_forward_pre_hook(enter(label)),
+                        m.register_forward_hook(leave, always_call=True)]
+
+    def ranged(label, fn):
+        def call(*args, **kw):
+            with record_function(f"part::{label}"):
+                return fn(*args, **kw)
+        return call
+
+    for label, obj, name in methods:  # an instance attribute shadows the method
+        setattr(obj, name, ranged(label, getattr(obj, name)))
+    try:
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            run()
+            torch.cuda.synchronize()
+    finally:
+        for h in handles:
+            h.remove()
+        for _, obj, name in methods:
+            delattr(obj, name)
+    weigh = weigh or (lambda e: [(k.name, k.duration) for k in getattr(e, "kernels", [])])
+    events = [e for e in prof.events() if not str(e.device_type).endswith("CUDA")]
+    grad_node = "autograd::engine::evaluate_function: "
+
+    def owner(e, fwd):
+        p = e
+        while p is not None:
+            if p.name.startswith("part::"):
+                return p.name[6:] + " forward"
+            if p.name == "unit::":  # forward work of a unit outside the parts
+                return None
+            if p.name.startswith(grad_node):
+                node = p.name[len(grad_node):]
+                if node.startswith("BilinearSampleBackward"):
+                    return "sample_grads"
+                if node.startswith("PackedRowGatherBackward"):
+                    return "gather_grads"
+                thread = getattr(p, "fwd_thread", None)
+                part = fwd.get((p.thread if thread is None else thread, p.sequence_nr))
+                return part and part + " backward"
+            p = p.cpu_parent
+        return None
+
+    fwd = {}
+    for e in events:
+        if e.sequence_nr >= 0 and not e.name.startswith(grad_node):
+            o = owner(e, {})
+            if o is not None:
+                fwd[(e.thread, e.sequence_nr)] = o[: -len(" forward")]
+    out, kernels = {}, 0
+    for e in events:
+        for name, us in weigh(e):
+            if "bilinear_sample" in name:
+                label = "sampler forward"
+            elif "packed_row_gather" in name:
+                label = "gather forward"
+            else:
+                label = owner(e, fwd) or "other"
+            out[label] = out.get(label, 0.0) + us / 1e3
+            kernels += 1
+    return {"parts_ms": out, "device_ms": sum(out.values()), "kernels": kernels}
+
+
+def vrt_parts(model):
+    """VRT's parts for :func:`part_breakdown`: the module classes, the
+    remat'd units, and SpyNet's ``adjacent_pairs`` (VRT calls the method,
+    not the module)."""
+    from vsrlab_tpu_torch.models.vrt import RTMSA, Stage
+    from vsrlab_tpu_torch.models.vrt.window_attention import MlpGEGLU, WindowAttention
+    from vsrlab_tpu_torch.nn.blocks import LayerNorm
+
+    return ((("attention", WindowAttention), ("MLP", MlpGEGLU), ("LayerNorm", LayerNorm)),
+            (Stage, RTMSA), (("SpyNet", model.optical_flow, "adjacent_pairs"),))
+
+
+def vrt_train_phase(device, card) -> dict:
+    """Phase 10 (a). Returns the sampler kernels' launches by shape on the
+    main path (one step with the fused sampler, one with the row gather)."""
+    import torch
+
+    from vsrlab_tpu_torch.core.config import load_config
+    from vsrlab_tpu_torch.nn.blocks import set_sampler_impl
+    from vsrlab_tpu_torch.train.builders import build_tx
+    from vsrlab_tpu_torch.train.state import create_train_state
+    from vsrlab_tpu_torch.train.step import make_supervised_train_step, supervised_loss
+
+    cfg = load_config(overrides=list(VRT_TRAIN_OVERRIDES))
+    tcfg = cfg.train
+    acc = int(tcfg.num_grad_acc)
+    check_paper_config(tcfg)
+    model = build_train_vrt(cfg, tcfg.precision, device)
+    n_params = sum(p.numel() for p in model.parameters())
+    batch = vrt_train_batch(device)
+    log(f"  VRT {n_params:,} parameters, {tcfg.precision}, remat {model.remat}, batch "
+        f"{tuple(batch['lr'].shape)} -> {tuple(batch['hr'].shape)} in {acc} microbatches, "
+        f"{tcfg.optimizer.to_dict()}, {tcfg.scheduler.to_dict()}, clip {tcfg.gradient_clip_val}")
+    tf32_before = tf32(True)
+    gates = gate_vrt_grads(cfg, model, batch, device)
+
+    state = create_train_state(model, build_tx(model.parameters(), tcfg.optimizer,
+                                               tcfg.scheduler, tcfg.gradient_clip_val))
+    step = make_supervised_train_step(model, num_grad_accum=acc)
+    spynet0 = {n: p.detach().clone() for n, p in model.named_parameters()
+               if n.startswith("optical_flow.")}
+    mb_clip = (VRT_TRAIN_CLIP[0] // acc, *VRT_TRAIN_CLIP[1:], 3)
+    # the main path: one step with the fused sampler kernel, one with the row gather
+    reset_vrt_counts()
+    seen = {k: fn.launches_by_shape.copy() for k, fn in vrt_wrappers().items()}
+    calls, losses = {}, []
+    for impl, kernel in (("fused", "bilinear_sample"), ("take", "packed_row_gather")):
+        set_sampler_impl(model, impl)
+        _, m = step(state, batch)
+        losses.append(float(m["Loss"]))
+        now = {k: fn.launches_by_shape.copy() for k, fn in vrt_wrappers().items()}
+        calls[impl], seen = {k: now[k] - seen[k] for k in now}, now
+        want = {"bilinear_sample": {}, "packed_row_gather": {}}
+        want[kernel] = remat_launches(mb_clip, kernel, acc)
+        gate_counts(f"VRT train step ({impl}, {acc} microbatches of {mb_clip}, remat)",
+                    calls[impl], want)
+    set_sampler_impl(model, "fused")
+    if not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"VRT train step loss not finite: {losses}")
+    if not all(torch.equal(p, spynet0[n]) for n, p in model.named_parameters() if n in spynet0):
+        raise AssertionError("VRT's SpyNet moved: the flow net must stay frozen")
+    log(f"  two steps (fused, take): losses {losses[0]:.6f}, {losses[1]:.6f}; SpyNet's "
+        f"{len(spynet0)} tensors bitwise unchanged")
+
+    frames = VRT_TRAIN_CLIP[0] * VRT_TRAIN_CLIP[1]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    times = time_steps(model, lambda: step(state, batch), "taps", n=VRT_TRAIN_STEPS,
+                       warmup=VRT_TRAIN_WARMUP)
+    med = statistics.median(times)
+    timing = {"step_ms": med * 1e3, "train_fps": frames / med, "steps_ms": [t * 1e3 for t in times],
+              "peak_gib_remat": torch.cuda.max_memory_allocated() / 2**30}
+    log(f"  VRT train step on {card}: {timing['step_ms']:.2f} ms, {timing['train_fps']:.3f} train "
+        f"frames/s (median of {VRT_TRAIN_STEPS} after {VRT_TRAIN_WARMUP}, host clock with "
+        f"synchronize), peak memory {timing['peak_gib_remat']:.2f} GiB with remat")
+    prof = profile_request(lambda: step(state, batch), med, top=15, ours=("bilinear_sample",),
+                           host=False)
+    timing["profile"] = prof
+    if "device_busy_share" in prof:
+        log(f"  one step: device {prof['device_ms']:.2f} ms (busy "
+            f"{100 * prof['device_busy_share']:.1f} %) in {prof['device_ops']} kernels and "
+            f"copies; the sampler kernel {prof['own_kernels_ms']:.2f} ms")
+    mb = {k: v[: v.shape[0] // acc] for k, v in batch.items()}
+
+    def microbatch():
+        supervised_loss(model(mb["lr"]), mb)[0].backward()
+
+    parts = part_breakdown(model, microbatch, *vrt_parts(model))
+    model.zero_grad(set_to_none=True)
+    timing["parts_a_microbatch"] = parts
+    log(f"  one microbatch's forward and backward: device {parts['device_ms']:.2f} ms in "
+        f"{parts['kernels']} kernels, by part (forwards with their recompute): " + ", ".join(
+            f"{k} {v:.2f}" for k, v in sorted(parts["parts_ms"].items(), key=lambda kv: -kv[1])))
+    # the same microbatch without remat, if it fits
+    model.remat = False
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    try:
+        microbatch()
+        torch.cuda.synchronize()
+        timing["peak_gib_no_remat_microbatch"] = torch.cuda.max_memory_allocated() / 2**30
+    except torch.cuda.OutOfMemoryError as e:
+        timing["peak_gib_no_remat_microbatch"] = f"does not fit ({str(e)[:80]})"
+    model.remat = True
+    model.zero_grad(set_to_none=True)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    microbatch()
+    torch.cuda.synchronize()
+    timing["peak_gib_remat_microbatch"] = torch.cuda.max_memory_allocated() / 2**30
+    model.zero_grad(set_to_none=True)
+    log(f"  one microbatch's forward and backward: peak memory "
+        f"{timing['peak_gib_remat_microbatch']:.2f} GiB with remat, "
+        f"{timing['peak_gib_no_remat_microbatch']} GiB without")
+    log(json.dumps({"vrt_train": {**timing, "card": card, "gates": gates, "losses": losses,
+                                  "parameters": n_params}}, default=str))
+    tf32(tf32_before)
+    del state, step, model, batch, mb
+    torch.cuda.empty_cache()
+    return calls
+
+
+def gather_grad_bound(shape, itemsize) -> tuple[float, str]:
+    """Least time (ms) of one ``gather_grads``, shape ``(N, R, Wrow, P)``:
+    the output gradient's rows and the indices read once, the table's
+    gradient written once; one add an element of a row."""
+    n, r, wrow, p = shape
+    nbytes = n * (p * wrow * itemsize + 4 * p + r * wrow * itemsize)
+    t_ops, t_bytes = n * p * wrow / PEAK_FP32_FLOPS * 1e3, nbytes / PEAK_BYTES * 1e3
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def check_gather_grad(xf, idx, gout, tol, label) -> float:
+    """``PackedRowGather`` (the kernel forward, ``gather_grads`` backward)
+    against autograd through ``packed_row_gather_plain`` in fp64: the rows
+    exactly, the table's gradient within ``tol`` of its largest value; one
+    kernel launch."""
+    import torch
+
+    from vsrlab_tpu_torch.ops import packed_gather as pg
+
+    leaf = xf.detach().clone().requires_grad_(True)
+    before = pg.packed_row_gather.launches
+    out = pg.packed_row_gather(leaf, idx)
+    out.backward(gout)
+    ref_leaf = xf.detach().double().requires_grad_(True)
+    ref = pg.packed_row_gather_plain(ref_leaf, idx)
+    ref.backward(gout.double())
+    torch.cuda.synchronize()
+    launched = pg.packed_row_gather.launches - before
+    same = torch.equal(out.detach().double(), ref.detach())
+    want = ref_leaf.grad.to(xf.dtype).double()
+    e = float((leaf.grad.double() - want).abs().max())
+    ok = same and launched == 1 and e <= tol * float(want.abs().max())
+    log(f"  {label}: rows {'equal' if same else 'DIFFERENT'}, max |dxf - autograd(plain)| "
+        f"{e:.3e} (tol {tol} x max {float(want.abs().max()):.3e}), {launched} launch "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"{label}: PackedRowGather disagrees with autograd through plain")
+    return e
+
+
+def backward_grad_phase(calls, device) -> dict:
+    """Phase 10 (b): at every shape the training main path gave each
+    sampler kernel, the gather's gradient checked in fp32 and bf16 and both
+    backwards timed by graph replay (bf16, the path's type) beside their
+    bounds and one library call each (``index_select`` and ``index_add_``
+    for the gather; ``F.grid_sample`` forward and backward for the
+    sampler); ``BilinearSample`` checked in fp32 there too. Returns the
+    rows by kernel."""
+    import torch
+    import torch.nn.functional as F
+
+    from vsrlab_tpu_torch.ops import bilinear_sample as bs
+    from vsrlab_tpu_torch.ops import packed_gather as pg
+
+    out = {"packed_row_gather": [], "bilinear_sample": []}
+    errs = {}
+    for shape in sorted(calls["take"]["packed_row_gather"]):
+        n, r, wrow, p = shape
+        h = w = int(round(p ** 0.5))
+        c = wrow // (4 * VRT_GP)
+        for dname, dtype in (("fp32", torch.float32), ("bf16", torch.bfloat16)):
+            xf, fields = packed_operands(n, h, w, c, VRT_GP, dtype, True, h, device)
+            if tuple(xf.shape) != (n, r, wrow) or fields[0].shape[1] != p:
+                raise AssertionError(f"cannot rebuild the operands of shape {shape}")
+            gout = torch.randn((n, p, wrow), generator=torch.Generator().manual_seed(p)).to(
+                device, dtype)
+            errs[dname] = max(errs.get(dname, 0.0), check_gather_grad(
+                xf, fields[0], gout, TOL[dname], f"PackedRowGather {dname} {shape}"))
+        idx = fields[0]
+        flat, gflat = xf.reshape(-1, wrow), gout.reshape(-1, wrow)
+        lin = (idx.long() + torch.arange(n, device=device)[:, None] * r).reshape(-1)
+
+        def library():  # index_select forward, index_add_ backward
+            flat.index_select(0, lin)
+            return torch.zeros_like(flat).index_add_(0, lin, gflat)
+
+        b_ms, b_by = gather_grad_bound(shape, 2)
+        row = {"shape": list(shape), "dtype": "bf16",
+               "backward_ms": graph_ms(lambda: pg.gather_grads(gout, idx, r), calls=5),
+               "backward_bound_ms": b_ms, "backward_bound_by": b_by,
+               "library_fwd_bwd_ms": graph_ms(library, calls=5)}
+        log(f"  gather_grads bf16 {shape}: {row['backward_ms']:.4f} ms (bound {b_ms:.4f} by "
+            f"{b_by}, {100 * b_ms / row['backward_ms']:.1f} %); index_select + index_add_ "
+            f"{row['library_fwd_bwd_ms']:.4f} ms (graph replay)")
+        out["packed_row_gather"].append(row)
+        del xf, fields, gout, idx, flat, gflat, lin
+    for shape in sorted(calls["fused"]["bilinear_sample"]):
+        n, h, w, c, p = shape
+        x32, ix, iy = realistic_operands(n, h, w, c, torch.float32, h, device)
+        fx, fy = ix.reshape(n, -1), iy.reshape(n, -1)
+        g32 = torch.randn((n, p, c), generator=torch.Generator().manual_seed(p)).to(device)
+        errs["sampler_fp32"] = max(errs.get("sampler_fp32", 0.0), check_sample_grad(
+            x32, fx, fy, g32, True, f"BilinearSample fp32 {shape} realistic zeros"))
+        x, gout = x32.bfloat16(), g32.bfloat16()
+        xc = x.permute(0, 3, 1, 2).contiguous().requires_grad_(True)
+        grid = torch.stack([2 * ix / (w - 1) - 1, 2 * iy / (h - 1) - 1], -1).to(x.dtype)
+        gc = gout.reshape(n, h, w, c).permute(0, 3, 1, 2).contiguous()
+
+        def library():  # F.grid_sample forward and backward to the image
+            return torch.autograd.grad(F.grid_sample(xc, grid, "bilinear", "zeros",
+                                                     align_corners=True), xc, gc)
+
+        b_ms, b_by = sampler_backward_bound(shape, sampler_window_bytes(x, fx, fy), 2)
+        row = {"shape": list(shape), "dtype": "bf16",
+               "backward_ms": graph_ms(lambda: bs.sample_grads(x, fx, fy, True, gout), calls=5),
+               "backward_bound_ms": b_ms, "backward_bound_by": b_by,
+               "library_fwd_bwd_ms": graph_ms(library, calls=5)}
+        log(f"  sample_grads bf16 {shape}: {row['backward_ms']:.4f} ms (bound {b_ms:.4f} by "
+            f"{b_by}, {100 * b_ms / row['backward_ms']:.1f} %); F.grid_sample forward + backward "
+            f"{row['library_fwd_bwd_ms']:.4f} ms (graph replay)")
+        out["bilinear_sample"].append(row)
+        del x32, x, ix, iy, fx, fy, g32, gout, xc, grid, gc
+    torch.cuda.empty_cache()
+    return {"rows": out, "max_abs_err": errs}
+
+
+def dp_launches(batch: int) -> dict:
+    """One headline train step's pair launches by shape at ``batch`` clips
+    of ``TRAIN_CLIP``'s frames: the recurrences 2 directions x T frames x
+    the residual blocks at ``batch``, the cleaner's steps x blocks at
+    ``batch * T`` frames."""
+    _, t, h, w = TRAIN_CLIP
+    c = HEADLINE["mid_channels"]
+    return {(batch, h, w, c): 2 * t * HEADLINE["res_blocks"],
+            (batch * t, h, w, c): HEADLINE["cleaning_steps"] * HEADLINE["cleaning_blocks"]}
+
+
+def dp_rank_main(outdir: str) -> int:
+    """One rank of phase 10 (c), started by :func:`dp_phase` with torchrun's
+    environment and ``outdir/spec.json`` (the device, the model, the clip,
+    the steps): the headline RealBasicVSR at ``precision: fp32`` (TF32
+    off) on this rank's share of the train leg's clips, Adam 1e-4, clip
+    1.0, the gradients averaged over the ranks (gloo: the ranks share the
+    card). Writes its record to ``outdir/rank{RANK}.json``."""
+    global HEADLINE, TRAIN_CLIP
+    import torch
+
+    from vsrlab_tpu_torch import parallel
+    from vsrlab_tpu_torch.ops.residual_pair import reset_launch_counts
+    from vsrlab_tpu_torch.train import builders
+    from vsrlab_tpu_torch.train.state import create_train_state
+    from vsrlab_tpu_torch.train.step import make_supervised_train_step
+
+    with open(os.path.join(outdir, "spec.json")) as f:
+        spec = json.load(f)
+    HEADLINE, TRAIN_CLIP = spec["headline"], tuple(spec["clip"])
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    device, mesh, created = parallel.data_parallel(True, spec["device"])
+    sync = torch.cuda.synchronize if device.type == "cuda" else (lambda: None)
+    rank = mesh.rank
+    record = {"rank": rank, "backend": torch.distributed.get_backend(), "mesh": mesh.shape,
+              "device": str(device)}
+    model = build_model(None).to(device).train()
+    parallel.replicated(model, mesh.group)
+    state = create_train_state(model, builders.build_tx(model.parameters(), ("adam",
+                                                        {"lr": 1e-4}), None, 1.0,
+                                                        group=mesh.group))
+    step = make_supervised_train_step(model, group=mesh.group)
+    batch = parallel.shard_batch({k: v.cpu() for k, v in train_batch(device).items()}, device)
+    reduced = []
+    reduce = builders.all_reduce_mean
+
+    def keep(tensors, group):  # what the updater averaged, kept for the gate
+        out = reduce(tensors, group)
+        reduced.append([t.detach().clone() for t in out])
+        return out
+
+    builders.all_reduce_mean = keep
+    reset_launch_counts()
+    seen = pair_counts()
+    record["steps"] = []
+    for i in range(spec["steps"]):
+        _, m = step(state, batch)
+        now = pair_counts()
+        record["steps"].append({"loss": float(m["Loss"]),
+                                "launches": {f: [[list(k), v] for k, v in (now[f] - seen[f]).items()]
+                                             for f in KERNELS}})
+        seen = now
+        parallel.assert_replicated(model, mesh.group, f"step {i} parameters")
+    builders.all_reduce_mean = reduce
+    record["launches"] = {f: [[list(k), v] for k, v in seen[f].items()] for f in KERNELS}
+    if rank == 0:
+        torch.save([g.cpu() for g in reduced[0]], os.path.join(outdir, "grads0.pt"))
+    times = []
+    for _ in range(3 + 5):
+        sync()
+        t0 = time.perf_counter()
+        step(state, batch)
+        sync()
+        times.append(time.perf_counter() - t0)
+    record["step_ms"] = statistics.median(times[3:]) * 1e3
+    grads = [p.grad for p in model.parameters()]
+    record["grad_elements"] = sum(g.numel() for g in grads)
+    ar = []
+    for _ in range(3 + 5):
+        sync()
+        t0 = time.perf_counter()
+        parallel.all_reduce_mean(grads, mesh.group)
+        sync()
+        ar.append(time.perf_counter() - t0)
+    record["all_reduce_ms"] = statistics.median(ar[3:]) * 1e3
+    parallel.assert_replicated(model, mesh.group, "final parameters")
+    with open(os.path.join(outdir, f"rank{rank}.json"), "w") as f:
+        json.dump(record, f)
+    if created:
+        torch.distributed.destroy_process_group()
+    return 0
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def dp_phase(device, card, ranks: int = DP_RANKS, per_card: bool = False) -> dict:
+    """Phase 10 (c): ``ranks`` gloo ranks on the one card (``per_card``:
+    NCCL ranks, one a card), started as subprocesses with torchrun's
+    environment, each training the headline RealBasicVSR (fp32, TF32 off)
+    on its share of the train leg's 4 clips; the gates read their records:
+    parameters bitwise equal after each step (each rank checked by a
+    broadcast of rank 0's), the first step's averaged gradient within
+    ``DP_TOL`` of this process's gradient on the whole batch, 420 pair
+    launches a step on each rank by shape. Then, on one card, one NCCL
+    group of one rank and an all-reduce. Returns the ranks' pair launches
+    by shape (the fp32 kernel)."""
+    import collections
+
+    import torch
+
+    from vsrlab_tpu_torch import parallel
+    from vsrlab_tpu_torch.train.builders import build_tx
+    from vsrlab_tpu_torch.train.state import create_train_state
+    from vsrlab_tpu_torch.train.step import make_supervised_train_step, supervised_loss
+
+    before = tf32(False)
+    model = build_model(None).to(device).train()
+    batch = train_batch(device)
+    model.zero_grad(set_to_none=True)
+    supervised_loss(model(batch["lr"]), batch)[0].backward()
+    whole = [(p.grad if p.grad is not None else torch.zeros_like(p)).detach().clone()
+             for p in model.parameters()]
+    state = create_train_state(model, build_tx(model.parameters(), ("adam", {"lr": 1e-4}), None,
+                                               1.0))
+    step = make_supervised_train_step(model)
+    single_ms = statistics.median(time_steps(model, lambda: step(state, batch), "taps", n=5,
+                                             warmup=3)) * 1e3
+    del state, step, model
+    torch.cuda.empty_cache()
+
+    outdir = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "chip_smoke_dp")
+    os.makedirs(outdir, exist_ok=True)
+    for name in os.listdir(outdir):
+        os.remove(os.path.join(outdir, name))
+    if TRAIN_CLIP[0] % ranks:
+        raise ValueError(f"{TRAIN_CLIP[0]} clips do not split over {ranks} ranks")
+    one_card = f"cuda:{device.index or 0}" if device.type == "cuda" else "cpu"
+    # what each rank is to report: NCCL on a card of its own, or gloo on the one card
+    expect = [("nccl", f"cuda:{r}") if per_card else ("gloo", one_card) for r in range(ranks)]
+    with open(os.path.join(outdir, "spec.json"), "w") as f:
+        json.dump({"device": "cuda" if per_card else one_card, "headline": HEADLINE,
+                   "clip": TRAIN_CLIP, "steps": DP_STEPS}, f)
+    port = free_port()
+    procs = []
+    for rank in range(ranks):
+        # torchrun's environment, its one OpenMP thread a rank included
+        env = dict(os.environ, RANK=str(rank), LOCAL_RANK=str(rank), WORLD_SIZE=str(ranks),
+                   LOCAL_WORLD_SIZE=str(ranks), MASTER_ADDR="localhost",
+                   MASTER_PORT=str(port), OMP_NUM_THREADS=os.environ.get("OMP_NUM_THREADS", "1"))
+        procs.append(subprocess.Popen([sys.executable, os.path.abspath(__file__), "--dp-rank",
+                                       outdir], env=env, stdout=subprocess.PIPE,
+                                      stderr=subprocess.STDOUT, text=True))
+    outs = []
+    try:
+        for p in procs:
+            outs.append(p.communicate(timeout=DP_TIMEOUT)[0])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+    for rank, (p, out) in enumerate(zip(procs, outs)):
+        if p.returncode != 0:
+            raise AssertionError(f"data-parallel rank {rank} exited {p.returncode}:\n{out[-4000:]}")
+    records = []
+    for rank in range(ranks):
+        with open(os.path.join(outdir, f"rank{rank}.json")) as f:
+            records.append(json.load(f))
+    launches = collections.Counter()
+    want = dp_launches(TRAIN_CLIP[0] // ranks)
+    for r in records:
+        if (r["backend"], r["device"]) != expect[r["rank"]]:
+            raise AssertionError(f"rank {r['rank']}: {r['backend']} on {r['device']}, "
+                                 f"not {expect[r['rank']]}")
+        for i, s in enumerate(r["steps"]):
+            got = {f: {tuple(k): v for k, v in s["launches"][f]} for f in KERNELS}
+            gate_counts(f"rank {r['rank']} step {i}", got, {"taps": want})
+        for k, v in r["launches"]["taps"]:
+            launches[tuple(k)] += v
+    if any([s["loss"] for s in r["steps"]] != [s["loss"] for s in records[0]["steps"]]
+           for r in records):
+        raise AssertionError("the ranks' averaged losses differ")
+    reduced = torch.load(os.path.join(outdir, "grads0.pt"))
+    worst = 0.0
+    for a, b in zip(reduced, whole):
+        b = b.cpu()
+        d = (a - b).abs()
+        if not bool((d <= DP_TOL[0] + DP_TOL[1] * b.abs()).all()):
+            raise AssertionError(f"the averaged gradient differs from one process's by "
+                                 f"{float(d.max()):.3e}")
+        worst = max(worst, float(d.max()))
+    where = "one rank a card" if per_card else "on one card"
+    log(f"  {ranks} {expect[0][0]} ranks, {where}, {card}: parameters bitwise equal after each of "
+        f"{DP_STEPS} steps; the first step's averaged gradient within {DP_TOL[0]} + "
+        f"{DP_TOL[1]}*|b| of one process's on the whole batch (max |a-b| {worst:.3e}); "
+        f"{sum(want.values())} pair launches a step on each rank")
+    log(f"  fp32 step (TF32 off): one process, batch {TRAIN_CLIP[0]}: {single_ms:.2f} ms; "
+        f"{ranks} ranks {where}, {TRAIN_CLIP[0] // ranks} clips each: "
+        + " / ".join(f"{r['step_ms']:.2f}" for r in records)
+        + f" ms; all-reduce of {records[0]['grad_elements']:,} fp32 gradients "
+        f"{records[0]['all_reduce_ms']:.2f} ms ({expect[0][0]}, host clock with synchronize)")
+    if not per_card:  # the backend a user with a card a rank gets: NCCL, one rank
+        backend = "nccl" if device.type == "cuda" else "gloo"
+        torch.distributed.init_process_group(backend,
+                                             init_method=f"tcp://localhost:{free_port()}",
+                                             rank=0, world_size=1)
+        try:
+            t = torch.arange(6.0, device=device)
+            parallel.all_reduce_mean([t], torch.distributed.group.WORLD)
+            if not torch.equal(t, torch.arange(6.0, device=device)):
+                raise AssertionError(f"{backend} all-reduce of one rank changed its tensor")
+        finally:
+            torch.distributed.destroy_process_group()
+        log(f"  {backend}: a group of one rank initialised and all-reduced on {device}")
+    tf32(before)
+    record = {"single_step_ms": single_ms, "ranks": records, "grad_max_abs_diff": worst,
+              "per_card": per_card}
+    log(json.dumps({"data_parallel": {**record, "card": card}}))
+    return {"taps": launches}
+
+
+def dp_trainer(ranks: int, card: str) -> None:
+    """``python -m torch.distributed.run --nproc_per_node ranks -m
+    vsrlab_tpu_torch.train.train`` on SyntheticVSR (``+experiment=synthetic``
+    at the headline's 64 channels, 64x64 HR clips, batch 4, 2 epochs), one
+    rank a card: NCCL, a barrier after each rank-0 save, the trainer's
+    replica check after each epoch. Gates: a clean exit, the two epochs'
+    checkpoints and the validation rows of the log, each epoch's line
+    printed once (rank 0 alone prints)."""
+    import shutil
+
+    from vsrlab_tpu_torch.core.checkpoint import CheckpointManager
+
+    repo = os.path.dirname(os.path.abspath(__file__))
+    root = os.path.join(repo, "build", "chip_smoke_dp_train")
+    shutil.rmtree(root, ignore_errors=True)
+    hr = [f"train.data.datasets.{split}.{side}=64" for split in ("train", "val")
+          for side in ("height", "width")]
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--nproc_per_node", str(ranks),
+           "--master_port", str(free_port()), "-m", "vsrlab_tpu_torch.train.train",
+           "+experiment=synthetic", "device=cuda", "train.ddp=true", "train.max_epochs=2",
+           f"train.model.mid_channels={HEADLINE['mid_channels']}", *hr,
+           f"train.checkpoint_dir={root}/ckpt", "train.logger.backend=jsonl",
+           f"train.logger.save_dir={root}/logs", "train.logger.project=chip_smoke",
+           "train.logger.id=dp"]
+    env = {k: v for k, v in os.environ.items()
+           if not k.startswith(("RANK", "WORLD_SIZE", "LOCAL_", "MASTER_"))}
+    t0 = time.perf_counter()
+    done = subprocess.run(cmd, cwd=repo, env=env, capture_output=True, text=True,
+                          timeout=DP_TIMEOUT)
+    seconds = time.perf_counter() - t0
+    out = done.stdout + done.stderr
+    if done.returncode != 0:
+        raise AssertionError(f"torchrun train.train exited {done.returncode}:\n{out[-4000:]}")
+    keys = CheckpointManager(f"{root}/ckpt").all_keys()
+    rows = open(f"{root}/logs/chip_smoke/dp/metrics.jsonl").read().splitlines()
+    # a line "epoch k: ..." from each rank that prints (torchrun may tag it "[rankN]:")
+    epochs = [m.group(1) for m in map(re.compile(r"(?:\[rank\d+\]:)?(epoch \d+: .*)").match,
+                                      done.stdout.splitlines()) if m]
+    if keys != [0, 1] or sum("Loss/Val" in r for r in rows) != 2 or \
+            [e.split(":")[0] for e in epochs] != ["epoch 0", "epoch 1"]:
+        raise AssertionError(f"torchrun train.train: checkpoints {keys}, {len(rows)} log rows, "
+                             f"epoch lines {epochs}:\n{out[-4000:]}")
+    log(f"  train.train under torchrun, {ranks} NCCL ranks one a card, {card}: SyntheticVSR "
+        f"batch 4 of 3x64x64, 64 channels, 2 epochs in {seconds:.1f} s (start-up and builds "
+        f"included); checkpoints {keys}, each epoch printed once: {epochs}")
+
+
+def dp_cards_main() -> int:
+    """``--dp-cards``: phase 10 (c) with one NCCL rank a card over every
+    visible card, then :func:`dp_trainer` on them; the last line as the
+    whole script's, ``count`` the cards used."""
+    import torch
+
+    if not torch.cuda.is_available() or torch.cuda.device_count() < 2:
+        print("chip_smoke --dp-cards: needs two or more CUDA GPUs", file=sys.stderr)
+        return 1
+    from vsrlab_tpu_torch.build import load
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    ranks = torch.cuda.device_count()
+    card = card_line()
+    log(f"data parallelism over {ranks} x {torch.cuda.get_device_name(0)}")
+    log(card)
+    lib = load("residual_pair")
+    log(f"  kernels built in {lib.build_seconds:.1f} s -> {lib.path.name}")
+    t0 = time.perf_counter()
+    dp_phase(torch.device("cuda"), card, ranks=ranks, per_card=True)
+    t1 = time.perf_counter()
+    dp_trainer(ranks, card)
+    log(f"  took {time.perf_counter() - t0:.1f} s: the ranks' steps {t1 - t0:.1f}, the trainer "
+        f"{time.perf_counter() - t1:.1f}")
+    log(json.dumps({"ok": True, "device": {"platform": "gpu",
+                                           "kind": torch.cuda.get_device_name(0),
+                                           "count": ranks}}))
+    return 0
+
+
+def phase10(device, card):
+    """Phase 10: VRT training at ``+experiment=vrt``'s shape (a), the
+    samplers' backward at its shapes (b), data parallelism on one card (c),
+    and the phase's wall seconds (d). Returns the sampler launches of (a)
+    and the pair launches of (c)."""
+    t = [time.perf_counter()]
+    log("  (a) VRT training, paper configuration, +experiment=vrt's shape")
+    calls = vrt_train_phase(device, card)
+    t.append(time.perf_counter())
+    log("  (b) the samplers' backward at the training shapes")
+    backward = backward_grad_phase(calls, device)
+    t.append(time.perf_counter())
+    log("  (c) data parallelism: two gloo ranks on one card, one NCCL rank")
+    dp = dp_phase(device, card)
+    t.append(time.perf_counter())
+    log(f"  (d) phase 10 took {t[-1] - t[0]:.1f} s: (a) {t[1] - t[0]:.1f}, (b) "
+        f"{t[2] - t[1]:.1f}, (c) {t[3] - t[2]:.1f}")
+    return calls, backward, dp
+
+
 def main() -> int:
     import torch
 
@@ -3173,6 +4028,17 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     torch.cuda.empty_cache()
 
+    log("phase 10: VRT training at +experiment=vrt's shape (paper configuration, batch 8 x 6 "
+        "frames, 64x64 -> 256x256, 4 microbatches, remat, bf16) and data parallelism")
+    vrt_train_calls, backward, dp_pairs = phase10(device, card)
+    for impl, by_kernel in vrt_train_calls.items():
+        for name, by_shape in by_kernel.items():
+            vrt_launches[name] += by_shape
+    for form, by_shape in dp_pairs.items():  # the ranks' fp32 steps
+        fp32_pairs[form] += by_shape
+    torch.backends.cudnn.allow_tf32 = False
+    torch.cuda.empty_cache()
+
     log("phase 6: each kernel at its paths' shapes")
     kernels = []
     for form, (name, replaces) in KERNELS.items():
@@ -3187,7 +4053,9 @@ def main() -> int:
         if name == "bilinear_sample":  # the flow paths' launches, fp32
             rows += time_sampler(flow_samplers, device, torch.float32)[1]
         kernels.append({"name": name, "route": "cuda", "source": source, "replaces": replaces,
-                        "also_replaces": also, **kernel_summary(rows, err, vrt_errs[name])})
+                        "also_replaces": also, **kernel_summary(rows, err, vrt_errs[name]),
+                        # phase 10 (b): the PyTorch backward at the training shapes
+                        "backward": backward["rows"][name]})
     pair_host_split(device)
     train_host_split(device)
     log(json.dumps({"kernels": kernels}))
@@ -3203,4 +4071,8 @@ if __name__ == "__main__":
         sys.exit(pair_times(tree))
     if sys.argv[1:2] == ["--sampler-times"]:
         sys.exit(sampler_times(tree))
+    if sys.argv[1:2] == ["--dp-rank"]:  # one rank of phase 10 (c), started by the script
+        sys.exit(dp_rank_main(sys.argv[2]))
+    if sys.argv[1:2] == ["--dp-cards"]:
+        sys.exit(dp_cards_main())
     sys.exit(main())

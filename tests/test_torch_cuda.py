@@ -426,6 +426,25 @@ def test_packed_sampler_matches_four_corner_on_the_card(cuda, impl, size):
     assert wrapper.launches == before + 2
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("size", [(64, 64, 10, 2), (12, 18, 10, 2), (8, 8, 4, None)])
+def test_take_route_is_the_plain_sampler_bit_for_bit_on_the_card(cuda, dtype, size):
+    """The row gather kernel moves bits and the fold weighs and adds the
+    four corners as the plain sampler does: the ``take`` route equals the
+    plain one in every bit, zeros and border."""
+    h, w, c, gp = size
+    g = torch.Generator().manual_seed(6)
+    x = torch.randn((5, h, w, c), generator=g).to(cuda, dtype)
+    ix = (torch.rand((5, h, w), generator=g) * (w + 3) - 2).to(cuda)
+    iy = (torch.rand((5, h, w), generator=g) * (h + 3) - 2).to(cuda)
+    before = pg.packed_row_gather.launches
+    for mode in ("zeros", "border"):
+        want = warp.sample_pixel_coords(x, ix, iy, padding_mode=mode, impl="plain")
+        got = warp.sample_pixel_coords(x, ix, iy, padding_mode=mode, window_group=gp, impl="take")
+        assert torch.equal(got, want), mode
+    assert pg.packed_row_gather.launches == before + 2
+
+
 @pytest.mark.parametrize("c", [1, 3, 4, 8, 10])
 def test_bilinear_sample_fp32_is_the_plain_version_bit_for_bit(cuda, c):
     """In fp32 the kernel rounds each corner's product before the sum, as
@@ -468,6 +487,29 @@ def test_bilinear_sample_gradient_matches_autograd_through_plain(cuda, shape, ze
         torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-4 * float(b.abs().max()))
 
 
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4), (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("shape", PACKED_SHAPES)
+def test_packed_row_gather_gradient_matches_autograd_through_plain(cuda, dtype, tol, shape):
+    """``PackedRowGather`` (the kernel forward, ``gather_grads`` backward)
+    against autograd through the plain gather: the rows exactly, the
+    table's gradient within the tolerance (both scatter-add in an order
+    the atomics choose); one kernel launch a forward."""
+    xf, fields = _packed_operands(*shape, dtype, cuda)
+    gout = torch.randn((xf.shape[0], fields[0].shape[1], xf.shape[2]), device=cuda).to(dtype)
+    res = []
+    for fn in (pg.packed_row_gather, pg.packed_row_gather_plain):
+        leaf = xf.clone().requires_grad_()
+        before = pg.packed_row_gather.launches
+        out = fn(leaf, fields[0])
+        out.backward(gout)
+        res.append((out.detach(), leaf.grad))
+        assert pg.packed_row_gather.launches == before + (fn is pg.packed_row_gather)
+    assert torch.equal(res[0][0], res[1][0])
+    assert res[0][1].dtype == dtype
+    torch.testing.assert_close(res[0][1].float(), res[1][1].float(), rtol=tol,
+                               atol=tol * float(res[1][1].float().abs().max()))
+
+
 def test_packed_kernels_refuse_what_they_do_not_take(cuda):
     xf, fields = _packed_operands(2, 6, 8, 4, 2, torch.bfloat16, cuda)
     x = torch.randn((2, 6, 8, 4), device=cuda).bfloat16()
@@ -490,4 +532,9 @@ def test_packed_kernels_refuse_what_they_do_not_take(cuda):
         bs.bilinear_sample(x.half(), ix.clone().requires_grad_(), ix, True)
     with pytest.raises(ValueError, match="one CUDA device"):
         bs.bilinear_sample(x, ix.clone().requires_grad_(), ix.cpu(), True)
+    # and so does the row gather's (PackedRowGather)
+    with pytest.raises(ValueError, match="bf16 or fp32"):
+        pg.packed_row_gather(xf.half().requires_grad_(), fields[0])
+    with pytest.raises(ValueError, match="one CUDA device"):
+        pg.packed_row_gather(xf.clone().requires_grad_(), fields[0].cpu())
     assert (pg.packed_row_gather.launches, bs.bilinear_sample.launches) == before

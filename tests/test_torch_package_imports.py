@@ -27,7 +27,8 @@ def _imported_roots(path: Path):
 def test_sources_exist():
     assert (ROOT / "chip_smoke.py").is_file()
     assert len(SOURCES) > 10
-    # the training, serving, GAN and flow slices' modules are among those checked
+    # the training, serving, GAN, flow and data-parallel slices' modules are
+    # among those checked
     for module in ("components.py", "core/config.py", "core/checkpoint.py", "data/datasets.py",
                    "data/loader.py", "train/train.py", "train/step.py", "utils/seed.py",
                    "data/video_io.py", "evaluation/harness.py", "evaluation/upscale.py",
@@ -38,7 +39,9 @@ def test_sources_exist():
                    # the flow slice's
                    "ops/correlation.py", "models/flow/raft.py", "models/flow/irr.py",
                    "models/flow/spynet_progressive.py", "train/spynet.py",
-                   "data/flow_dataset.py", "data/create_flow_dataset.py"):
+                   "data/flow_dataset.py", "data/create_flow_dataset.py",
+                   # the data-parallel slice's
+                   "parallel/__init__.py", "parallel/mesh.py"):
         assert ROOT / "vsrlab_tpu_torch" / module in SOURCES, module
 
 

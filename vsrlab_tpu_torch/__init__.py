@@ -5,6 +5,7 @@ flows ``(..., 2)`` in ``(dx, dy)``. The fused residual conv pair and the
 bilinear sampler of VRT's deformable alignment run on hand-written CUDA
 kernels (``csrc/``), built with ``nvcc`` at first use; every other conv is
 ``F.conv2d``, every dense product ``torch.matmul``. Inference goes through
-``evaluation/``, supervised training through ``train/`` (the pair's
-gradient is PyTorch convolutions around its kernel forward).
+``evaluation/``, training through ``train/`` (the kernels' gradients are
+PyTorch ops around their kernel forwards), data parallelism across
+processes through ``parallel/``.
 """

@@ -1,8 +1,8 @@
 """Component registry of the port: the ``_target_`` names a config
-instantiates (supervised RealBasicVSR / BasicVSR training; GAN fine-tuning
-with its discriminator and losses; VRT / TinyVRT, which the serving entry
-points rebuild from a run's config snapshot; the optical-flow models,
-datasets and losses).
+instantiates (supervised RealBasicVSR / BasicVSR / VRT / TinyVRT training;
+GAN fine-tuning with its discriminator and losses; the serving entry
+points rebuild a model from a run's config snapshot; the optical-flow
+models, datasets and losses).
 
 Importing this module fills :data:`vsrlab_tpu_torch.core.config.REGISTRY`.
 Names the JAX package's configs use for components the port does not have
@@ -29,8 +29,8 @@ register("BasicVSR", BasicVSR)
 register("DatasetVSR", DatasetVSR)
 register("ValDatasetVSR", ValDatasetVSR)
 register("VideoDatasetVSR", VideoDatasetVSR)
-# VRT and TinyVRT serve; training them raises in the deformable sampler,
-# which has no backward yet (ROADMAP queue 1, item 7)
+# VRT and TinyVRT serve and train: both sampler routes of the deformable
+# alignment have a gradient (the kernel forward, PyTorch ops backward)
 register("VRT", VRT)
 register("TinyVRT", TinyVRT)
 register("SyntheticVSR", SyntheticVSR)

@@ -19,6 +19,8 @@ from typing import Callable, Iterator, Optional
 import numpy as np
 import torch
 
+from vsrlab_tpu_torch.parallel.mesh import shard_slice
+
 
 def to_device(device) -> Callable[[dict], dict]:
     """``batch -> batch`` of tensors on ``device``: from pinned host memory
@@ -45,10 +47,10 @@ class DataLoader:
         if batch_size % num_shards:
             raise ValueError("global batch_size must divide by num_shards")
         self.dataset = dataset
-        self.global_batch, self.local_batch = batch_size, batch_size // num_shards
+        self.global_batch = batch_size
+        self.shard_rows = shard_slice(batch_size, num_shards, shard_index)
         self.shuffle, self.drop_last, self.seed = shuffle, drop_last, seed
         self.num_workers, self.prefetch = max(1, num_workers), max(1, prefetch_factor)
-        self.num_shards, self.shard_index = num_shards, shard_index
         self.device_put = device_put
         self._epoch = 0
         self._skip = 0
@@ -85,8 +87,7 @@ class DataLoader:
                 # the tail batch (drop_last=False) is wrap-padded so that
                 # every shard's slice stays full
                 idx = np.concatenate([idx, order[: self.global_batch - len(idx)]])
-            lo = self.shard_index * self.local_batch
-            yield idx[lo : lo + self.local_batch]
+            yield idx[self.shard_rows]
 
     def __iter__(self) -> Iterator:
         batches = queue.Queue(maxsize=self.prefetch)

@@ -62,7 +62,8 @@ class Stage(nn.Module):
                                                pa_frames, dtype)
         self.pa_fuse = MlpGEGLU(3 * dim, 3 * dim, dim, dtype)
 
-    def forward(self, x, flows_backward: List[torch.Tensor], flows_forward: List[torch.Tensor]):
+    def forward(self, x, flows_backward: List[torch.Tensor], flows_forward: List[torch.Tensor],
+                deterministic: bool = True, generator: Optional[torch.Generator] = None):
         b, d, h, w, c = x.shape
         if self.reshape == "down":
             # space-to-channel 2x2, channel order (w-offset, h-offset, c)
@@ -76,8 +77,8 @@ class Stage(nn.Module):
         if self.reshape != "none":
             x = self.reshape_linear(x)
 
-        x = self.linear1(self.residual_group1(x)) + x
-        x = self.linear2(self.residual_group2(x)) + x
+        x = self.linear1(self.residual_group1(x, deterministic, generator)) + x
+        x = self.linear2(self.residual_group2(x, deterministic, generator)) + x
 
         x_backward, x_forward = self._aligned_features(x, flows_backward[0], flows_forward[0])
         return self.pa_fuse(torch.cat([x, x_backward, x_forward], -1))

@@ -7,9 +7,9 @@
   shifts, sharing one cached shift mask;
 * RTMSA: residual TMSAG + linear (the reconstruction trunk).
 
-Everything is (B, D, H, W, C). Inference only: the stochastic-depth rate
-is accepted and, as in the JAX package's deterministic mode, applies
-nothing.
+Everything is (B, D, H, W, C). Each block's two residual branches go
+through :class:`DropPath` (stochastic depth), which is the identity in
+deterministic mode, the default and the trainer's, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -31,6 +31,28 @@ from vsrlab_tpu_torch.models.vrt.window_attention import (
 from vsrlab_tpu_torch.nn.blocks import LayerNorm, Linear
 
 
+class DropPath(nn.Module):
+    """Per-sample stochastic depth: the identity where ``deterministic`` or
+    ``rate == 0``; otherwise each sample is kept whole with probability
+    ``1 - rate`` and scaled by ``1 / keep``, or zeroed, its draw taken from
+    ``generator`` (required then)."""
+
+    def __init__(self, rate: float = 0.0):
+        super().__init__()
+        self.rate = float(rate)
+
+    def forward(self, x, deterministic: bool = True,
+                generator: Optional[torch.Generator] = None):
+        if deterministic or self.rate == 0.0:
+            return x
+        if generator is None:
+            raise ValueError("DropPath outside deterministic mode needs a torch.Generator")
+        keep = 1.0 - self.rate
+        shape = (x.shape[0],) + (1,) * (x.ndim - 1)
+        mask = torch.rand(shape, generator=generator, device=generator.device) < keep
+        return torch.where(mask.to(x.device), x / keep, 0.0).to(x.dtype)
+
+
 class TMSA(nn.Module):
     def __init__(self, dim: int, num_heads: int, window_size: Sequence[int] = (6, 8, 8),
                  shift_size: Sequence[int] = (0, 0, 0), mut_attn: bool = True,
@@ -38,14 +60,15 @@ class TMSA(nn.Module):
                  qk_scale: Optional[float] = None, drop_path: float = 0.0, dtype=None):
         super().__init__()
         self.window_size, self.shift_size = tuple(window_size), tuple(shift_size)
-        self.drop_path = drop_path  # identity in inference
+        self.drop_path = DropPath(drop_path)
         self.norm1 = LayerNorm(dim, dtype=dtype)
         self.attn = WindowAttention(dim, self.window_size, num_heads, qkv_bias, qk_scale,
                                     mut_attn, dtype=dtype)
         self.norm2 = LayerNorm(dim, dtype=dtype)
         self.mlp = MlpGEGLU(dim, int(dim * mlp_ratio), dim, dtype=dtype)
 
-    def forward(self, x, mask_matrix=None):
+    def forward(self, x, mask_matrix=None, deterministic: bool = True,
+                generator: Optional[torch.Generator] = None):
         b, d, h, w, c = x.shape
         window_size, shift_size = get_window_size((d, h, w), self.window_size, self.shift_size)
         shortcut = x
@@ -63,8 +86,8 @@ class TMSA(nn.Module):
             x = torch.roll(x, shift_size, (1, 2, 3))
         if pad_d or pad_b or pad_r:
             x = x[:, :d, :h, :w]
-        x = shortcut + x
-        return x + self.mlp(self.norm2(x))
+        x = shortcut + self.drop_path(x, deterministic, generator)
+        return x + self.drop_path(self.mlp(self.norm2(x)), deterministic, generator)
 
 
 class TMSAG(nn.Module):
@@ -86,7 +109,8 @@ class TMSAG(nn.Module):
                 (0, 0, 0) if i % 2 == 0 else self.base_shift, mut_attn, mlp_ratio, qkv_bias,
                 qk_scale, float(rate), dtype))
 
-    def forward(self, x):
+    def forward(self, x, deterministic: bool = True,
+                generator: Optional[torch.Generator] = None):
         _, d, h, w, _ = x.shape
         window_size, shift_size = get_window_size((d, h, w), self.window_size, self.base_shift)
         dp, hp, wp = (-(-s // ws) * ws for s, ws in zip((d, h, w), window_size))
@@ -94,7 +118,7 @@ class TMSAG(nn.Module):
         # VRT at 16x256x256
         mask = compute_mask_factored(dp, hp, wp, tuple(window_size), tuple(shift_size))
         for i in range(self.depth):
-            x = getattr(self, f"block_{i}")(x, mask)
+            x = getattr(self, f"block_{i}")(x, mask, deterministic, generator)
         return x
 
 
@@ -109,5 +133,6 @@ class RTMSA(nn.Module):
                                     qkv_bias, qk_scale, drop_path, dtype)
         self.linear = Linear(dim, dim, True, dtype)
 
-    def forward(self, x):
-        return x + self.linear(self.residual_group(x))
+    def forward(self, x, deterministic: bool = True,
+                generator: Optional[torch.Generator] = None):
+        return x + self.linear(self.residual_group(x, deterministic, generator))

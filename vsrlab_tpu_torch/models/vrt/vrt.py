@@ -1,4 +1,4 @@
-"""VRT / TinyVRT (port of ``vsrlab_tpu/models/vrt/vrt.py``), inference.
+"""VRT / TinyVRT (port of ``vsrlab_tpu/models/vrt/vrt.py``).
 
 Multi-scale SpyNet flows, nearest4-warped neighbour frames concatenated
 onto the input (9*C channels), a U-shaped stack of Stages with skip
@@ -10,10 +10,17 @@ upsampling ladder with a bilinear input residual.
 * both flow directions come from ONE batched SpyNet call;
 * full VRT uses 4 SpyNet levels, TinyVRT 3.
 
-``forward`` returns ``(sr, lq)`` as the JAX package does. The deformable
-alignment's sampler runs on the packed-gather kernels; its formulation is
-set with :func:`vsrlab_tpu_torch.nn.blocks.set_sampler_impl` (``"fused"``
-by default).
+``forward(x, deterministic=True, generator=None)`` returns ``(sr, lq)``
+as the JAX package does; outside deterministic mode the stochastic depth
+(``drop_path_rate``, spread over the blocks by ``np.linspace``) draws from
+``generator``. The deformable alignment's sampler runs on the hand-written
+kernels under a gradient too; its formulation is set with
+:func:`vsrlab_tpu_torch.nn.blocks.set_sampler_impl` (``"fused"`` by
+default). SpyNet's flows carry no gradient unless ``optical_flow_train``
+(the JAX package's stop-gradient). ``remat`` recomputes each Stage and
+each trunk RTMSA in the backward pass (``torch.utils.checkpoint``,
+non-reentrant), the units the JAX package rematerialises: its kernels
+then launch again in the backward, and each launch counts.
 """
 
 from __future__ import annotations
@@ -25,10 +32,12 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from vsrlab_tpu_torch.models.spynet import SpyNet
 from vsrlab_tpu_torch.models.vrt.stage import Stage, flat_frames
 from vsrlab_tpu_torch.models.vrt.tmsa import RTMSA
+from vsrlab_tpu_torch.models.vrt.window_attention import check_head_shard_axis
 from vsrlab_tpu_torch.nn.blocks import Conv2d, LayerNorm, Linear
 from vsrlab_tpu_torch.ops.pixel_shuffle import pixel_shuffle
 from vsrlab_tpu_torch.ops.resize import resize_bilinear
@@ -54,11 +63,14 @@ class _VRTBase(nn.Module):
                  num_heads: Sequence[int] = (6, 6, 6, 6, 6, 6, 6), mul_attn_ratio: float = 0.75,
                  mlp_ratio: float = 2.0, qkv_bias: bool = True,
                  qk_scale: Optional[float] = None, drop_path_rate: float = 0.2,
-                 pa_frames: int = 2, deformable_groups: int = 16, remat: bool = False,
-                 align_chunks: int = 0, dtype=None):
+                 optical_flow_train: bool = False, pa_frames: int = 2,
+                 deformable_groups: int = 16, head_shard_axis: Optional[str] = None,
+                 remat: bool = False, align_chunks: int = 0, dtype=None):
         super().__init__()
-        del img_size, remat  # shape-independent parameters; no backward pass here
+        del img_size  # the parameters do not depend on the clip's shape
+        check_head_shard_axis(head_shard_axis)
         self.upscale, self.dtype = upscale, dtype
+        self.optical_flow_train, self.remat = optical_flow_train, remat
         depths, dims = list(depths), list(embed_dims)
         ns = len(self.scales)
         dpr = list(np.linspace(0, drop_path_rate, sum(depths)))
@@ -103,9 +115,12 @@ class _VRTBase(nn.Module):
         return y.reshape(b, t, *y.shape[1:])
 
     def _get_flows(self, x) -> Tuple[List[torch.Tensor], List[torch.Tensor]]:
-        """Multi-scale flows, fine to coarse, both directions in one SpyNet batch."""
+        """Multi-scale flows, fine to coarse, both directions in one SpyNet
+        batch; without ``optical_flow_train`` SpyNet runs without a
+        gradient (its parameters get none: the JAX stop-gradient)."""
         b, t, h, w, c = x.shape
-        flows = self.optical_flow.adjacent_pairs(x.reshape(-1, h, w, c), t)
+        with torch.set_grad_enabled(torch.is_grad_enabled() and self.optical_flow_train):
+            flows = self.optical_flow.adjacent_pairs(x.reshape(-1, h, w, c), t)
         if not isinstance(flows, list):
             flows = [flows]
         backward, forward = [], []
@@ -126,23 +141,47 @@ class _VRTBase(nn.Module):
         return (torch.cat([wb.reshape(b, t - 1, h, w, 4 * c), zeros], 1),
                 torch.cat([zeros, wf.reshape(b, t - 1, h, w, 4 * c)], 1))
 
-    def _forward_features(self, x, fb, ff):
+    def _forward_features(self, x, fb, ff, det, gen):
         raise NotImplementedError
 
-    def _trunk(self, x):
+    def _unit(self, module, *args, deterministic: bool, generator):
+        """Call a Stage or a trunk RTMSA, through a non-reentrant checkpoint
+        where ``remat`` is set and a gradient is recorded. A stochastic
+        call draws a seed for the unit from ``generator`` here, outside the
+        checkpoint, and the unit draws its paths from a generator of that
+        seed: the recompute drops the same paths, with or without remat."""
+        seed = None
+        if not deterministic and generator is not None:
+            seed = int(torch.randint(2**62, (), generator=generator, device=generator.device))
+
+        def run(*a):
+            gen = None if seed is None else torch.Generator().manual_seed(seed)
+            return module(*a, deterministic=deterministic, generator=gen)
+
+        if self.remat and torch.is_grad_enabled():
+            return checkpoint(run, *args, use_reentrant=False)
+        return run(*args)
+
+    def _stage_call(self, i, x, fb, ff, det, gen):
+        return self._unit(self.stage(i), x, fb, ff, deterministic=det, generator=gen)
+
+    def _trunk(self, x, det, gen):
         """LN + Linear, then the RTMSA blocks and the final norm."""
         x = self.trunk_linear_in(self.trunk_norm_in(x))
         for i in self.trunk_ids:
-            x = getattr(self, f"trunk_rtmsa_{i}")(x)
+            x = self._unit(getattr(self, f"trunk_rtmsa_{i}"), x, deterministic=det,
+                           generator=gen)
         return self.norm(x)
 
-    def forward(self, x):
+    def forward(self, x, deterministic: bool = True,
+                generator: Optional[torch.Generator] = None):
         b, t, h, w, c = x.shape
         x_lq = x
         flows_backward, flows_forward = self._get_flows(x)
         x_b, x_f = self._aligned_image(x, flows_backward[0], flows_forward[0])
         feat = self._frame_conv(self.conv_first, torch.cat([x, x_b, x_f], -1))
-        body = self._forward_features(feat, flows_backward, flows_forward)
+        body = self._forward_features(feat, flows_backward, flows_forward, deterministic,
+                                      generator)
         feat = feat + self.conv_after_body(body)
 
         y = F.leaky_relu(self._frame_conv(self.conv_before_upsample, feat), 0.01)
@@ -172,15 +211,15 @@ class VRT(_VRTBase):
         super().__init__(upscale=upscale, depths=depths, embed_dims=embed_dims,
                          num_heads=num_heads, deformable_groups=deformable_groups, **kw)
 
-    def _forward_features(self, x, fb, ff):
-        x1 = self.stage(0)(x, fb[0::4], ff[0::4])
-        x2 = self.stage(1)(x1, fb[1::4], ff[1::4])
-        x3 = self.stage(2)(x2, fb[2::4], ff[2::4])
-        x4 = self.stage(3)(x3, fb[3::4], ff[3::4])
-        x = self.stage(4)(x4, fb[2::4], ff[2::4])
-        x = self.stage(5)(x + x3, fb[1::4], ff[1::4])
-        x = self.stage(6)(x + x2, fb[0::4], ff[0::4])
-        return self._trunk(x + x1)
+    def _forward_features(self, x, fb, ff, det, gen):
+        x1 = self._stage_call(0, x, fb[0::4], ff[0::4], det, gen)
+        x2 = self._stage_call(1, x1, fb[1::4], ff[1::4], det, gen)
+        x3 = self._stage_call(2, x2, fb[2::4], ff[2::4], det, gen)
+        x4 = self._stage_call(3, x3, fb[3::4], ff[3::4], det, gen)
+        x = self._stage_call(4, x4, fb[2::4], ff[2::4], det, gen)
+        x = self._stage_call(5, x + x3, fb[1::4], ff[1::4], det, gen)
+        x = self._stage_call(6, x + x2, fb[0::4], ff[0::4], det, gen)
+        return self._trunk(x + x1, det, gen)
 
 
 class TinyVRT(_VRTBase):
@@ -196,10 +235,10 @@ class TinyVRT(_VRTBase):
         super().__init__(upscale=upscale, depths=depths, embed_dims=embed_dims,
                          num_heads=num_heads, deformable_groups=deformable_groups, **kw)
 
-    def _forward_features(self, x, fb, ff):
-        x1 = self.stage(0)(x, fb[0::3], ff[0::3])
-        x2 = self.stage(1)(x1, fb[1::3], ff[1::3])
-        x3 = self.stage(2)(x2, fb[2::3], ff[2::3])
-        x = self.stage(3)(x3, fb[1::3], ff[1::3])
-        x = self.stage(4)(x + x2, fb[0::3], ff[0::3])
-        return self._trunk(x + x1)
+    def _forward_features(self, x, fb, ff, det, gen):
+        x1 = self._stage_call(0, x, fb[0::3], ff[0::3], det, gen)
+        x2 = self._stage_call(1, x1, fb[1::3], ff[1::3], det, gen)
+        x3 = self._stage_call(2, x2, fb[2::3], ff[2::3], det, gen)
+        x = self._stage_call(3, x3, fb[1::3], ff[1::3], det, gen)
+        x = self._stage_call(4, x + x2, fb[0::3], ff[0::3], det, gen)
+        return self._trunk(x + x1, det, gen)

@@ -205,6 +205,15 @@ def sine_position_encoding(
     return pos.reshape(1, h * w, -1).astype(np.float32)
 
 
+def check_head_shard_axis(axis: Optional[str]) -> None:
+    """Only ``None`` runs: sharding the attention heads over a mesh axis
+    waits for a later slice (ROADMAP queue 1, item 6b)."""
+    if axis is not None:
+        raise NotImplementedError(
+            f"head_shard_axis={axis!r}: tensor parallelism over attention heads is not "
+            "ported yet (ROADMAP queue 1, item 6b); pass None")
+
+
 class MlpGEGLU(nn.Module):
     """Gated-GELU MLP: ``fc2(gelu(fc11(x)) * fc12(x))``, exact (erf) GELU."""
 
@@ -226,12 +235,15 @@ class WindowAttention(nn.Module):
     ``window_size`` is the DECLARED window: it sizes the relative-position
     bias table, which is indexed ``[:N, :N]`` when the input's window is
     smaller, so the same parameters serve every input size.
+    ``head_shard_axis`` (tensor parallelism over the heads) takes only
+    ``None`` here: see :func:`check_head_shard_axis`.
     """
 
     def __init__(self, dim: int, window_size: Sequence[int], num_heads: int,
                  qkv_bias: bool = True, qk_scale: Optional[float] = None, mut_attn: bool = True,
-                 dtype=None):
+                 head_shard_axis: Optional[str] = None, dtype=None):
         super().__init__()
+        check_head_shard_axis(head_shard_axis)
         self.dim, self.num_heads, self.mut_attn = dim, num_heads, mut_attn
         self.window_size = tuple(window_size)
         self.scale = qk_scale or (dim // num_heads) ** -0.5

@@ -11,16 +11,20 @@ table row, named by ``idx`` ``(N, P)``.
   ``scripts/bench_pallas_deform_gather.py``: three ways round the TPU
   compiler's limits on one function, which one CUDA kernel computes.
 * :func:`fold_window` — the bilinear fold of the gathered windows in
-  torch, as ``vsrlab_tpu/ops/warp.py:157-175`` ships it.
+  torch (``vsrlab_tpu/ops/warp.py:157-175``), in the plain sampler's
+  arithmetic.
 
 The kernel is hand-written CUDA for Hopper in ``csrc/packed_gather.cu``;
 :func:`packed_row_gather_plain` is the plain PyTorch version. The wrapper
 given a CPU tensor returns the plain version; given a CUDA tensor it
-launches its kernel or raises. It is forward-only and raises on an input
-that requires grad. An index outside ``[0, R)`` is clamped into it. The
-wrapper counts its kernel launches in its ``launches`` attribute, and by
-shape in ``launches_by_shape`` (a ``Counter`` of ``(N, R, Wrow, P)``);
-:func:`reset_launch_counts` zeroes both.
+launches its kernel or raises. Where ``xf`` requires grad (and grad mode
+is on), a CUDA call runs as :class:`PackedRowGather`: the same kernel
+launch forward and :func:`gather_grads`, PyTorch ops, backward; a CPU
+call is autograd through the plain version. An index outside ``[0, R)``
+is clamped into it. The wrapper counts its kernel launches in its
+``launches`` attribute, and by shape in ``launches_by_shape`` (a
+``Counter`` of ``(N, R, Wrow, P)``); :func:`reset_launch_counts` zeroes
+both.
 """
 
 from __future__ import annotations
@@ -42,21 +46,26 @@ def packed_row_gather_plain(xf: torch.Tensor, idx: torch.Tensor) -> torch.Tensor
 
 
 def fold_window(g, rx0, py0, wx0, wx1, wy0, wy1, channels: int) -> torch.Tensor:
-    """Bilinear fold of gathered windows ``g`` ``(N, P, 4*gp*C)``: the
-    one-hot weights of ``vsrlab_tpu/ops/warp.py:166-175`` in fp32, summed
-    over the ``2 x 2gp`` slots, rounded to ``g.dtype`` once. A corner
-    whose slot lies outside the window matches no one-hot position and
-    contributes nothing."""
+    """Bilinear fold of gathered windows ``g`` ``(N, P, 4*gp*C)``: the four
+    corners read from their ``2 x 2gp`` slots, weighted by the products of
+    the per-axis weights in fp32 and added in the order (y0, x0), (y0, x1),
+    (y1, x0), (y1, x1), rounded to ``g.dtype`` once: the plain sampler's
+    arithmetic, so the route agrees with it bit for bit (the JAX package
+    folds with one-hot weights, ``vsrlab_tpu/ops/warp.py:166-175``, whose
+    sum XLA orders its own way). A corner whose slot lies outside the
+    window contributes nothing."""
     n, p, wrow = g.shape
     two_gp = wrow // (2 * channels)
-    k = torch.arange(two_gp, device=g.device, dtype=torch.int32)
-    ky = torch.arange(2, device=g.device, dtype=torch.int32)
-    selx = (wx0[..., None] * (k == rx0[..., None])
-            + wx1[..., None] * (k == (rx0 + 1)[..., None]))
-    sely = (wy0[..., None] * (ky == py0[..., None])
-            + wy1[..., None] * (ky == (py0 + 1)[..., None]))
-    w2 = (sely[..., :, None] * selx[..., None, :]).reshape(n, p, 2 * two_gp, 1)
-    out = (g.reshape(n, p, 2 * two_gp, channels).float() * w2).sum(-2)
+    rows = g.reshape(n, p, 2 * two_gp, channels)
+    out = None
+    for dy, wy in ((0, wy0), (1, wy1)):
+        for dx, wx in ((0, wx0), (1, wx1)):
+            sy, sx = py0 + dy, rx0 + dx
+            inside = (sy >= 0) & (sy <= 1) & (sx >= 0) & (sx < two_gp)
+            slot = (sy.clamp(0, 1) * two_gp + sx.clamp(0, two_gp - 1)).long()
+            vals = torch.gather(rows, 2, slot[..., None, None].expand(n, p, 1, channels))
+            term = vals[:, :, 0].float() * torch.where(inside, wy * wx, 0.0)[..., None]
+            out = term if out is None else out + term
     return out.to(g.dtype)
 
 
@@ -73,8 +82,6 @@ def _check_shapes(name, xf, idx):
 
 def _check(name, xf, idx):
     tensors = (xf, idx)
-    if any(t.requires_grad for t in tensors):
-        raise ValueError(f"{name} is forward-only: an input requires grad")
     _check_shapes(name, xf, idx)
     if xf.device.type == "cpu":
         return
@@ -108,6 +115,11 @@ def packed_row_gather(xf: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     in an exported graph the custom op ``vsrlab::packed_row_gather``)."""
     if torch.compiler.is_exporting():
         return torch.ops.vsrlab.packed_row_gather(xf, idx)
+    if torch.is_grad_enabled() and xf.requires_grad:
+        _check("packed_row_gather", xf, idx)
+        if xf.device.type == "cpu":
+            return packed_row_gather_plain(xf, idx)
+        return PackedRowGather.apply(xf, idx)
     return _gather(xf, idx)
 
 
@@ -115,6 +127,11 @@ def _gather(xf: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     _check("packed_row_gather", xf, idx)
     if xf.device.type == "cpu":
         return packed_row_gather_plain(xf, idx)
+    return _launch(xf, idx)
+
+
+def _launch(xf: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """One launch of the kernel on checked CUDA operands, counted."""
     n, r, wrow = xf.shape
     p = idx.shape[1]
     out = torch.empty((n, p, wrow), dtype=xf.dtype, device=xf.device)
@@ -127,6 +144,38 @@ def _gather(xf: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     packed_row_gather.launches += 1
     packed_row_gather.launches_by_shape[(n, r, wrow, p)] += 1
     return out
+
+
+def gather_grads(g: torch.Tensor, idx: torch.Tensor, rows: int) -> torch.Tensor:
+    """The gather's vector-Jacobian product, plain PyTorch: for the output
+    gradient ``g`` ``(N, P, Wrow)``, ``dxf`` ``(N, rows, Wrow)`` in
+    ``g.dtype``: each output row's gradient scatter-added (``index_add_``)
+    into the table row its clamped index named, summed in fp32 and
+    rounded once."""
+    n, p, wrow = g.shape
+    base = (torch.arange(n, device=g.device) * rows)[:, None]
+    lin = (base + idx.long().clamp(0, rows - 1)).reshape(-1)
+    dxf = torch.zeros((n * rows, wrow), dtype=torch.float32, device=g.device)
+    dxf.index_add_(0, lin, g.reshape(-1, wrow).float())
+    return dxf.reshape(n, rows, wrow).to(g.dtype)
+
+
+class PackedRowGather(torch.autograd.Function):
+    """The row gather with a gradient: ``forward`` is the kernel launch of
+    inference (counted as one), ``backward`` is :func:`gather_grads`; the
+    index gets none. The JAX package differentiates its XLA gather and has
+    no backward kernel, so the backward is PyTorch ops here too."""
+
+    @staticmethod
+    def forward(ctx, xf, idx):
+        ctx.rows = xf.shape[1]
+        ctx.save_for_backward(idx)
+        return _launch(xf.detach(), idx)
+
+    @staticmethod
+    def backward(ctx, g):
+        (idx,) = ctx.saved_tensors
+        return gather_grads(g.contiguous(), idx, ctx.rows), None
 
 
 # the kernel as a custom op, so that torch.export keeps it in its graph; its

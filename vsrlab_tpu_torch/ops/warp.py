@@ -130,7 +130,8 @@ def _bilinear_packed(x, ix, iy, padding_mode: str, window_group: int | None):
     torch, in ``x.dtype``. Every shape goes through the kernel: where the
     JAX package gives an image of fewer than 2 rows or 2 x-groups to its
     four-corner gather, the table here is zero-padded to one window
-    instead."""
+    instead. Under a gradient the gather runs as
+    :class:`~vsrlab_tpu_torch.ops.packed_gather.PackedRowGather`."""
     n, h, w, c = x.shape
     gp = window_group or _window_group(c, ix.numel(), x.element_size())
     xf = packed_table(x, gp)
@@ -158,9 +159,11 @@ def sample_pixel_coords(
     sampler with ``window_group`` x-positions a table row (``None``: the
     heuristic), kept as the counterpart of the formulation the JAX package
     ships (row gather kernel, weights and fold in torch) and slower than
-    either of the others. ``"fused"`` has a gradient (the kernel forward,
-    PyTorch ops backward: :class:`~vsrlab_tpu_torch.ops.bilinear_sample.BilinearSample`);
-    ``"take"`` is forward-only. Both take every image size;
+    either of the others. Both have a gradient, the kernel forward and
+    PyTorch ops backward (:class:`~vsrlab_tpu_torch.ops.bilinear_sample.BilinearSample`;
+    :class:`~vsrlab_tpu_torch.ops.packed_gather.PackedRowGather`, whose
+    table, weights and fold are torch ops, so the gradient reaches the
+    image and the coordinates). Both take every image size;
     ``window_group`` affects ``"take"`` only.
     """
     n, h, w, c = x.shape

@@ -15,6 +15,7 @@ import torch
 from vsrlab_tpu_torch.core import schedulers
 from vsrlab_tpu_torch.core.config import Config, instantiate
 from vsrlab_tpu_torch.data import DataLoader
+from vsrlab_tpu_torch.parallel import all_reduce_mean
 
 
 def build_schedule(spec, base_lr: float) -> Callable[[int], float]:
@@ -42,6 +43,10 @@ class Updater:
     * a parameter without a gradient (SpyNet under ``train_flow: false``)
       gets a zero gradient, as optax gives it: adam leaves it where it is,
       adamw still decays it;
+    * with a process ``group`` (data parallelism), the gradients are then
+      averaged over its ranks, one flat all-reduce, so that the norm, the
+      non-finite check, the clip and the update see the global mean
+      gradient on every rank, as the XLA program does;
     * ``skip_nonfinite > 0``: an update whose gradients hold inf / NaN is
       skipped (parameters and optimizer state untouched) unless more than
       ``skip_nonfinite`` such updates came in a row (``optax.apply_if_finite``);
@@ -53,8 +58,8 @@ class Updater:
     """
 
     def __init__(self, optimizer: torch.optim.Optimizer, schedule: Callable[[int], float],
-                 grad_clip: Optional[float] = None, skip_nonfinite: int = 0):
-        self.optimizer, self.schedule = optimizer, schedule
+                 grad_clip: Optional[float] = None, skip_nonfinite: int = 0, group=None):
+        self.optimizer, self.schedule, self.group = optimizer, schedule, group
         self.grad_clip, self.skip_nonfinite = grad_clip, int(skip_nonfinite or 0)
         self.params = [p for g in optimizer.param_groups for p in g["params"]]
         self.count = 0  # applied updates
@@ -71,7 +76,7 @@ class Updater:
     def step(self) -> torch.Tensor:
         """Apply one update from the parameters' gradients; returns their
         global norm before clipping (a 0-d tensor on the device)."""
-        grads = self.grads()
+        grads = all_reduce_mean(self.grads(), self.group)
         norm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads)))
         if self.skip_nonfinite:
             finite = bool(torch.stack([torch.isfinite(g).all() for g in grads]).all())
@@ -101,8 +106,10 @@ class Updater:
 
 
 def build_tx(params: Iterable[torch.nn.Parameter], optimizer_cfg, scheduler_cfg=None,
-             grad_clip: Optional[float] = None, skip_nonfinite: int = 0) -> Updater:
-    """Optimizer config (+ schedule, clip, non-finite skip) -> the
+             grad_clip: Optional[float] = None, skip_nonfinite: int = 0,
+             group=None) -> Updater:
+    """Optimizer config (+ schedule, clip, non-finite skip, the process
+    ``group`` to average gradients over) -> the
     :class:`Updater` over ``params``, which holds the optimizer (``adam``,
     ``adamw`` for adam with weight decay too, ``sgd``) and the schedule.
     The optimizers run their foreach updates (a few launches for all the
@@ -125,7 +132,8 @@ def build_tx(params: Iterable[torch.nn.Parameter], optimizer_cfg, scheduler_cfg=
                               foreach=True)
     else:
         raise ValueError(f"unknown optimizer: {name}")
-    return Updater(opt, schedule, float(grad_clip) if grad_clip else None, skip_nonfinite)
+    return Updater(opt, schedule, float(grad_clip) if grad_clip else None, skip_nonfinite,
+                   group)
 
 
 def build_model(model_cfg, precision: str = "fp32") -> torch.nn.Module:

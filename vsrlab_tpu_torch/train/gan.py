@@ -17,8 +17,12 @@ One step, in the JAX step's order:
 Two optimizers (``optimizer.generator`` / ``.discriminator`` with their
 schedules), each clipping its own gradient norm. A checkpoint holds the
 generator's parameters and optimizer (and the EMA sidecar), as the JAX
-trainer's does: the discriminator is not checkpointed. One process trains
-on one device, the card unless ``device=cpu``.
+trainer's does: the discriminator is not checkpointed. The run is on the
+card unless ``device=cpu``; under torchrun with ``train.ddp`` the ranks
+train data-parallel as :mod:`vsrlab_tpu_torch.train.train` does, both
+updaters averaging their gradients over the ranks (the spectral-norm
+``u`` / ``sigma`` depend only on D's weights, so they stay equal on every
+rank, and are checked so after each epoch).
 """
 
 from __future__ import annotations
@@ -28,6 +32,7 @@ import time
 from typing import Dict
 
 import torch
+import torch.distributed as dist
 
 import vsrlab_tpu_torch.components  # noqa: F401  (fills the registry)
 from vsrlab_tpu_torch.core.checkpoint import CheckpointManager
@@ -39,13 +44,15 @@ from vsrlab_tpu_torch.core.perceptual import PerceptualLoss
 from vsrlab_tpu_torch.data.loader import to_device
 from vsrlab_tpu_torch.evaluation.harness import resolve_device
 from vsrlab_tpu_torch.nn.blocks import init_weights
+from vsrlab_tpu_torch.parallel import (
+    assert_replicated, data_parallel, reduce_metrics, replicated, stdout_on_rank0)
 from vsrlab_tpu_torch.train.builders import build_loaders, build_model, build_tx
 from vsrlab_tpu_torch.train.state import TrainState, create_train_state
 from vsrlab_tpu_torch.train.step import (
     DEFAULT_METRICS, _resize_clip_to, default_metrics, ema_update, make_eval_step,
     metrics_from_config)
 from vsrlab_tpu_torch.train.train import (
-    _accumulate, _load_ema_params, _mean_metrics, _restore_ema)
+    _accumulate, _load_ema_params, _mean_metrics, _restore_ema, replica_state)
 from vsrlab_tpu_torch.utils.seed import seed_index_everything
 
 
@@ -56,12 +63,14 @@ def _frames(clip: torch.Tensor) -> torch.Tensor:
 def make_gan_train_step(model: torch.nn.Module, discriminator: torch.nn.Module,
                         perceptual_loss=None, adv_weight: float = 2e-5,
                         update_generator: bool = True, ema_decay: float = 0.0,
-                        metrics=DEFAULT_METRICS):
+                        metrics=DEFAULT_METRICS, group=None):
     """``step(g_state, d_state, batch) -> (g_state, d_state, metrics)`` for
     ``lr`` / ``hr`` clips ``(B, T, H, W, 3)`` on the models' device; both
     states are updated in place. Without ``update_generator`` the
     generator's half runs without a gradient and the generator, its
-    optimizer and its EMA stay as they are."""
+    optimizer and its EMA stay as they are. With a process ``group`` the
+    metrics are averaged over the ranks (the updaters average the
+    gradients)."""
     names = resolve_metric_names(metrics)
 
     def generator_half(lr, hr):
@@ -102,7 +111,7 @@ def make_gan_train_step(model: torch.nn.Module, discriminator: torch.nn.Module,
         out = {"Loss": loss_g.detach(), "LossDiscriminator": loss_d.detach(),
                **{k: v.detach() for k, v in parts.items()}}
         out.update(default_metrics(sr, hr, names))
-        return g_state, d_state, out
+        return g_state, d_state, reduce_metrics(out, group)
 
     return step
 
@@ -136,30 +145,45 @@ def restore_generator(g_state: TrainState, tcfg):
 
 def run(cfg: Config, device: str | torch.device = "cuda") -> Dict[str, float]:
     """Fine-tune per ``cfg`` on ``device`` (raises where CUDA is asked for
-    and absent); returns the last validation metrics."""
-    device = resolve_device(device)
+    and absent), data-parallel under torchrun with ``train.ddp``; returns
+    the last validation metrics."""
+    device, mesh, created = data_parallel(bool(cfg.train.get("ddp", True)),
+                                          resolve_device(device))
+    try:
+        with stdout_on_rank0(mesh.rank):
+            return _run(cfg, device, mesh)
+    finally:
+        if created:
+            dist.destroy_process_group()
+
+
+def _run(cfg, device, mesh):
     generator = seed_index_everything(cfg)
     tcfg = cfg.train
     model = build_model(tcfg.model, tcfg.get("precision", "fp32"))
-    init_weights(model, generator).to(device).train()
+    replicated(init_weights(model, generator).to(device).train(), mesh.group)
     discriminator = instantiate(tcfg.discriminator)
-    init_weights(discriminator, generator).to(device).train()
+    replicated(init_weights(discriminator, generator).to(device).train(), mesh.group)
 
     skip_nf = int(tcfg.get("skip_nonfinite", 0) or 0)
     schedules = tcfg.get("scheduler") or {}
     tx_g = build_tx(model.parameters(), tcfg.optimizer.generator, schedules.get("generator"),
-                    tcfg.get("gradient_clip_val"), skip_nonfinite=skip_nf)
+                    tcfg.get("gradient_clip_val"), skip_nonfinite=skip_nf, group=mesh.group)
     tx_d = build_tx(discriminator.parameters(), tcfg.optimizer.discriminator,
                     schedules.get("discriminator"), tcfg.get("gradient_clip_val"),
-                    skip_nonfinite=skip_nf)
+                    skip_nonfinite=skip_nf, group=mesh.group)
     # the GAN step takes the whole batch: num_grad_acc only divides the val batch
     train_dl, val_dl = build_loaders(tcfg.data, num_grad_acc=int(tcfg.get("num_grad_acc", 1)),
-                                     device_put=to_device(device),
+                                     device_put=to_device(device), num_shards=mesh.size,
+                                     shard_index=mesh.rank,
                                      seed=int(cfg.get("seed_index") or 0))
     ema_decay = float(tcfg.get("ema_decay", 0.0))
     g_state = create_train_state(model, tx_g, ema_decay=ema_decay)
     d_state = create_train_state(discriminator, tx_d)
     g_state, start_epoch = restore_generator(g_state, tcfg)
+    if tcfg.get("restore"):
+        replicated(model, mesh.group)
+        replicated(g_state.ema or {}, mesh.group)
 
     perceptual = None
     if tcfg.get("perceptual_loss"):
@@ -168,25 +192,27 @@ def run(cfg: Config, device: str | torch.device = "cuda") -> Dict[str, float]:
     adv_weight = float((tcfg.get("adversarial_loss") or {}).get("weight", 2e-5))
     metric_names = metrics_from_config(tcfg)
     steps = {up: make_gan_train_step(model, discriminator, perceptual, adv_weight, up,
-                                     ema_decay=ema_decay, metrics=metric_names)
+                                     ema_decay=ema_decay, metrics=metric_names,
+                                     group=mesh.group)
              for up in (True, False)}
-    eval_step = make_eval_step(model, metrics=metric_names)
+    eval_step = make_eval_step(model, metrics=metric_names, group=mesh.group)
 
     keep = int(tcfg.get("checkpoint_max_to_keep", 3))
     ckpt = CheckpointManager(tcfg.get("checkpoint_dir", "./checkpoints"), max_to_keep=keep)
     ema_ckpt = (CheckpointManager(str(ckpt.directory / "ema"), max_to_keep=keep) if ema_decay
                 else None)
-    logger = build_logger(tcfg.get("logger"))
+    logger = build_logger(tcfg.get("logger")) if mesh.rank == 0 else None
     try:
         return _gan_loop(cfg, g_state, d_state, train_dl, val_dl, steps, eval_step,
-                         int(tcfg.get("freeze_epochs", -1)), logger, ckpt, ema_ckpt, start_epoch)
+                         int(tcfg.get("freeze_epochs", -1)), logger, ckpt, ema_ckpt, start_epoch,
+                         mesh)
     finally:
         if logger:
             logger.close()
 
 
 def _gan_loop(cfg, g_state, d_state, train_dl, val_dl, steps, eval_step, freeze_epochs, logger,
-              ckpt, ema_ckpt, start_epoch):
+              ckpt, ema_ckpt, start_epoch, mesh):
     tcfg = cfg.train
     final_val: Dict[str, float] = {}
     for epoch in range(start_epoch, int(tcfg.get("max_epochs", 1))):
@@ -214,10 +240,15 @@ def _gan_loop(cfg, g_state, d_state, train_dl, val_dl, steps, eval_step, freeze_
                 if logger:
                     logger.log_dict(final_val, epoch, "Val")
                 print("  val: " + " ".join(f"{k}={v:.4f}" for k, v in final_val.items()))
-        ckpt.save(epoch, g_state.model.state_dict(), g_state.tx.state_dict(),
-                  config=cfg.to_dict())
-        if ema_ckpt is not None:
-            ema_ckpt.save(epoch, g_state.ema)
+        if mesh.rank == 0:
+            ckpt.save(epoch, g_state.model.state_dict(), g_state.tx.state_dict(),
+                      config=cfg.to_dict())
+            if ema_ckpt is not None:
+                ema_ckpt.save(epoch, g_state.ema)
+        mesh.barrier()
+        # G, its EMA, D and D's spectral-norm state
+        assert_replicated(replica_state(g_state) + replica_state(d_state), mesh.group,
+                          "generator and discriminator")
     return final_val
 
 

@@ -2,8 +2,12 @@
 
     python -m vsrlab_tpu_torch.train.spynet +experiment=spynet [device=cpu] [a.b=v ...]
 
-Pyramid levels ``k = start_k .. K-1`` are trained one after another on
-one device, the card unless ``device=cpu``. Level ``k`` sees frame pairs
+Pyramid levels ``k = start_k .. K-1`` are trained one after another, on
+the card unless ``device=cpu``; under torchrun with ``train.ddp`` (off by
+default, as in the JAX trainer) the ranks train each level data-parallel
+as :mod:`vsrlab_tpu_torch.train.train` does: each on its slice of every
+batch, the head's gradients and the losses averaged over the ranks, rank 0
+alone logging and writing checkpoints. Level ``k`` sees frame pairs
 at ``GConf(k)`` size (``24*2^k x 32*2^k``), degraded by the codec emulator
 at CRF ``34 - (K-1-k)*4``; the levels before it form a frozen pyramid run
 without a gradient, whose flow is upsampled x2 with its values x2; the
@@ -31,6 +35,7 @@ from typing import Dict, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 import vsrlab_tpu_torch.components  # noqa: F401  (fills the registry)
 from vsrlab_tpu_torch.core.checkpoint import CheckpointManager
@@ -47,6 +52,8 @@ from vsrlab_tpu_torch.models.spynet import IMAGENET_MEAN, IMAGENET_STD, SpyNetBa
 from vsrlab_tpu_torch.nn.blocks import IterativeRefinement, init_weights
 from vsrlab_tpu_torch.ops.resize import resize_bilinear
 from vsrlab_tpu_torch.ops.warp import flow_warp
+from vsrlab_tpu_torch.parallel import (
+    DataMesh, assert_replicated, data_parallel, reduce_metrics, replicated, stdout_on_rank0)
 from vsrlab_tpu_torch.train.builders import build_tx
 from vsrlab_tpu_torch.train.train import _accumulate, _mean_metrics
 
@@ -99,26 +106,26 @@ def level_forward(unit: SpyNetBasicModule, pyramid: SpyNetProgressive,
 
 
 def make_level_step(unit: SpyNetBasicModule, pyramid: SpyNetProgressive,
-                    cleaner: Optional[torch.nn.Module], k: int, tx, train: bool):
+                    cleaner: Optional[torch.nn.Module], k: int, tx, train: bool, group=None):
     """Level ``k``'s step (:func:`level_forward`). ``train``: ``step(batch)
     -> {"Loss"}``, one update of ``unit`` by ``tx`` (an
     :class:`~vsrlab_tpu_torch.train.builders.Updater` over its parameters);
     else ``eval_step(batch) -> ({"Loss"}, pred)`` without a gradient.
-    Metrics stay on the device."""
+    Metrics stay on the device, averaged over the ranks of ``group``."""
     if train:
         def step(batch):
             tx.optimizer.zero_grad(set_to_none=True)
             loss, _ = level_forward(unit, pyramid, cleaner, k, batch)
             loss.backward()
             tx.step()
-            return {"Loss": loss.detach()}
+            return reduce_metrics({"Loss": loss.detach()}, group)
 
         return step
 
     @torch.no_grad()
     def eval_step(batch):
         loss, pred = level_forward(unit, pyramid, cleaner, k, batch)
-        return {"Loss": loss}, pred
+        return reduce_metrics({"Loss": loss}, group), pred
 
     return eval_step
 
@@ -147,25 +154,27 @@ def _level_dir(cfg, name: str) -> str:
 
 
 def train_one_level(cfg, k: int, trained_units: Dict[str, dict], cleaner, logger,
-                    device) -> Dict[str, torch.Tensor]:
-    """Train level ``k`` (its head drawn from ``seed_index + k``); returns
-    the head's ``state_dict`` (CPU)."""
+                    device, mesh: DataMesh) -> Dict[str, torch.Tensor]:
+    """Train level ``k`` (its head drawn from ``seed_index + k``) over the
+    ranks of ``mesh``; returns the head's ``state_dict`` (CPU)."""
+    group = mesh.group
     unit = SpyNetBasicModule()
     init_weights(unit, torch.Generator().manual_seed(int(cfg.get("seed_index") or 0) + k))
-    unit.to(device).train()
+    replicated(unit.to(device).train(), group)
     pyramid = frozen_pyramid(cfg, k, trained_units, device)
     tx = build_tx(unit.parameters(), cfg.train.optimizer, cfg.train.get("scheduler"),
                   cfg.train.get("gradient_clip_val"),
-                  skip_nonfinite=int(cfg.train.get("skip_nonfinite", 0) or 0))
+                  skip_nonfinite=int(cfg.train.get("skip_nonfinite", 0) or 0), group=group)
     train_ds, val_ds = load_level_data(cfg, k, int(cfg.train.k) - 1)
     bs = int(cfg.train.data.batch_size)
     workers = int(cfg.train.data.get("num_workers", 2))
     train_dl, val_dl = (FlowLoader(ds, batch_size=bs, shuffle=shuffle, num_workers=workers,
-                                   device_put=to_device(device))
+                                   device_put=to_device(device), num_shards=mesh.size,
+                                   shard_index=mesh.rank)
                         for ds, shuffle in ((train_ds, True), (val_ds, False)))
-    step = make_level_step(unit, pyramid, cleaner, k, tx, train=True)
-    eval_step = make_level_step(unit, pyramid, cleaner, k, tx, train=False)
-    ckpt = CheckpointManager(_level_dir(cfg, f"level_{k}"))
+    step = make_level_step(unit, pyramid, cleaner, k, tx, train=True, group=group)
+    eval_step = make_level_step(unit, pyramid, cleaner, k, tx, train=False, group=group)
+    ckpt = CheckpointManager(_level_dir(cfg, f"level_{k}")) if mesh.rank == 0 else None
     for epoch in range(int(cfg.train.max_epochs)):
         t0 = time.time()
         train_dl.set_epoch(epoch)
@@ -187,7 +196,10 @@ def train_one_level(cfg, k: int, trained_units: Dict[str, dict], cleaner, logger
                 logger.log_flow(epoch, f"Val_{k}", pred=pred[:4].float().cpu().numpy())
         print(f"level {k} epoch {epoch}: train={tr.get('Loss', 0):.4f} "
               f"val={vl.get('Loss', 0):.4f} ({time.time() - t0:.1f}s, {nb} steps)")
-        ckpt.save(epoch, unit.state_dict(), tx.state_dict())
+        if ckpt is not None:
+            ckpt.save(epoch, unit.state_dict(), tx.state_dict())
+        mesh.barrier()
+        assert_replicated(unit, group, f"level {k} head")
     return {n: t.detach().cpu().clone() for n, t in unit.state_dict().items()}
 
 
@@ -206,20 +218,34 @@ def build_cleaner(cfg, device) -> Optional[IterativeRefinement]:
 
 def run(cfg: Config, device: str | torch.device = "cuda") -> Dict[str, dict]:
     """The curriculum per ``cfg`` on ``device`` (raises where CUDA is asked
-    for and absent); returns ``{"unit_{k}": state_dict}`` of every level."""
-    device = resolve_device(device)
-    logger = build_logger(cfg.train.get("logger"))
+    for and absent), data-parallel under torchrun with ``train.ddp``;
+    returns ``{"unit_{k}": state_dict}`` of every level."""
+    device, mesh, created = data_parallel(bool(cfg.train.get("ddp", False)),
+                                          resolve_device(device))
+    try:
+        with stdout_on_rank0(mesh.rank):
+            return _run(cfg, device, mesh)
+    finally:
+        if created:
+            dist.destroy_process_group()
+
+
+def _run(cfg, device, mesh):
+    logger = build_logger(cfg.train.get("logger")) if mesh.rank == 0 else None
     cleaner = build_cleaner(cfg, device)
     trained: Dict[str, dict] = {}
     start_k = int(cfg.train.get("start_k", 0))
-    for i in range(start_k):  # resume: the levels already trained
+    for i in range(start_k):  # resume: the levels already trained, on every rank
         trained[f"unit_{i}"] = CheckpointManager(_level_dir(cfg, f"level_{i}")).restore()[1][
             "params"]
     try:
         for k in range(start_k, int(cfg.train.k)):
             print(f"=== training pyramid level {k} ===")
-            trained[f"unit_{k}"] = train_one_level(cfg, k, trained, cleaner, logger, device)
-        CheckpointManager(_level_dir(cfg, "final")).save(0, trained, config=cfg.to_dict())
+            trained[f"unit_{k}"] = train_one_level(cfg, k, trained, cleaner, logger, device,
+                                                   mesh)
+        if mesh.rank == 0:
+            CheckpointManager(_level_dir(cfg, "final")).save(0, trained, config=cfg.to_dict())
+        mesh.barrier()
     finally:
         if logger:
             logger.close()

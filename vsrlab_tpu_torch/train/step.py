@@ -18,6 +18,7 @@ from torch.func import functional_call
 from vsrlab_tpu_torch.core.losses import charbonnier_loss
 from vsrlab_tpu_torch.core.metrics import MetricCollection, resolve_metric_names
 from vsrlab_tpu_torch.ops.resize import resize_bilinear
+from vsrlab_tpu_torch.parallel import reduce_metrics
 from vsrlab_tpu_torch.train.state import TrainState
 
 Batch = Dict[str, torch.Tensor]
@@ -70,12 +71,14 @@ def ema_update(state: TrainState, decay: float) -> TrainState:
 def make_supervised_train_step(model: torch.nn.Module, loss_fn: Callable = charbonnier_loss,
                                num_grad_accum: int = 1, compute_metrics: bool = True,
                                ema_decay: float = 0.0, metrics=DEFAULT_METRICS,
-                               log_grad_norm: bool = False):
+                               log_grad_norm: bool = False, group=None):
     """``train_step(state, batch) -> (state, metrics)`` for ``lr`` / ``hr``
     clips ``(B, T, H, W, 3)`` on the model's device; ``B`` divides by
     ``num_grad_accum``. ``log_grad_norm`` adds the global gradient norm
-    after accumulation and before clipping as ``GradNorm``. The state is
-    updated in place and returned."""
+    after accumulation and before clipping as ``GradNorm``. With a process
+    ``group`` the batch is this rank's slice and the metrics are averaged
+    over the ranks (the state's updater averages the gradients). The state
+    is updated in place and returned."""
     metrics = resolve_metric_names(metrics)
 
     def train_step(state: TrainState, batch: Batch):
@@ -103,16 +106,17 @@ def make_supervised_train_step(model: torch.nn.Module, loss_fn: Callable = charb
         if log_grad_norm:
             out["GradNorm"] = norm
         out.update({k: v / n for k, v in msums.items()})
-        return state, out
+        return state, reduce_metrics(out, group)
 
     return train_step
 
 
 def make_eval_step(model: torch.nn.Module, loss_fn: Callable = charbonnier_loss,
-                   metrics=DEFAULT_METRICS):
+                   metrics=DEFAULT_METRICS, group=None):
     """``eval_step(params, batch) -> (metrics, sr)``: forward, loss and the
-    metrics without a gradient; ``params`` (name -> tensor, such as the EMA
-    shadow) stand in for the model's own, ``None`` keeps them."""
+    metrics without a gradient, averaged over the ranks of ``group``;
+    ``params`` (name -> tensor, such as the EMA shadow) stand in for the
+    model's own, ``None`` keeps them."""
     names = resolve_metric_names(metrics)
 
     @torch.no_grad()
@@ -120,6 +124,7 @@ def make_eval_step(model: torch.nn.Module, loss_fn: Callable = charbonnier_loss,
         lr = batch["lr"]
         out = model(lr) if params is None else functional_call(model, params, (lr,))
         loss, aux = supervised_loss(out, batch, loss_fn)
-        return {"Loss": loss, **default_metrics(aux["sr"], batch["hr"], names)}, aux["sr"]
+        metrics = {"Loss": loss, **default_metrics(aux["sr"], batch["hr"], names)}
+        return reduce_metrics(metrics, group), aux["sr"]
 
     return eval_step

@@ -1,15 +1,22 @@
 """Supervised VSR trainer (port of ``vsrlab_tpu/train/train.py``).
 
     python -m vsrlab_tpu_torch.train.train +experiment=synthetic [device=cpu] [a.b=v ...]
+    torchrun --nproc_per_node N -m vsrlab_tpu_torch.train.train +experiment=vrt [...]
 
 The config comes from the repository's ``conf/`` (experiment overlays and
-dotted overrides); one process trains on one device, the card unless
-``device=cpu``: ``train.ddp`` is accepted and means one card, as data
-parallelism is not ported yet. Per epoch: the train steps (metrics summed
-on the device and read back once), eval, JSONL logs, ``torch.save``
-checkpoints with the JAX trainer's restore / restore_opt / finetune /
-restore_ema semantics and, with ``save_every_steps``, step-granular
-checkpoints that resume mid-epoch on the exact next batch.
+dotted overrides); the run is on the card unless ``device=cpu``. Under
+torchrun with ``train.ddp`` (the default) the ranks train data-parallel
+(:mod:`vsrlab_tpu_torch.parallel`): each rank on ``cuda:LOCAL_RANK`` (NCCL;
+``device=cuda:0`` puts every rank on one card, gloo; ``device=cpu`` gloo),
+each on its slice of every global batch, the gradients and metrics
+averaged over the ranks, the parameters broadcast from rank 0 after the
+init and any restore and checked equal on every rank after each epoch.
+Rank 0 alone logs, prints and writes checkpoints; every rank restores.
+``ddp: false`` or a world of one runs one process. Per epoch: the train
+steps (metrics summed on the device and read back once), eval, JSONL logs,
+``torch.save`` checkpoints with the JAX trainer's restore / restore_opt /
+finetune / restore_ema semantics and, with ``save_every_steps``,
+step-granular checkpoints that resume mid-epoch on the exact next batch.
 """
 
 from __future__ import annotations
@@ -20,6 +27,7 @@ from pathlib import Path
 from typing import Dict, Optional
 
 import torch
+import torch.distributed as dist
 
 import vsrlab_tpu_torch.components  # noqa: F401  (fills the registry)
 from vsrlab_tpu_torch.core.checkpoint import CheckpointManager
@@ -28,6 +36,8 @@ from vsrlab_tpu_torch.core.loggers import build_logger
 from vsrlab_tpu_torch.data.loader import to_device
 from vsrlab_tpu_torch.evaluation.harness import resolve_device
 from vsrlab_tpu_torch.nn.blocks import init_weights
+from vsrlab_tpu_torch.parallel import (
+    assert_replicated, data_parallel, replicated, stdout_on_rank0)
 from vsrlab_tpu_torch.train.builders import build_loaders, build_model, build_tx
 from vsrlab_tpu_torch.train.state import TrainState, copy_params, create_train_state
 from vsrlab_tpu_torch.train.step import make_eval_step, make_supervised_train_step, metrics_from_config
@@ -132,18 +142,31 @@ def restore_state(state: TrainState, tcfg, ckpt: CheckpointManager, ckpt_dir: st
 
 def run(cfg: Config, device: str | torch.device = "cuda") -> Dict[str, float]:
     """Train per ``cfg`` on ``device`` (raises where CUDA is asked for and
-    absent); returns the last validation metrics."""
-    device = resolve_device(device)
+    absent), data-parallel under torchrun with ``train.ddp``; returns the
+    last validation metrics."""
+    tcfg = cfg.train
+    device, mesh, created = data_parallel(bool(tcfg.get("ddp", True)),
+                                          resolve_device(device))
+    try:
+        with stdout_on_rank0(mesh.rank):
+            return _run(cfg, device, mesh)
+    finally:
+        if created:
+            dist.destroy_process_group()
+
+
+def _run(cfg, device, mesh):
     generator = seed_index_everything(cfg)
     tcfg = cfg.train
     model = build_model(tcfg.model, tcfg.get("precision", "fp32"))
-    init_weights(model, generator).to(device).train()
+    replicated(init_weights(model, generator).to(device).train(), mesh.group)
     tx = build_tx(model.parameters(), tcfg.optimizer, tcfg.get("scheduler"),
                   tcfg.get("gradient_clip_val"),
-                  skip_nonfinite=int(tcfg.get("skip_nonfinite", 0) or 0))
+                  skip_nonfinite=int(tcfg.get("skip_nonfinite", 0) or 0), group=mesh.group)
     num_grad_acc = int(tcfg.get("num_grad_acc", 1))
     train_dl, val_dl = build_loaders(tcfg.data, num_grad_acc=num_grad_acc,
-                                     device_put=to_device(device),
+                                     device_put=to_device(device), num_shards=mesh.size,
+                                     shard_index=mesh.rank,
                                      seed=int(cfg.get("seed_index") or 0))
     ema_decay = float(tcfg.get("ema_decay", 0.0))
     state = create_train_state(model, tx, ema_decay=ema_decay)
@@ -153,31 +176,45 @@ def run(cfg: Config, device: str | torch.device = "cuda") -> Dict[str, float]:
     ckpt = CheckpointManager(ckpt_dir, max_to_keep=keep)
     state, start_epoch, start_batch = restore_state(state, tcfg, ckpt, ckpt_dir,
                                                     steps_per_epoch=len(train_dl))
-    logger = build_logger(tcfg.get("logger"))
+    if tcfg.get("restore"):
+        replicated(model, mesh.group)
+        replicated(state.ema or {}, mesh.group)
+    logger = build_logger(tcfg.get("logger")) if mesh.rank == 0 else None
     metric_names = metrics_from_config(tcfg)
     train_step = make_supervised_train_step(model, num_grad_accum=num_grad_acc,
                                             ema_decay=ema_decay, metrics=metric_names,
-                                            log_grad_norm=bool(tcfg.get("log_grad_norm", False)))
-    eval_step = make_eval_step(model, metrics=metric_names)
+                                            log_grad_norm=bool(tcfg.get("log_grad_norm", False)),
+                                            group=mesh.group)
+    eval_step = make_eval_step(model, metrics=metric_names, group=mesh.group)
     ema_ckpt = CheckpointManager(str(ckpt.directory / "ema"), max_to_keep=keep) if ema_decay else None
     try:
         return _train_loop(cfg, state, train_dl, val_dl, train_step, eval_step, logger, ckpt,
-                           start_epoch, start_batch, ema_ckpt=ema_ckpt)
+                           mesh, start_epoch, start_batch, ema_ckpt=ema_ckpt)
     finally:
         if logger:
             logger.close()
 
 
-def _save(ckpt, ema_ckpt, key, state, cfg, meta=None):
-    """One checkpoint of the weights and the optimizer (and, beside it, the EMA)."""
-    ckpt.save(key, state.model.state_dict(), state.tx.state_dict(), config=cfg.to_dict(),
-              meta=meta)
-    if ema_ckpt is not None:
-        ema_ckpt.save(key, state.ema)
+def _save(ckpt, ema_ckpt, key, state, cfg, mesh, meta=None):
+    """One checkpoint of the weights and the optimizer (and, beside it, the
+    EMA), written by rank 0; every rank waits for it."""
+    if mesh.rank == 0:
+        ckpt.save(key, state.model.state_dict(), state.tx.state_dict(), config=cfg.to_dict(),
+                  meta=meta)
+        if ema_ckpt is not None:
+            ema_ckpt.save(key, state.ema)
+    mesh.barrier()
 
 
-def _train_loop(cfg, state, train_dl, val_dl, train_step, eval_step, logger, ckpt, start_epoch,
-                start_batch=0, ema_ckpt=None):
+def replica_state(state: TrainState) -> list:
+    """What every rank must hold bit for bit: the parameters, the buffers
+    and the EMA shadow."""
+    model = state.model
+    return [*model.parameters(), *model.buffers(), *(state.ema or {}).values()]
+
+
+def _train_loop(cfg, state, train_dl, val_dl, train_step, eval_step, logger, ckpt, mesh,
+                start_epoch, start_batch=0, ema_ckpt=None):
     tcfg = cfg.train
     final_val: Dict[str, float] = {}
     max_epochs = int(tcfg.get("max_epochs", 1))
@@ -199,7 +236,7 @@ def _train_loop(cfg, state, train_dl, val_dl, train_step, eval_step, logger, ckp
             _accumulate(sums, metrics)
             nb += 1
             if save_every and nb < spe and (epoch * spe + nb) % save_every == 0:
-                _save(ckpt, ema_ckpt, epoch * spe + nb, state, cfg,
+                _save(ckpt, ema_ckpt, epoch * spe + nb, state, cfg, mesh,
                       {"epoch": epoch, "batch_in_epoch": nb, "steps_per_epoch": spe})
         train_metrics = _mean_metrics(sums, nb - nb0)
         if logger:
@@ -207,7 +244,7 @@ def _train_loop(cfg, state, train_dl, val_dl, train_step, eval_step, logger, ckp
         print(f"epoch {epoch}: " + " ".join(f"{k}={v:.4f}" for k, v in train_metrics.items())
               + f" ({time.time() - t0:.1f}s, {nb - nb0} steps)")
         if save_every:  # the epoch boundary, in the global-step key space
-            _save(ckpt, ema_ckpt, (epoch + 1) * spe, state, cfg,
+            _save(ckpt, ema_ckpt, (epoch + 1) * spe, state, cfg, mesh,
                   {"epoch": epoch, "batch_in_epoch": spe, "steps_per_epoch": spe})
 
         if val_dl is not None and (epoch % eval_every == 0 or epoch == max_epochs - 1):
@@ -227,9 +264,10 @@ def _train_loop(cfg, state, train_dl, val_dl, train_step, eval_step, logger, ckp
                                       hr=batch["hr"][:1].cpu().numpy())
                 print("  val: " + " ".join(f"{k}={v:.4f}" for k, v in final_val.items()))
             if not save_every:  # an epoch-keyed checkpoint
-                _save(ckpt, ema_ckpt, epoch, state, cfg)
+                _save(ckpt, ema_ckpt, epoch, state, cfg, mesh)
             if logger:
                 logger.save(ckpt.directory)
+        assert_replicated(replica_state(state), mesh.group, "parameters")
     return final_val
 
 
