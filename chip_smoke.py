@@ -9,8 +9,12 @@
                                                   # device times, the same way
     python3 chip_smoke.py --dp-cards              # phase 10 (c) with one rank a card
                                                   # over every visible card (NCCL),
-                                                  # then train.train under torchrun
-    (``--dp-rank DIR`` is one rank of phase 10 (c); the script starts it)
+                                                  # train.train under torchrun, phase
+                                                  # 11 (a), (b) over the cards and the
+                                                  # VRT train step data-parallel
+    (``--dp-rank DIR``, ``--p11-rank DIR`` and ``--vrt-dp-rank DIR`` are one
+    rank of phase 10 (c), of phase 11 (a), (b) and of ``--dp-cards``' VRT
+    step; the script starts them)
 
 Phases, in order; any failure exits non-zero:
 
@@ -245,11 +249,42 @@ Phases, in order; any failure exits non-zero:
    split over the ranks) under the same gates, then ``python -m
    torch.distributed.run`` of ``vsrlab_tpu_torch.train.train`` on
    SyntheticVSR over those cards (the trainer's barrier after each save
-   and its replica check after each epoch), and ends in the same last
-   line with ``count`` the cards used.
-11. One JSON line ``{"kernels": [...]}``: per kernel its main-path launches
-   (inference, training, serving, GAN fine-tuning, the flow paths and VRT
-   training) and,
+   and its replica check after each epoch), then phase 11 (a) on a
+   40-frame clip over ``time = N`` (one window a card) and (b) over
+   ``model = 2`` (``data = N / 2``) under phase 11's gates against card 0,
+   with frames/s against one card, then the ``+experiment=vrt`` step with
+   the 8 clips split over the cards (one microbatch of one card's size a
+   rank) beside one card's step: device ms, then the step's ms. It ends in
+   the same last line with ``count`` the cards used.
+11. The ``time`` and ``model`` mesh axes and the host data core (run after
+   phase 10, before phase 6): two gloo ranks sharing the card (subprocesses
+   with torchrun's environment, ``--p11-rank``), started once for (a) and
+   (b), against this process's unsharded runs. (a) ``create_mesh({"time":
+   2})`` serves windowed20 (the headline model, bf16, a ``(1,20,180,320,3)``
+   clip in 2 windows of 10, one a rank) through ``windowed_inference(...,
+   mesh)``: each rank's gathered result bitwise equal to this process's
+   forward of each window alone (a rank runs its window at batch 1), within
+   twice plain bf16's deviation of this process's windowed20 as one batch
+   of 2, 660 pair launches on each rank by shape; a rank's ms beside one
+   process's. (b) ``create_mesh({"model": 2})`` inside ``use_mesh``: the
+   paper VRT of ``conf/train/model/vrt.yaml`` with ``head_shard_axis=
+   "model"`` (3 of its 6 heads a rank) on a ``(1,6,64,64,3)`` request in
+   bf16 with the fused sampler and with the row gather: within twice plain
+   bf16's deviation from the fp32 plain route, the samplers' launches by
+   shape those of one unsharded request, and one fp32 backward's gradients
+   (remat, made whole by ``all_reduce_head_grads``) bitwise equal on the
+   two ranks and within ``1e-5 + 1e-4|b|`` of the unsharded ones; a rank's
+   ms beside one
+   process's. (c) ``libvsrio`` built with g++ on the card's host (a failed
+   build fails the phase; whether its OpenCV half was built is printed),
+   ``codec_degrade`` on the native path within 1e-5 of ``force_numpy=True``,
+   and the codec's ms a level-5 flow sample, the sample's and phase 9's
+   loader's ms a batch of 8, native and numpy side by side. (d) The
+   phase's wall seconds. The ranks' launches count into the ``kernels``
+   line.
+12. One JSON line ``{"kernels": [...]}``: per kernel its main-path launches
+   (inference, training, serving, GAN fine-tuning, the flow paths, VRT
+   training and phase 11's ranks) and,
    summed over those launches (per-launch time at each shape times that
    shape's count), ``ms``, ``plain_ms``,
    ``library_ms`` and ``bound_ms``; ``max_abs_err`` is the largest bf16
@@ -261,6 +296,7 @@ Phases, in order; any failure exits non-zero:
 from __future__ import annotations
 
 import concurrent.futures
+import contextlib
 import functools
 import json
 import math
@@ -3767,10 +3803,7 @@ def dp_phase(device, card, ranks: int = DP_RANKS, per_card: bool = False) -> dic
     del state, step, model
     torch.cuda.empty_cache()
 
-    outdir = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "chip_smoke_dp")
-    os.makedirs(outdir, exist_ok=True)
-    for name in os.listdir(outdir):
-        os.remove(os.path.join(outdir, name))
+    outdir = rank_outdir("chip_smoke_dp")
     if TRAIN_CLIP[0] % ranks:
         raise ValueError(f"{TRAIN_CLIP[0]} clips do not split over {ranks} ranks")
     one_card = f"cuda:{device.index or 0}" if device.type == "cuda" else "cpu"
@@ -3779,32 +3812,7 @@ def dp_phase(device, card, ranks: int = DP_RANKS, per_card: bool = False) -> dic
     with open(os.path.join(outdir, "spec.json"), "w") as f:
         json.dump({"device": "cuda" if per_card else one_card, "headline": HEADLINE,
                    "clip": TRAIN_CLIP, "steps": DP_STEPS}, f)
-    port = free_port()
-    procs = []
-    for rank in range(ranks):
-        # torchrun's environment, its one OpenMP thread a rank included
-        env = dict(os.environ, RANK=str(rank), LOCAL_RANK=str(rank), WORLD_SIZE=str(ranks),
-                   LOCAL_WORLD_SIZE=str(ranks), MASTER_ADDR="localhost",
-                   MASTER_PORT=str(port), OMP_NUM_THREADS=os.environ.get("OMP_NUM_THREADS", "1"))
-        procs.append(subprocess.Popen([sys.executable, os.path.abspath(__file__), "--dp-rank",
-                                       outdir], env=env, stdout=subprocess.PIPE,
-                                      stderr=subprocess.STDOUT, text=True))
-    outs = []
-    try:
-        for p in procs:
-            outs.append(p.communicate(timeout=DP_TIMEOUT)[0])
-    finally:
-        for p in procs:
-            if p.poll() is None:
-                p.kill()
-                p.communicate()
-    for rank, (p, out) in enumerate(zip(procs, outs)):
-        if p.returncode != 0:
-            raise AssertionError(f"data-parallel rank {rank} exited {p.returncode}:\n{out[-4000:]}")
-    records = []
-    for rank in range(ranks):
-        with open(os.path.join(outdir, f"rank{rank}.json")) as f:
-            records.append(json.load(f))
+    records = run_ranks("--dp-rank", outdir, ranks, DP_TIMEOUT)
     launches = collections.Counter()
     want = dp_launches(TRAIN_CLIP[0] // ranks)
     for r in records:
@@ -3922,14 +3930,25 @@ def dp_cards_main() -> int:
     card = card_line()
     log(f"data parallelism over {ranks} x {torch.cuda.get_device_name(0)}")
     log(card)
-    lib = load("residual_pair")
-    log(f"  kernels built in {lib.build_seconds:.1f} s -> {lib.path.name}")
-    t0 = time.perf_counter()
+    with concurrent.futures.ThreadPoolExecutor() as pool:
+        libs = list(pool.map(load, ("residual_pair", "packed_gather", "bilinear_sample")))
+    for lib in libs:
+        log(f"  kernels built in {lib.build_seconds:.1f} s -> {lib.path.name}")
+    t = [time.perf_counter()]
     dp_phase(torch.device("cuda"), card, ranks=ranks, per_card=True)
-    t1 = time.perf_counter()
+    t.append(time.perf_counter())
     dp_trainer(ranks, card)
-    log(f"  took {time.perf_counter() - t0:.1f} s: the ranks' steps {t1 - t0:.1f}, the trainer "
-        f"{time.perf_counter() - t1:.1f}")
+    t.append(time.perf_counter())
+    log(f"  the time axis (time = {ranks}, {SP_CARDS_FRAMES} frames) and the model axis (model = "
+        f"2) over the cards")
+    p11_cards(ranks, card)
+    t.append(time.perf_counter())
+    log("  the VRT +experiment=vrt step, data-parallel over the cards")
+    vrt_dp_cards(ranks, card)
+    t.append(time.perf_counter())
+    log(f"  took {t[-1] - t[0]:.1f} s: the ranks' steps {t[1] - t[0]:.1f}, the trainer "
+        f"{t[2] - t[1]:.1f}, the time and model axes {t[3] - t[2]:.1f}, the VRT step "
+        f"{t[4] - t[3]:.1f}")
     log(json.dumps({"ok": True, "device": {"platform": "gpu",
                                            "kind": torch.cuda.get_device_name(0),
                                            "count": ranks}}))
@@ -3954,6 +3973,604 @@ def phase10(device, card):
     log(f"  (d) phase 10 took {t[-1] - t[0]:.1f} s: (a) {t[1] - t[0]:.1f}, (b) "
         f"{t[2] - t[1]:.1f}, (c) {t[3] - t[2]:.1f}")
     return calls, backward, dp
+
+
+# phase 11: the time and model mesh axes on ranks of their own, and the host data core
+SP_CLIP = (1, 20, 180, 320, 3)  # windowed20: 2 windows of 10, one a rank
+SP_CARDS_FRAMES = 40  # --dp-cards: 4 windows of 10, one a card on four cards
+SP_WINDOW = 10
+SP_REPEATS = 3
+TP_CLIP = (1, 6, 64, 64, 3)  # the paper VRT's request: 3 of its 6 heads a rank
+P11_RANKS = 2
+P11_TIMEOUT = 600
+CODEC_TOL = 1e-5  # the native codec against the numpy path (tests/test_codec_emulator.py:92)
+CODEC_SETTINGS = ((30.0, 4, True), (85.0, 8, False), (5.0, 2, True))
+
+
+def sp_clip(frames: int = SP_CLIP[1]):
+    """The headline request's clip (phase 3's for 20 frames), from a seeded
+    generator."""
+    import torch
+
+    return torch.rand((1, frames, *SP_CLIP[2:]), generator=torch.Generator().manual_seed(1))
+
+
+def tp_inputs():
+    """The head-sharded VRT request and its gradient's target."""
+    import torch
+
+    g = torch.Generator().manual_seed(3)
+    b, t, h, w, c = TP_CLIP
+    return torch.rand(TP_CLIP, generator=g), torch.rand((b, t, 4 * h, 4 * w, c), generator=g)
+
+
+def build_tp_vrt(dtype_name: str, head_shard_axis=None):
+    """The paper VRT of ``conf/train/model/vrt.yaml`` (6 heads, ``remat``)
+    with seeded weights, the offset heads drawn, in ``dtype_name``."""
+    import torch
+
+    import vsrlab_tpu_torch.components  # noqa: F401  (fills the registry)
+    from vsrlab_tpu_torch.core.config import load_config
+    from vsrlab_tpu_torch.nn.blocks import init_weights
+    from vsrlab_tpu_torch.train import builders
+
+    cfg = load_config(overrides=list(VRT_TRAIN_OVERRIDES))
+    spec = {**cfg.train.model.to_dict(), "head_shard_axis": head_shard_axis}
+    g = torch.Generator().manual_seed(0)
+    return seed_offset_heads(init_weights(builders.build_model(spec, dtype_name), g), g)
+
+
+def tp_grads(model, lr, hr, device) -> dict:
+    """One fp32 forward and backward of ``model`` (fused sampler, remat) on
+    ``lr``, loss the mean square error to ``hr``: the gradient by parameter
+    name on ``device``, made whole and equal on the ranks of the active
+    mesh's head-sharding group by ``all_reduce_head_grads``."""
+    from vsrlab_tpu_torch.models.vrt.window_attention import all_reduce_head_grads
+    from vsrlab_tpu_torch.nn.blocks import set_sampler_impl
+
+    set_sampler_impl(model.to(device).train(), "fused")
+    model.zero_grad(set_to_none=True)
+    sr = model(lr.to(device))[0]
+    (sr - hr.to(device)).square().mean().backward()
+    all_reduce_head_grads(model)
+    grads = {n: p.grad.detach() for n, p in model.named_parameters() if p.grad is not None}
+    model.zero_grad(set_to_none=True)
+    return grads
+
+
+def vrt_counts() -> dict:
+    return {k: fn.launches_by_shape.copy() for k, fn in vrt_wrappers().items()}
+
+
+def listed(counts: dict) -> dict:
+    """Launches by shape as JSON: ``{kernel: [[shape, n], ...]}``."""
+    return {k: [[list(s), n] for s, n in c.items() if n] for k, c in counts.items()}
+
+
+def unlisted(counts: dict) -> dict:
+    import collections
+
+    return {k: collections.Counter({tuple(s): n for s, n in v}) for k, v in counts.items()}
+
+
+def p11_rank_main(outdir: str) -> int:
+    """One rank of phase 11 (a) and (b) (and of ``--dp-cards``' time and model
+    axes), started with torchrun's environment and ``outdir/spec.json``:
+    (a) the headline RealBasicVSR serving ``spec["frames"]`` frames through
+    ``windowed_inference`` over ``create_mesh({"data": -1, "time": n})``:
+    its launches, its result, its ms; (b) the paper VRT with
+    ``head_shard_axis="model"`` inside ``use_mesh(create_mesh({"data": -1,
+    "model": 2}))``: a bf16 request with each sampler kernel (launches,
+    outputs), one fp32 backward (its gradients, after ``all_reduce_head_grads``,
+    bitwise equal on the ranks of the model group, or the rank fails).
+    Writes ``outdir/rank{RANK}.json`` and its tensors beside it."""
+    import torch
+
+    from vsrlab_tpu_torch import parallel
+    from vsrlab_tpu_torch.evaluation.harness import make_forward, windowed_inference
+    from vsrlab_tpu_torch.models.vrt import WindowAttention
+    from vsrlab_tpu_torch.nn.blocks import set_sampler_impl
+    from vsrlab_tpu_torch.ops.residual_pair import reset_launch_counts
+
+    global HEADLINE, SP_CLIP, TP_CLIP, VRT_TRAIN_OVERRIDES
+    with open(os.path.join(outdir, "spec.json")) as f:
+        spec = json.load(f)
+    HEADLINE, SP_CLIP, TP_CLIP = spec["headline"], tuple(spec["sp_clip"]), tuple(spec["tp_clip"])
+    VRT_TRAIN_OVERRIDES = tuple(spec["vrt_overrides"])
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    created = parallel.initialize_distributed(spec["device"])
+    device = parallel.rank_device(spec["device"])
+    cuda = device.type == "cuda"
+    if cuda:
+        torch.cuda.set_device(device)
+    sync = torch.cuda.synchronize if cuda else (lambda: None)
+    free = torch.cuda.empty_cache if cuda else (lambda: None)
+    rank = parallel.process_index()
+    record = {"rank": rank, "backend": torch.distributed.get_backend(), "device": str(device)}
+
+    def timed(fn, n=SP_REPEATS):
+        times = []
+        for _ in range(1 + n):
+            sync()
+            t0 = time.perf_counter()
+            fn()
+            sync()
+            times.append(time.perf_counter() - t0)
+        return statistics.median(times[1:]) * 1e3
+
+    # (a) the time axis: this rank's share of the windows, the whole result gathered
+    mesh = parallel.create_mesh({"data": -1, "time": spec["time"]})
+    model = build_model(torch.bfloat16)
+    forward = make_forward(model, device=device)
+    clip = sp_clip(spec["frames"])
+    reset_launch_counts()
+    sr, n = windowed_inference(forward, clip, SP_WINDOW, mesh)
+    sync()
+    record.update(time_mesh=mesh.shape, windows=n, sp_launches=listed(pair_counts()),
+                  sp_shape=list(sr.shape), sp_finite=bool(torch.isfinite(sr).all()))
+    torch.save(sr.cpu(), os.path.join(outdir, f"sp{rank}.pt"))
+    record["sp_ms"] = timed(lambda: windowed_inference(forward, clip, SP_WINDOW, mesh))
+    del model, forward, sr
+    free()
+
+    # (b) the model axis: the paper VRT's heads split over the ranks
+    mesh = parallel.create_mesh({"data": -1, "model": 2})
+    lr, hr = tp_inputs()
+    model = build_tp_vrt("bf16", "model")
+    forward = make_forward(model, device=device)
+    outs = {}
+    with parallel.use_mesh(mesh):
+        record["heads"] = sorted({m.head_shard()[1:] for m in model.modules()
+                                  if isinstance(m, WindowAttention)})
+        for impl in ("fused", "take"):
+            set_sampler_impl(model, impl)
+            reset_vrt_counts()
+            outs[impl] = forward(lr).float().cpu()
+            sync()
+            record[f"tp_launches_{impl}"] = listed(vrt_counts())
+        set_sampler_impl(model, "fused")
+        record["tp_ms"] = timed(lambda: forward(lr))
+    record["model_mesh"] = mesh.shape
+    torch.save(outs, os.path.join(outdir, f"tp{rank}.pt"))
+    del model, forward
+    free()
+    model32 = build_tp_vrt("fp32", "model")
+    with parallel.use_mesh(mesh):
+        grads = tp_grads(model32, lr, hr, device)
+    parallel.assert_replicated(list(grads.values()), mesh.axis_group("model"),
+                               "head-sharded gradients")
+    torch.save({k: v.cpu() for k, v in grads.items()}, os.path.join(outdir, f"grads{rank}.pt"))
+    with open(os.path.join(outdir, f"rank{rank}.json"), "w") as f:
+        json.dump(record, f)
+    if created:
+        torch.distributed.destroy_process_group()
+    return 0
+
+
+def run_ranks(flag: str, outdir: str, ranks: int, timeout: int) -> list:
+    """Start ``ranks`` processes of this script with ``flag outdir`` and
+    torchrun's environment (one OpenMP thread each), wait for all, raise if
+    one fails; returns each rank's ``rank{r}.json`` record."""
+    port = free_port()
+    procs = []
+    for rank in range(ranks):
+        env = dict(os.environ, RANK=str(rank), LOCAL_RANK=str(rank), WORLD_SIZE=str(ranks),
+                   LOCAL_WORLD_SIZE=str(ranks), MASTER_ADDR="localhost",
+                   MASTER_PORT=str(port), OMP_NUM_THREADS=os.environ.get("OMP_NUM_THREADS", "1"))
+        procs.append(subprocess.Popen([sys.executable, os.path.abspath(__file__), flag, outdir],
+                                      env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                                      text=True))
+    outs = []
+    try:
+        for p in procs:
+            outs.append(p.communicate(timeout=timeout)[0])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+    for rank, (p, out) in enumerate(zip(procs, outs)):
+        if p.returncode != 0:
+            raise AssertionError(f"{flag} rank {rank} exited {p.returncode}:\n{out[-4000:]}")
+    records = []
+    for rank in range(ranks):
+        with open(os.path.join(outdir, f"rank{rank}.json")) as f:
+            records.append(json.load(f))
+    return records
+
+
+def p11_spec(outdir: str, device: str, frames: int, time_axis: int) -> None:
+    """Phase 11's ``spec.json`` for its ranks: the device, the clip's frames,
+    the time axis's size, and the sizes this process runs with."""
+    with open(os.path.join(outdir, "spec.json"), "w") as f:
+        json.dump({"device": device, "frames": frames, "time": time_axis, "headline": HEADLINE,
+                   "sp_clip": SP_CLIP, "tp_clip": TP_CLIP, "vrt_overrides": VRT_TRAIN_OVERRIDES},
+                  f)
+
+
+def rank_outdir(name: str) -> str:
+    """``build/<name>``, created empty: the ranks' spec and records."""
+    outdir = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", name)
+    os.makedirs(outdir, exist_ok=True)
+    for entry in os.listdir(outdir):
+        os.remove(os.path.join(outdir, entry))
+    return outdir
+
+
+def p11_reference(device, frames: int = SP_CLIP[1]) -> dict:
+    """This process's side of phase 11 (a) and (b), each unsharded: the
+    headline model's forward of each 10-frame window of a ``frames``-frame
+    clip alone, the clip's ``windowed_inference`` as one batch of its
+    windows with the kernel, the plain pair and in fp32, and that request's
+    ms; the paper VRT's request with each sampler kernel (launches by
+    shape), with the plain sampler and in fp32, and one fp32 backward's
+    gradients (fused sampler, remat)."""
+    import torch
+
+    from vsrlab_tpu_torch.evaluation.harness import make_forward, windowed_inference
+    from vsrlab_tpu_torch.nn.blocks import set_pair_impl, set_sampler_impl
+
+    ref = {}
+    model = build_model(torch.bfloat16)
+    forward = make_forward(model, device=device)
+    clip = sp_clip(frames)
+    ref["windows"] = torch.cat([forward(clip[:, i:i + SP_WINDOW]).cpu()
+                                for i in range(0, frames, SP_WINDOW)], 1)
+    ref["batched"] = windowed_inference(forward, clip, SP_WINDOW)[0].cpu()
+    times = []
+    for _ in range(1 + SP_REPEATS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        windowed_inference(forward, clip, SP_WINDOW)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    ref["windowed_ms"] = statistics.median(times[1:]) * 1e3
+    set_pair_impl(model, "plain")
+    ref["plain"] = windowed_inference(forward, clip, SP_WINDOW)[0].cpu()
+    model32 = build_model(None)
+    model32.load_state_dict(model.state_dict())
+    set_pair_impl(model32, "plain")
+    ref["fp32"] = windowed_inference(make_forward(model32, device=device), clip,
+                                     SP_WINDOW)[0].cpu()
+    del model, model32, forward
+    torch.cuda.empty_cache()
+
+    lr, hr = tp_inputs()
+    model = build_tp_vrt("bf16")
+    forward = make_forward(model, device=device)
+    ref["vrt_launches"] = {}
+    for impl in ("fused", "take"):
+        set_sampler_impl(model, impl)
+        reset_vrt_counts()
+        ref[f"vrt_{impl}"] = forward(lr).float().cpu()
+        ref["vrt_launches"][impl] = vrt_counts()
+    set_sampler_impl(model, "plain")
+    ref["vrt_plain"] = forward(lr).float().cpu()
+    set_sampler_impl(model, "fused")
+    times = []
+    for _ in range(1 + SP_REPEATS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        forward(lr)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    ref["vrt_ms"] = statistics.median(times[1:]) * 1e3
+    del model, forward
+    model32 = build_tp_vrt("fp32")
+    set_sampler_impl(model32, "plain")
+    ref["vrt_fp32"] = make_forward(model32, device=device)(lr).float().cpu()
+    ref["grads"] = {k: v.cpu() for k, v in tp_grads(model32, lr, hr, device).items()}
+    del model32
+    torch.cuda.empty_cache()
+    return ref
+
+
+def gate_p11_ranks(records, ref, outdir, per_card: bool) -> dict:
+    """Phase 11's gates on the ranks' records and tensors against this
+    process's unsharded runs ``ref``. Returns their pair launches
+    (``taps``) and sampler launches by shape."""
+    import collections
+
+    import torch
+
+    one_card = "cuda:0" if records[0]["device"].startswith("cuda") else "cpu"
+    pairs = collections.Counter()
+    samplers = {k: collections.Counter() for k in VRT_KERNELS}
+    frames = records[0]["sp_shape"][1]
+    windows = -(-frames // SP_WINDOW)
+    per_rank = -(-windows // records[0]["time_mesh"]["time"])
+    base = dev(ref["plain"], ref["fp32"])
+    for r in records:
+        k = r["rank"]
+        want = ("nccl", f"cuda:{k}") if per_card else ("gloo", one_card)
+        if (r["backend"], r["device"]) != want:
+            raise AssertionError(f"rank {k}: {r['backend']} on {r['device']}, not {want}")
+        if r["windows"] != windows or not r["sp_finite"] or r["sp_shape"] != [
+                1, frames, 4 * SP_CLIP[2], 4 * SP_CLIP[3], 3]:
+            raise AssertionError(f"rank {k}: {r['windows']} windows, shape {r['sp_shape']}, "
+                                 f"finite {r['sp_finite']}")
+        got = unlisted(r["sp_launches"])
+        gate_counts(f"rank {k}: its {per_rank} window(s) of the {frames}-frame clip", got,
+                    {"taps": window_launches(per_rank, *SP_CLIP[2:4])})
+        pairs += got["taps"]
+        sr = torch.load(os.path.join(outdir, f"sp{k}.pt"))
+        if not torch.equal(sr, ref["windows"]):
+            raise AssertionError(f"rank {k}: the gathered windowed{frames} differs from this "
+                                 "process's forward of each window alone")
+        ratio = within_twice(f"rank {k}'s windowed{frames} vs this process's batch of {windows}",
+                             sr, ref["batched"], base)
+        log(f"  rank {k}: windowed{frames} gathered over the time axis bitwise equal to this "
+            f"process's forward of each window alone; against its batch of {windows}: "
+            f"{ratio[0]:.2f}x / {ratio[1]:.2f}x plain bf16's deviation from fp32 (max / rms)")
+        heads = [tuple(h) for h in r["heads"]]
+        m = k % 2  # the rank's index on the model axis (model 2, the last axis)
+        if heads != [(3 * m, 3 * m + 3)]:
+            raise AssertionError(f"rank {k}: heads {heads}, not [{3 * m}, {3 * m + 3})")
+        for impl in ("fused", "take"):
+            got = unlisted(r[f"tp_launches_{impl}"])
+            gate_counts(f"rank {k}: head-sharded VRT request ({impl})", got,
+                        ref["vrt_launches"][impl])
+            for name, by_shape in got.items():
+                samplers[name] += by_shape
+        outs = torch.load(os.path.join(outdir, f"tp{k}.pt"))
+        gate_samplers({f"rank {k} head-sharded {impl}": out for impl, out in outs.items()},
+                      ref["vrt_plain"], ref["vrt_fp32"])
+        grads = torch.load(os.path.join(outdir, f"grads{k}.pt"))
+        if grads.keys() != ref["grads"].keys():
+            raise AssertionError(f"rank {k}: the head-sharded gradients name other parameters")
+        worst = largest = 0.0
+        for name, b in ref["grads"].items():
+            d = (grads[name] - b).abs()
+            if not bool((d <= DP_TOL[0] + DP_TOL[1] * b.abs()).all()):
+                raise AssertionError(f"rank {k}: head-sharded gradient of {name} differs from "
+                                     f"the unsharded one by {float(d.max()):.3e}")
+            worst, largest = max(worst, float(d.max())), max(largest, float(b.abs().max()))
+        log(f"  rank {k}: head-sharded fp32 gradients ({len(grads)} tensors) within "
+            f"{DP_TOL[0]} + {DP_TOL[1]}*|b| of the unsharded ones: max |a-b| {worst:.3e} "
+            f"(largest |b| {largest:.3e})")
+    return {"taps": pairs, "samplers": samplers}
+
+
+def log_p11_times(records, ref, card, where: str) -> None:
+    frames = records[0]["sp_shape"][1]
+    log(f"  windowed{frames} on {card}: a rank (its windows, then the gather) "
+        + " / ".join(f"{r['sp_ms']:.2f}" for r in records)
+        + f" ms ({frames / max(r['sp_ms'] for r in records) * 1e3:.2f} frames/s); one process, "
+        f"every window as one batch: {ref['windowed_ms']:.2f} ms "
+        f"({frames / ref['windowed_ms'] * 1e3:.2f} frames/s) (median of {SP_REPEATS} after 1, "
+        f"host clock with synchronize; {where})")
+    log(f"  VRT {TP_CLIP} bf16 fused on {card}: a rank with 3 of 6 heads "
+        + " / ".join(f"{r['tp_ms']:.2f}" for r in records)
+        + f" ms; one process, all heads: {ref['vrt_ms']:.2f} ms")
+
+
+def codec_sample_ms(numpy_path: bool) -> dict:
+    """The flow trainer's level-5 sample (phase 9's loader: 2 frames of
+    768x1024, the codec at CRF 34, 12 fps), native or numpy: the codec
+    emulator alone on its frames and the whole sample, on this thread
+    (median of 3), and the loader's ms a batch of 8 over 8 threads (its
+    first call, and the median of 3 after it)."""
+    import unittest.mock
+
+    import numpy as np
+
+    from vsrlab_tpu_torch.core.config import load_config
+    from vsrlab_tpu_torch.data import codec_emulator, native
+    from vsrlab_tpu_torch.train import spynet
+
+    root = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "chip_smoke_host")
+    cfg = load_config(overrides=spynet_overrides(root))
+    k = SPYNET_K - 1
+    train_ds, _ = spynet.load_level_data(cfg, k, k)
+    frames = np.stack(train_ds[0][:2])  # the sample's two frames
+    patch = (unittest.mock.patch.object(native, "_load", lambda: None) if numpy_path
+             else contextlib.nullcontext())
+    out = {}
+    with patch:
+        native.reset_counts()
+        for name, fn in (("codec_ms", lambda: codec_emulator.dct_codec_roundtrip(
+                             frames, codec_emulator.crf_to_quality(34), gop=12)),
+                         ("sample_ms", lambda: train_ds[0])):
+            times = []
+            for _ in range(3):
+                t0 = time.perf_counter()
+                fn()
+                times.append(time.perf_counter() - t0)
+            out[name] = statistics.median(times) * 1e3
+        times = []
+        for _ in range(4):  # the first call pays the threads' first touch of their buffers
+            loader = spynet.FlowLoader(train_ds, batch_size=SPYNET_BATCH, num_workers=8)
+            t0 = time.perf_counter()
+            list(loader)
+            times.append(time.perf_counter() - t0)
+        out["loader_first_ms"] = times[0] * 1e3
+        out["loader_ms"] = statistics.median(times[1:]) * 1e3
+        out["paths"] = native.counts()["codec_degrade"]
+    want = "python" if numpy_path else "native"
+    if out["paths"][want] == 0 or out["paths"]["native" if numpy_path else "python"]:
+        raise AssertionError(f"the codec took the wrong path: {out['paths']}")
+    out["frames"] = list(frames.shape)
+    return out
+
+
+def host_core_phase(card) -> dict:
+    """Phase 11 (c): ``libvsrio`` built with g++ on the card's host (a
+    failure fails the phase), the native codec against the numpy path at
+    the JAX package's three settings within ``CODEC_TOL``, and the flow
+    loader's times with each."""
+    import numpy as np
+
+    from vsrlab_tpu_torch import build
+    from vsrlab_tpu_torch.data import codec_emulator, native
+
+    lib = build.load_host("vsrio")
+    opencv = native.has_opencv()
+    log(f"  libvsrio built in {lib.build_seconds:.1f} s -> {lib.path.name}; its OpenCV half "
+        f"(decode, bicubic, JPEG) {'built' if opencv else 'not built: no opencv4 headers'} "
+        f"(headers: {build.opencv_include()})")
+    rng = np.random.default_rng(0)
+    base = rng.random((5, 5, 8, 3)).astype(np.float32)
+    clip = np.clip(np.repeat(np.repeat(base, 5, 1), 5, 2)[:, :21, :35]
+                   + 0.02 * rng.standard_normal((5, 21, 35, 3)).astype(np.float32), 0, 1)
+    native.reset_counts()
+    worst = 0.0
+    for q, gop, sub in CODEC_SETTINGS:
+        got = codec_emulator.dct_codec_roundtrip(clip, q, gop, sub)
+        want = codec_emulator.dct_codec_roundtrip(clip, q, gop, sub, force_numpy=True)
+        worst = max(worst, float(np.abs(got - want).max()))
+    if native.counts()["codec_degrade"] != {"native": len(CODEC_SETTINGS), "python": 0}:
+        raise AssertionError(f"the codec did not take the native path: {native.counts()}")
+    if worst > CODEC_TOL:
+        raise AssertionError(f"the native codec differs from the numpy path by {worst:.3e}")
+    log(f"  codec_degrade took the native path; against force_numpy=True at {CODEC_SETTINGS}: "
+        f"max |a-b| {worst:.3e} (gate {CODEC_TOL})")
+    res = {"opencv": opencv, "build_s": lib.build_seconds, "max_abs_err": worst,
+           "native": codec_sample_ms(False), "numpy": codec_sample_ms(True)}
+    n, p = res["native"], res["numpy"]
+    log(f"  flow loader's level-5 sample {tuple(n['frames'])} on {card}'s host: codec "
+        f"{n['codec_ms']:.1f} ms native / {p['codec_ms']:.1f} ms numpy; the sample "
+        f"{n['sample_ms']:.1f} / {p['sample_ms']:.1f} ms (one thread); the loader "
+        f"{n['loader_ms']:.1f} / {p['loader_ms']:.1f} ms a batch of {SPYNET_BATCH} (8 threads; "
+        f"first call {n['loader_first_ms']:.1f} / {p['loader_first_ms']:.1f} ms)")
+    return res
+
+
+def vrt_dp_rank_main(outdir: str) -> int:
+    """One NCCL rank of ``--dp-cards``' VRT step: ``+experiment=vrt`` (the
+    paper VRT, bf16, remat) on this rank's share of the experiment's 8
+    clips, in microbatches of one card's size (8 / 4 clips), the gradients
+    averaged over the ranks; the step's ms (median of 3 after 2) and one
+    step's device ms and busy share (torch.profiler). Writes
+    ``outdir/rank{RANK}.json``."""
+    import torch
+
+    from vsrlab_tpu_torch import parallel
+    from vsrlab_tpu_torch.core.config import load_config
+    from vsrlab_tpu_torch.train.builders import build_tx
+    from vsrlab_tpu_torch.train.state import create_train_state
+    from vsrlab_tpu_torch.train.step import make_supervised_train_step
+
+    cfg = load_config(overrides=list(VRT_TRAIN_OVERRIDES))
+    tcfg = cfg.train
+    check_paper_config(tcfg)
+    device, mesh, created = parallel.data_parallel(True, "cuda")
+    model = build_train_vrt(cfg, tcfg.precision, device)
+    parallel.replicated(model, mesh.group)
+    acc = max(1, int(tcfg.num_grad_acc) // mesh.size)
+    state = create_train_state(model, build_tx(model.parameters(), tcfg.optimizer,
+                                               tcfg.scheduler, tcfg.gradient_clip_val,
+                                               group=mesh.group))
+    step = make_supervised_train_step(model, num_grad_accum=acc, group=mesh.group)
+    batch = parallel.shard_batch({k: v.cpu() for k, v in vrt_train_batch("cpu").items()}, device)
+    losses = []
+
+    def run():
+        losses.append(float(step(state, batch)[1]["Loss"]))
+
+    times = time_steps(model, run, "taps", n=3, warmup=2)
+    med = statistics.median(times)
+    prof = profile_request(run, med, top=5, ours=("bilinear_sample",), host=False)
+    parallel.assert_replicated(model, mesh.group, "VRT parameters after the steps")
+    record = {"rank": mesh.rank, "clips": int(batch["lr"].shape[0]), "microbatches": acc,
+              "step_ms": med * 1e3, "steps_ms": [t * 1e3 for t in times],
+              "device_ms": prof.get("device_ms"), "busy": prof.get("device_busy_share"),
+              "losses": losses}
+    if not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"rank {mesh.rank}: losses {losses}")
+    with open(os.path.join(outdir, f"rank{mesh.rank}.json"), "w") as f:
+        json.dump(record, f)
+    if created:
+        torch.distributed.destroy_process_group()
+    return 0
+
+
+def vrt_dp_cards(ranks: int, card: str) -> None:
+    """``--dp-cards`` (c): the ``+experiment=vrt`` step in one process on one
+    card (8 clips in 4 microbatches) beside ``ranks`` NCCL ranks, one a
+    card, each on its share in microbatches of the same size: device ms
+    first (the wall time is host-bound and wanders), then the step's ms."""
+    import torch
+
+    from vsrlab_tpu_torch.core.config import load_config
+    from vsrlab_tpu_torch.train.builders import build_tx
+    from vsrlab_tpu_torch.train.state import create_train_state
+    from vsrlab_tpu_torch.train.step import make_supervised_train_step
+
+    device = torch.device("cuda", 0)
+    cfg = load_config(overrides=list(VRT_TRAIN_OVERRIDES))
+    tcfg = cfg.train
+    model = build_train_vrt(cfg, tcfg.precision, device)
+    state = create_train_state(model, build_tx(model.parameters(), tcfg.optimizer,
+                                               tcfg.scheduler, tcfg.gradient_clip_val))
+    step = make_supervised_train_step(model, num_grad_accum=int(tcfg.num_grad_acc))
+    batch = vrt_train_batch(device)
+    med = statistics.median(time_steps(model, lambda: step(state, batch), "taps", n=3, warmup=2))
+    prof = profile_request(lambda: step(state, batch), med, top=5, ours=("bilinear_sample",),
+                           host=False)
+    del state, step, model, batch
+    torch.cuda.empty_cache()
+    records = run_ranks("--vrt-dp-rank", rank_outdir("chip_smoke_vrt_dp"), ranks, P11_TIMEOUT)
+    log(f"  VRT +experiment=vrt step, {card}: one card, 8 clips in 4 microbatches: device "
+        f"{prof.get('device_ms')} ms (busy {prof.get('device_busy_share')}), step {med * 1e3:.2f} "
+        f"ms; {ranks} NCCL ranks, {records[0]['clips']} clips each in "
+        f"{records[0]['microbatches']} microbatch(es): device "
+        + " / ".join(f"{r['device_ms']}" for r in records) + " ms, step "
+        + " / ".join(f"{r['step_ms']:.2f}" for r in records)
+        + " ms (median of 3 after 2, host clock with synchronize); the ranks bitwise equal")
+    log(json.dumps({"vrt_dp_cards": {"card": card, "one_card_step_ms": med * 1e3,
+                                     "one_card_profile": prof, "ranks": records}}, default=str))
+
+
+def p11_cards(ranks: int, card: str) -> None:
+    """``--dp-cards`` (a), (b): phase 11's ranks with NCCL, one a card: the
+    headline model on a ``SP_CARDS_FRAMES``-frame clip over ``time = ranks``
+    and the paper VRT over ``model = 2`` (``data = ranks / 2``), under
+    phase 11's gates against this process's runs on card 0."""
+    import torch
+
+    ref = p11_reference(torch.device("cuda", 0), SP_CARDS_FRAMES)
+    torch.cuda.empty_cache()
+    outdir = rank_outdir("chip_smoke_p11_cards")
+    p11_spec(outdir, "cuda", SP_CARDS_FRAMES, ranks)
+    records = run_ranks("--p11-rank", outdir, ranks, P11_TIMEOUT)
+    gate_p11_ranks(records, ref, outdir, per_card=True)
+    log_p11_times(records, ref, card, f"{ranks} NCCL ranks, one a card, against one card")
+    log(json.dumps({"p11_cards": {"card": card, "ranks": records,
+                                  "one_card_windowed_ms": ref["windowed_ms"],
+                                  "one_card_vrt_ms": ref["vrt_ms"]}}, default=str))
+
+
+def phase11(device, card):
+    """Phase 11: (a) sequence-parallel serving and (b) head-sharded VRT on
+    two gloo ranks sharing the card, against this process's unsharded runs;
+    (c) the host data core; (d) the phase's wall seconds. Returns the
+    ranks' pair and sampler launches by shape."""
+    import torch
+
+    t = [time.perf_counter()]
+    log("  (a), (b): this process's unsharded runs")
+    ref = p11_reference(device)
+    t.append(time.perf_counter())
+    log(f"  (a), (b): {P11_RANKS} gloo ranks on one card: create_mesh({{'time': 2}}) serving "
+        f"windowed20, then create_mesh({{'model': 2}}) with the paper VRT's heads split")
+    outdir = rank_outdir("chip_smoke_p11")
+    p11_spec(outdir, f"cuda:{device.index or 0}" if device.type == "cuda" else "cpu", SP_CLIP[1],
+             P11_RANKS)
+    records = run_ranks("--p11-rank", outdir, P11_RANKS, P11_TIMEOUT)
+    launches = gate_p11_ranks(records, ref, outdir, per_card=False)
+    log_p11_times(records, ref, card, "the ranks share the card")
+    t.append(time.perf_counter())
+    del ref
+    torch.cuda.empty_cache()
+    log("  (c) the host data core")
+    host = host_core_phase(card)
+    t.append(time.perf_counter())
+    log(f"  (d) phase 11 took {t[-1] - t[0]:.1f} s: references {t[1] - t[0]:.1f}, the ranks "
+        f"{t[2] - t[1]:.1f}, (c) {t[3] - t[2]:.1f}")
+    log(json.dumps({"phase11": {"card": card, "ranks": records, "host_core": host,
+                                "seconds": t[-1] - t[0]}}, default=str))
+    return launches
 
 
 def main() -> int:
@@ -4039,6 +4656,15 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     torch.cuda.empty_cache()
 
+    log("phase 11: the time and model mesh axes (two gloo ranks on the card) and the host data "
+        "core")
+    p11 = phase11(device, card)
+    pair_launches["taps"] += p11["taps"]
+    for name, by_shape in p11["samplers"].items():
+        vrt_launches[name] += by_shape
+    torch.backends.cudnn.allow_tf32 = False
+    torch.cuda.empty_cache()
+
     log("phase 6: each kernel at its paths' shapes")
     kernels = []
     for form, (name, replaces) in KERNELS.items():
@@ -4073,6 +4699,10 @@ if __name__ == "__main__":
         sys.exit(sampler_times(tree))
     if sys.argv[1:2] == ["--dp-rank"]:  # one rank of phase 10 (c), started by the script
         sys.exit(dp_rank_main(sys.argv[2]))
+    if sys.argv[1:2] == ["--p11-rank"]:  # one rank of phase 11 (a), (b), started by the script
+        sys.exit(p11_rank_main(sys.argv[2]))
+    if sys.argv[1:2] == ["--vrt-dp-rank"]:  # one rank of --dp-cards' VRT step
+        sys.exit(vrt_dp_rank_main(sys.argv[2]))
     if sys.argv[1:2] == ["--dp-cards"]:
         sys.exit(dp_cards_main())
     sys.exit(main())

@@ -538,3 +538,40 @@ def test_packed_kernels_refuse_what_they_do_not_take(cuda):
     with pytest.raises(ValueError, match="one CUDA device"):
         pg.packed_row_gather(xf.clone().requires_grad_(), fields[0].cpu())
     assert (pg.packed_row_gather.launches, bs.bilinear_sample.launches) == before
+
+
+def test_host_data_core_builds_on_the_cards_host(cuda):
+    """``libvsrio`` builds with g++ on the card's host (its OpenCV half where
+    the headers are there) and its codec round trip is the numpy path's
+    within 1e-5."""
+    import numpy as np
+
+    from vsrlab_tpu_torch import build
+    from vsrlab_tpu_torch.data import codec_emulator, native
+
+    lib = build.load_host("vsrio")
+    assert hasattr(lib.lib, "vsrio_codec_degrade")
+    clip = np.random.default_rng(0).random((3, 21, 35, 3)).astype(np.float32)
+    native.reset_counts()
+    got = codec_emulator.dct_codec_roundtrip(clip, 30.0, 4)
+    assert native.counts()["codec_degrade"] == {"native": 1, "python": 0}
+    np.testing.assert_allclose(got, codec_emulator.dct_codec_roundtrip(clip, 30.0, 4,
+                                                                      force_numpy=True),
+                               atol=1e-5, rtol=0)
+
+
+def test_windowed_inference_on_a_one_rank_time_axis(cuda):
+    """A ``time`` axis of one rank serves on the card exactly as no mesh."""
+    from vsrlab_tpu_torch import parallel
+    from vsrlab_tpu_torch.evaluation.harness import make_forward, windowed_inference
+    from vsrlab_tpu_torch.models import RealBasicVSR
+
+    torch.manual_seed(0)
+    model = RealBasicVSR(mid_channels=64, res_blocks=2, cleaning_blocks=2)
+    forward = make_forward(model, device=cuda)
+    video = torch.rand((1, 5, 16, 24, 3), generator=torch.Generator().manual_seed(1))
+    before = residual_conv_pair.launches
+    want, n = windowed_inference(forward, video, 2)
+    got, m = windowed_inference(forward, video, 2, parallel.create_mesh({"time": 1}))
+    assert (n, m) == (3, 3) and residual_conv_pair.launches > before
+    assert got.device.type == "cuda" and torch.equal(got, want)

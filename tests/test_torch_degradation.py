@@ -6,9 +6,11 @@
 * Every augmentation against JAX's on a generator of the same seed: the
   same output (exactly: crop, flip, mirror, Resize and JPEG through
   OpenCV; atol 1e-6 for the codec emulator) and the same draws (the
-  generators agree afterwards). The JAX package's native library is
-  switched off (``vsrlab_tpu.data.native._load``), so that its JPEG and
-  codec take the OpenCV and numpy paths the port has.
+  generators agree afterwards). Both packages' native libraries are
+  switched off (``vsrlab_tpu.data.native._load`` and
+  ``vsrlab_tpu_torch.data.native._load``), so that JPEG and the codec take
+  the OpenCV and numpy paths in both; ``test_torch_native.py`` holds the
+  native paths.
 * ``build_pipeline`` over the reference's target names; the three
   datasets with augmentation against the JAX datasets; ``compress_video``
   and ``compress_video_folder`` against JAX.
@@ -24,6 +26,7 @@ from vsrlab_tpu.data import augmentations as jaug  # noqa: E402
 from vsrlab_tpu.data import codec_emulator as jcodec  # noqa: E402
 from vsrlab_tpu.data import datasets as jdatasets  # noqa: E402
 from vsrlab_tpu.data import native as jnative  # noqa: E402
+from vsrlab_tpu_torch.data import native as pnative  # noqa: E402
 from vsrlab_tpu.data import video_io as jvideo_io  # noqa: E402
 from vsrlab_tpu_torch.data import augmentations as aug  # noqa: E402
 from vsrlab_tpu_torch.data import codec_emulator as codec  # noqa: E402
@@ -34,6 +37,7 @@ from vsrlab_tpu_torch.ops.resize import bicubic_down  # noqa: E402
 @pytest.fixture(autouse=True)
 def no_native(monkeypatch):
     monkeypatch.setattr(jnative, "_load", lambda: None)
+    monkeypatch.setattr(pnative, "_load", lambda: None)
 
 
 def _clip(seed, t=4, h=21, w=35):

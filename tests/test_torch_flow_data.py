@@ -4,9 +4,9 @@ after), the synthetic and the file datasets, ``load_flow_file``, and
 ``create_flow_dataset.main`` with one surrogate RAFT checkpoint in both
 packages.
 
-The JAX package's native library is switched off
-(``vsrlab_tpu.data.native._load``), so that its codec round trip is the
-numpy emulator the port has. Tolerances: the transforms and datasets
+Both packages' native libraries are switched off
+(``vsrlab_tpu.data.native._load``, ``vsrlab_tpu_torch.data.native._load``),
+so that the codec round trip is the numpy emulator in both. Tolerances: the transforms and datasets
 exactly (the same OpenCV and numpy calls on the same draws); the teacher
 flows within 1e-4 px (two fp32 RAFT forwards, 12 GRU iterations).
 """
@@ -20,6 +20,7 @@ cv2 = pytest.importorskip("cv2")
 from vsrlab_tpu.data import create_flow_dataset as jcreate  # noqa: E402
 from vsrlab_tpu.data import flow_dataset as jfd  # noqa: E402
 from vsrlab_tpu.data import native as jnative  # noqa: E402
+from vsrlab_tpu_torch.data import native as pnative  # noqa: E402
 from vsrlab_tpu_torch.data import create_flow_dataset, flow_dataset as fd  # noqa: E402
 from vsrlab_tpu_torch.models.flow import RAFT  # noqa: E402
 from vsrlab_tpu_torch.nn.blocks import init_weights  # noqa: E402
@@ -28,6 +29,7 @@ from vsrlab_tpu_torch.nn.blocks import init_weights  # noqa: E402
 @pytest.fixture(autouse=True)
 def no_native(monkeypatch):
     monkeypatch.setattr(jnative, "_load", lambda: None)
+    monkeypatch.setattr(pnative, "_load", lambda: None)
 
 
 def _pair(rng, h=24, w=32):

@@ -41,8 +41,27 @@ def test_sources_exist():
                    "models/flow/spynet_progressive.py", "train/spynet.py",
                    "data/flow_dataset.py", "data/create_flow_dataset.py",
                    # the data-parallel slice's
-                   "parallel/__init__.py", "parallel/mesh.py"):
+                   "parallel/__init__.py", "parallel/mesh.py",
+                   # the time / model axes and the host data core
+                   "evaluation/harness.py", "models/vrt/window_attention.py",
+                   "models/vrt/tmsa.py", "models/vrt/stage.py", "models/vrt/vrt.py",
+                   "data/native.py", "build.py"):
         assert ROOT / "vsrlab_tpu_torch" / module in SOURCES, module
+
+
+def test_host_library_source_is_the_ports_own():
+    """The C++ the port builds lives under ``vsrlab_tpu_torch/csrc``: a file
+    of its own (no link into the JAX package), which ``build.load_host``
+    compiles; the JAX package's source stays where it was."""
+    from vsrlab_tpu_torch import build
+
+    src = ROOT / "vsrlab_tpu_torch" / "csrc" / "vsrio.cpp"
+    assert src.is_file() and not src.is_symlink()
+    assert build.CSRC == src.parent
+    text = src.read_text()
+    assert "vsrio_codec_degrade" in text and "#ifdef VSRIO_OPENCV" in text
+    assert "vsrlab_tpu/" not in text.replace("vsrlab_tpu_torch/", "")
+    assert (ROOT / "vsrlab_tpu" / "native" / "vsrio.cpp").is_file()
 
 
 @pytest.mark.parametrize("path", SOURCES, ids=lambda p: str(p.relative_to(ROOT)))

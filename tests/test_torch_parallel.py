@@ -332,7 +332,7 @@ def test_one_process_is_a_world_of_one(monkeypatch):
     assert not parallel.initialize_distributed("cpu")
     mesh = parallel.create_mesh()
     assert (mesh.shape, mesh.rank, mesh.group) == ({"data": 1}, 0, None)
-    assert parallel.create_mesh({"data": -1, "time": 1}).shape == {"data": 1}
+    assert parallel.create_mesh({"data": -1, "time": 1}).shape == {"data": 1, "time": 1}
     assert parallel.local_batch_slice(16) == slice(0, 16)
     assert parallel.local_batch_slice(16, axis_size=4) == slice(0, 4)
     t = [torch.ones(3)]
@@ -378,16 +378,19 @@ def test_loader_shards_by_the_batch_slice(num_shards, monkeypatch):
 
 
 def test_sequence_parallelism_and_bad_meshes_raise():
-    with pytest.raises(NotImplementedError, match="item 6b"):
+    """A mesh that does not cover the ranks, or names an axis it does not
+    know, raises; so does a block that does not split. The placement
+    helpers run over two ranks in ``test_torch_sequence_parallel.py``."""
+    with pytest.raises(ValueError, match="!= 1 processes"):
         parallel.create_mesh({"data": 1, "time": 2})
-    with pytest.raises(NotImplementedError, match="item 6b"):
-        parallel.clip_sharding()
-    with pytest.raises(NotImplementedError, match="item 6b"):
-        parallel.shard_batch_sp({}, None)
     with pytest.raises(ValueError, match="!= 1 processes"):
         parallel.create_mesh(2)
     with pytest.raises(ValueError, match="unknown mesh axes"):
-        parallel.create_mesh({"data": 1, "model": 2})
+        parallel.create_mesh({"data": 1, "pipe": 2})
+    with pytest.raises(ValueError, match="does not split"):
+        parallel.shard_batch_sp({"lr": torch.zeros(3, 4)}, parallel.Mesh(("data", "time"), (2, 1)))
+    with pytest.raises(ValueError, match="no axis 'data'"):
+        parallel.clip_sharding(parallel.Mesh(("time",), (1,))).index((2, 4))
 
 
 def test_rank_device_and_backend(monkeypatch):

@@ -26,7 +26,7 @@ from vsrlab_tpu_torch.train.builders import build_tx  # noqa: E402
 from vsrlab_tpu_torch.train.state import create_train_state  # noqa: E402
 from vsrlab_tpu_torch.train.step import make_supervised_train_step  # noqa: E402
 from test_torch_vrt_train import (  # noqa: E402,F401  (batch and params are fixtures)
-    KW, OPT, ROUTES, _port, _tensors, batch, params)
+    OPT, ROUTES, _port, _tensors, batch, params)
 
 
 def _loss_and_grads(model, batch, **kw):
@@ -128,14 +128,29 @@ def test_train_step_runs_deterministic(batch, params, monkeypatch):
     assert seen and all(seen)
 
 
-def test_head_shard_axis_takes_none_only():
-    with pytest.raises(NotImplementedError, match="item 6b"):
-        vrt.TinyVRT(**KW, head_shard_axis="model")
+def test_head_shard_axis_takes_none_only(params, batch):
+    """Without a mesh that holds its axis, ``head_shard_axis`` changes
+    nothing: the model builds, shards no head (outside ``use_mesh``, and
+    inside one of a world of one, whose ``model`` axis has one rank) and
+    equals the model without it bit for bit. Sharding over two ranks is in
+    ``test_torch_head_parallel.py``."""
+    from vsrlab_tpu_torch import parallel
     from vsrlab_tpu_torch.models.vrt.window_attention import WindowAttention
 
-    assert WindowAttention(8, (2, 4, 4), 2, head_shard_axis=None).num_heads == 2
-    with pytest.raises(NotImplementedError, match="item 6b"):
-        WindowAttention(8, (2, 4, 4), 2, head_shard_axis="model")
+    plain = _port(params, "fused").eval()
+    sharded = _port(params, "fused", head_shard_axis="model").eval()
+    attn = [m for m in sharded.modules() if isinstance(m, WindowAttention)]
+    assert attn and all(m.head_shard_axis == "model" for m in attn)
+    lr = torch.from_numpy(batch[0][:1, :2])
+    with torch.no_grad():
+        want = plain(lr)[0]
+        assert all(m.head_shard() is None for m in attn)
+        assert torch.equal(sharded(lr)[0], want)
+        with parallel.use_mesh(parallel.create_mesh({"data": 1, "model": 1})):
+            assert all(m.head_shard() is None for m in attn)
+            assert torch.equal(sharded(lr)[0], want)
+    assert parallel.active_mesh() is None
+    assert WindowAttention(8, (2, 4, 4), 2, head_shard_axis=None).head_shard() is None
 
 
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5), (torch.bfloat16, 2e-2)])

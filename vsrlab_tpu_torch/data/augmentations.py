@@ -4,10 +4,12 @@
 Every transform takes and returns a float32 clip ``(T, H, W, C)`` in
 [0, 1] and draws its severity on each call from the
 ``numpy.random.Generator`` it is handed, in the JAX package's order, so
-that one seed gives one clip in both packages. JPEG and Resize go through
+that one seed gives one clip in both packages. JPEG and Resize need
 OpenCV and raise where it is missing (the JAX package returns the clip
-untouched there); video compression is the numpy codec emulator
-(:mod:`vsrlab_tpu_torch.data.codec_emulator`).
+untouched there); the JPEG round trip runs in the port's host library
+(:mod:`vsrlab_tpu_torch.data.native`) where its OpenCV half is built.
+Video compression is the codec emulator
+(:mod:`vsrlab_tpu_torch.data.codec_emulator`), native where built.
 """
 
 from __future__ import annotations
@@ -16,6 +18,7 @@ from typing import Callable, List, Optional, Sequence
 
 import numpy as np
 
+from vsrlab_tpu_torch.data import native
 from vsrlab_tpu_torch.data.codec_emulator import crf_to_quality, dct_codec_roundtrip
 from vsrlab_tpu_torch.data.video_io import _need_cv2, to_uint8
 
@@ -31,6 +34,9 @@ class RandomJPEGCompression:
         cv = _need_cv2("RandomJPEGCompression")
         q = (int(rng.integers(self.quality[0], self.quality[1] + 1)) if len(self.quality) == 2
              else int(self.quality[0]))
+        fast = native.jpeg_degrade(clip, q)
+        if fast is not None:
+            return fast
         out = []
         for frame in clip:
             ok, buf = cv.imencode(".jpg", to_uint8(frame)[..., ::-1], [cv.IMWRITE_JPEG_QUALITY, q])

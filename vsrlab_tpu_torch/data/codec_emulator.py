@@ -8,13 +8,17 @@ YCbCr with 4:2:0 chroma subsampling and a closed GOP. Training then sees
 the artifacts of those codecs (blocking, ringing, chroma bleed, P-frame
 error that accumulates over the GOP) with an exact quantiser;
 :func:`crf_to_quality` maps a CRF onto the quantiser scale so that PSNR
-falls about 0.5 dB a CRF step, as x264's does. The JAX package's native
-library for the same function is not ported: this module is numpy only.
+falls about 0.5 dB a CRF step, as x264's does. The round trip runs in the
+port's host library (:func:`vsrlab_tpu_torch.data.native.codec_degrade`)
+where it is built; the numpy code here is its reference and the path
+where it is not.
 """
 
 from __future__ import annotations
 
 import numpy as np
+
+from vsrlab_tpu_torch.data import native
 
 # libjpeg base quantisation tables (luma / chroma)
 _Q_LUMA = np.array(
@@ -89,13 +93,19 @@ def crf_to_quality(crf: float) -> float:
 
 
 def dct_codec_roundtrip(clip: np.ndarray, quality: float, gop: int = 8,
-                        subsample_chroma: bool = True) -> np.ndarray:
+                        subsample_chroma: bool = True, force_numpy: bool = False) -> np.ndarray:
     """Closed-GOP IPPP... codec round trip of a float32 clip ``(T, H, W, 3)``
     in [0, 1]: an I-frame quantises the frame's DCT, a P-frame the DCT of
     its residual against the previous *reconstructed* frame, so the
     quantisation error travels through the GOP as in a real inter codec.
-    Frames are edge-padded to multiples of 16 (chroma planes to 8)."""
+    Frames are edge-padded to multiples of 16 (chroma planes to 8). The
+    native library runs it where built; ``force_numpy`` takes the numpy
+    path here."""
     gop = max(1, int(gop))
+    if not force_numpy:
+        fast = native.codec_degrade(clip, quality, gop, subsample_chroma)
+        if fast is not None:
+            return fast
     t, h, w, _ = clip.shape
     ph, pw = (-h) % 16, (-w) % 16
     padded = np.pad(clip, ((0, 0), (0, ph), (0, pw), (0, 0)), mode="edge")

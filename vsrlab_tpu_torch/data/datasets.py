@@ -13,12 +13,14 @@
   only the sampled window.
 
 Samples are ``(lr, hr)`` float32 numpy clips ``(T, H, W, C)`` in [0, 1].
-The bicubic LR is :func:`~vsrlab_tpu_torch.ops.resize.bicubic_down`,
-OpenCV's ``INTER_CUBIC`` computed in numpy, so it is the same with or
-without OpenCV; the JAX package calls its native library or OpenCV, which
-agree with it to about 3e-7. Frames are decoded with OpenCV, so the
-folder datasets raise without it, as do the JPEG and Resize stages of a
-pipeline (:mod:`vsrlab_tpu_torch.data.augmentations`).
+The bicubic LR is OpenCV's ``INTER_CUBIC``: through the port's host
+library (:func:`vsrlab_tpu_torch.data.native.bicubic_resize`) where its
+OpenCV half is built, else :func:`~vsrlab_tpu_torch.ops.resize.bicubic_down`
+in numpy (they agree to about 3e-7), so it is the same with or without
+OpenCV. A clip's frames are decoded by the host library's threaded decode
+where built, else one by one with OpenCV; the folder datasets raise
+without either, as do the JPEG and Resize stages of a pipeline
+(:mod:`vsrlab_tpu_torch.data.augmentations`).
 """
 
 from __future__ import annotations
@@ -28,6 +30,7 @@ from typing import Optional, Sequence
 
 import numpy as np
 
+from vsrlab_tpu_torch.data import native
 from vsrlab_tpu_torch.data.augmentations import build_pipeline
 from vsrlab_tpu_torch.data.video_io import _need_cv2, read_video_window, video_frame_count
 from vsrlab_tpu_torch.ops.resize import bicubic_down
@@ -43,8 +46,19 @@ def load_frame(path) -> np.ndarray:
 
 
 def load_clip(paths) -> np.ndarray:
-    """Decode frame files to ``(T, H, W, 3)`` float32."""
+    """Decode frame files to ``(T, H, W, 3)`` float32: the host library's
+    threaded decode where built, OpenCV frame by frame otherwise."""
+    clip = native.decode_clip(paths)
+    if clip is not None:
+        return clip
     return np.stack([load_frame(p) for p in paths])
+
+
+def bicubic_lr(clip: np.ndarray, scale: int) -> np.ndarray:
+    """The ``1/scale`` bicubic LR of ``(T, H, W, 3)``, clamped to [0, 1]."""
+    t, h, w, _ = clip.shape
+    out = native.bicubic_resize(clip, h // scale, w // scale)
+    return out if out is not None else bicubic_down(clip, scale)
 
 
 class DatasetVSR:
@@ -86,7 +100,7 @@ class DatasetVSR:
         if self.hr_aug:
             hr = self.hr_aug(hr, rng)
         # the LR pipeline degrades HR, so it has to downscale it too
-        lr = self.lr_aug(hr, rng) if self.lr_aug else bicubic_down(hr, self.scale)
+        lr = self.lr_aug(hr, rng) if self.lr_aug else bicubic_lr(hr, self.scale)
         return lr, hr
 
 
@@ -182,7 +196,7 @@ class SyntheticVSR:
                              for c in range(3)], axis=-1)
             frames.append((base * 0.5 + 0.5).astype(np.float32))
         hr = np.stack(frames)
-        lr = bicubic_down(hr, self.scale)
+        lr = bicubic_lr(hr, self.scale)
         if self.lr_aug:
             lr = self.lr_aug(lr, np.random.default_rng((self.seed, self._epoch, index)))
         return lr, hr

@@ -7,7 +7,8 @@
 * :func:`make_stream_forward` builds ``(first, rest)`` for stateful
   windowed inference that carries the forward recurrence across windows;
 * :func:`windowed_inference` splits a long clip into windows, runs them
-  as one batch and restitches;
+  as one batch (or, over a mesh's ``time`` axis, each rank its share of
+  them) and restitches;
 * :func:`evaluate_video` scores one clip; :func:`run_test_matrix` sweeps
   the fps x crf matrix of compressed test videos and writes a CSV
   (``python -m vsrlab_tpu_torch.evaluation.harness``).
@@ -18,8 +19,14 @@ for ``"cpu"``; asking for CUDA where there is none raises.
 The model is moved to the device once and runs in inference mode, with
 its residual-pair operand caches dropped (a write through ``p.data``
 before the call is seen). Clips are ``(B, T, H, W, C)`` numpy arrays or
-tensors; results are tensors on the device. The mesh argument of the JAX
-``windowed_inference`` waits for the distributed slice.
+tensors; results are tensors on the device.
+
+Over a mesh with a ``time`` axis (``parallel.create_mesh({"time": n})``
+under torchrun, one card a rank), every rank of the axis is handed the
+same clip, runs its contiguous share of the windows on its own device and
+ends with the whole result: the shares are gathered by one broadcast from
+each rank in turn, which NCCL and gloo both carry. Only rank 0 dumps
+frames and writes the CSV of :func:`run_test_matrix`.
 """
 
 from __future__ import annotations
@@ -38,6 +45,7 @@ from vsrlab_tpu_torch.core.metrics import MetricCollection, resolve_metric_names
 from vsrlab_tpu_torch.data.datasets import load_frame
 from vsrlab_tpu_torch.evaluation.tiled import tiled_forward
 from vsrlab_tpu_torch.nn.blocks import refresh_pair_caches
+from vsrlab_tpu_torch.parallel import Mesh, process_index
 
 
 def resolve_device(device: str | torch.device = "cuda") -> torch.device:
@@ -160,32 +168,65 @@ def make_stream_forward(model: torch.nn.Module, device: str | torch.device = "cu
     return first, rest
 
 
-def windowed_inference(forward: Callable, video_lr, window_size: int) -> Tuple[torch.Tensor, int]:
+def _gather_windows(local: torch.Tensor, mesh: Mesh) -> torch.Tensor:
+    """The ``time`` axis's shares of a window batch, in rank order, on every
+    rank of the axis: one broadcast from each rank in turn into its block."""
+    ranks = mesh.axis_ranks("time")
+    per = local.shape[0]
+    full = local.new_empty((per * len(ranks), *local.shape[1:]))
+    for j, src in enumerate(ranks):
+        block = full[j * per:(j + 1) * per]
+        if src == mesh.rank:
+            block.copy_(local)
+        torch.distributed.broadcast(block, src, group=mesh.axis_group("time"))
+    return full
+
+
+def windowed_inference(forward: Callable, video_lr, window_size: int,
+                       mesh: Optional[Mesh] = None) -> Tuple[torch.Tensor, int]:
     """Split ``(1, T, H, W, C)`` into ``window_size`` windows (the last one
     padded by repeating the last frame), run them as ONE batch through
     ``forward`` (which places them on its device) and restitch. Returns
-    ``(sr, num_windows)`` with ``sr`` ``(1, T, sH, sW, C)``."""
+    ``(sr, num_windows)`` with ``sr`` ``(1, T, sH, sW, C)``.
+
+    With a ``mesh`` that has a ``time`` axis of ``n`` ranks, the window
+    batch is padded to a multiple of ``n`` by repeating the last window,
+    rank ``k`` of the axis runs windows ``[k*per, (k+1)*per)`` and every
+    rank of the axis returns the whole result."""
     video = torch.as_tensor(video_lr, dtype=torch.float32)
     _, t, h, w, c = video.shape
     n_windows = -(-t // window_size)
     pad = n_windows * window_size - t
     if pad:
         video = torch.cat([video, video[:, -1:].expand(-1, pad, -1, -1, -1)], 1)
-    sr = forward(video.reshape(n_windows, window_size, h, w, c))
+    windows = video.reshape(n_windows, window_size, h, w, c)
+    nt = mesh.shape.get("time", 1) if mesh is not None else 1
+    if nt > 1:
+        bpad = (-n_windows) % nt
+        if bpad:
+            windows = torch.cat([windows, windows[-1:].expand(bpad, -1, -1, -1, -1)])
+        per, k = windows.shape[0] // nt, mesh.axis_index("time")
+        windows = windows[k * per:(k + 1) * per]
+    sr = forward(windows)
     if isinstance(sr, tuple):
         sr = sr[0]
+    if nt > 1:
+        with torch.no_grad():
+            sr = _gather_windows(sr, mesh)
+    sr = sr[:n_windows]
     scale = sr.shape[2] // h
     sr = sr.reshape(1, n_windows * window_size, h * scale, w * scale, -1)
     return sr[:, :t], n_windows
 
 
 def evaluate_video(forward: Callable, video_lr, video_hr, window_size: int,
-                   metrics) -> Tuple[torch.Tensor, Dict[str, float]]:
+                   metrics, mesh: Optional[Mesh] = None) -> Tuple[torch.Tensor, Dict[str, float]]:
     """One clip of the test matrix: :func:`windowed_inference` of
-    ``video_lr`` ``(1, T, h, w, 3)``, clipped to [0, 1] in fp32, and each
-    built-in metric named in ``metrics`` against ``video_hr`` ``(1, T, H, W,
-    3)``, computed on the device. Returns ``(sr, {metric: value})``."""
-    sr, _ = windowed_inference(forward, video_lr, window_size)
+    ``video_lr`` ``(1, T, h, w, 3)`` (over ``mesh``'s ``time`` axis where
+    given), clipped to [0, 1] in fp32, and each built-in metric named in
+    ``metrics`` against ``video_hr`` ``(1, T, H, W, 3)``, computed on the
+    device. Returns ``(sr, {metric: value})``, the same on every rank."""
+    sr, _ = windowed_inference(forward, video_lr, window_size, mesh)
     sr = sr.float().clamp(0.0, 1.0)
     hr = torch.as_tensor(video_hr, dtype=torch.float32).to(sr.device)
     fns = MetricCollection.BUILTIN
@@ -213,6 +254,7 @@ def run_test_matrix(
     hr_crf: int = 5,
     metrics=None,
     save_frames: bool = True,
+    mesh: Optional[Mesh] = None,
     tile: Optional[int] = None,
     tile_overlap: int = 16,
     align_chunks: int = 0,
@@ -232,6 +274,10 @@ def run_test_matrix(
     (PSNR / SSIM by default), and are validated before any decode. cf and
     bpp average over the videos whose encoded files are present. SR frames
     are dumped as ``img{i:05d}.png`` where OpenCV is importable.
+
+    With a ``mesh`` (a ``time`` axis: each window batch split over its
+    ranks), every rank decodes the same clips and returns the same rows;
+    rank 0 alone prints, dumps frames and writes the CSV.
     """
     try:
         import cv2  # noqa: F401
@@ -246,6 +292,7 @@ def run_test_matrix(
     metrics = (metrics_from_config(cfg.train) if metrics is None
                else resolve_metric_names(metrics))
     forward = make_forward(model, tile, tile_overlap, device)
+    writer = process_index() == 0
     rows: List[Dict] = []
     name = Path(cfg_dir).name
     output_folder = Path(out_dir) / name
@@ -272,9 +319,12 @@ def run_test_matrix(
                     cf += bits_comp / bits_orig
                     bpp += bits_comp / (cc * hh * ww * f)
                     n_bitrate += 1
-                sr, vmetrics = evaluate_video(forward, video_lr, video_hr, window_size, metrics)
+                sr, vmetrics = evaluate_video(forward, video_lr, video_hr, window_size, metrics,
+                                              mesh)
                 for k in metrics:
                     sums[k] += vmetrics[k]
+                if not writer:
+                    continue
                 if save_frames and can_dump:
                     _save_frames(output_folder / f"fps={fps}_crf={crf}" / vname, sr)
                 print(f"fps={fps} crf={crf} {vname}: "
@@ -285,11 +335,12 @@ def run_test_matrix(
             rows.append({"cf": cf / nb, "bpp": bpp / nb, "fps": fps, "crf": crf,
                          **{k: v / n for k, v in sums.items()}})
 
-    output_folder.mkdir(parents=True, exist_ok=True)
-    with open(output_folder / f"{name}.csv", "w", newline="") as fh:
-        writer = csv.DictWriter(fh, fieldnames=["cf", "bpp", "fps", "crf", *metrics])
-        writer.writeheader()
-        writer.writerows(rows)
+    if writer:
+        output_folder.mkdir(parents=True, exist_ok=True)
+        with open(output_folder / f"{name}.csv", "w", newline="") as fh:
+            out = csv.DictWriter(fh, fieldnames=["cf", "bpp", "fps", "crf", *metrics])
+            out.writeheader()
+            out.writerows(rows)
     return rows
 
 

@@ -35,7 +35,8 @@ class Stage(nn.Module):
                  mlp_ratio: float = 2.0, qkv_bias: bool = True,
                  qk_scale: Optional[float] = None, drop_path=0.0, pa_frames: int = 2,
                  deformable_groups: int = 16, reshape: str = "none",
-                 max_residue_magnitude: float = 10.0, align_chunks: int = 0, dtype=None):
+                 max_residue_magnitude: float = 10.0, align_chunks: int = 0, dtype=None,
+                 head_shard_axis: Optional[str] = None):
         super().__init__()
         self.reshape, self.align_chunks = reshape, align_chunks
         if reshape == "none":
@@ -52,11 +53,11 @@ class Stage(nn.Module):
         dp_list = list(drop_path) if isinstance(drop_path, (list, tuple)) else [drop_path] * depth
         self.residual_group1 = TMSAG(
             dim, depth1, num_heads, (2, window_size[1], window_size[2]), None, True, mlp_ratio,
-            qkv_bias, qk_scale, dp_list[:depth1], dtype)
+            qkv_bias, qk_scale, dp_list[:depth1], dtype, head_shard_axis)
         self.linear1 = Linear(dim, dim, True, dtype)
         self.residual_group2 = TMSAG(
             dim, depth - depth1, num_heads, tuple(window_size), None, False, mlp_ratio,
-            qkv_bias, qk_scale, dp_list[depth1:], dtype)
+            qkv_bias, qk_scale, dp_list[depth1:], dtype, head_shard_axis)
         self.linear2 = Linear(dim, dim, True, dtype)
         self.pa_deform = FlowGuidedDeformAlign(dim, deformable_groups, max_residue_magnitude,
                                                pa_frames, dtype)

@@ -57,13 +57,14 @@ class TMSA(nn.Module):
     def __init__(self, dim: int, num_heads: int, window_size: Sequence[int] = (6, 8, 8),
                  shift_size: Sequence[int] = (0, 0, 0), mut_attn: bool = True,
                  mlp_ratio: float = 2.0, qkv_bias: bool = True,
-                 qk_scale: Optional[float] = None, drop_path: float = 0.0, dtype=None):
+                 qk_scale: Optional[float] = None, drop_path: float = 0.0, dtype=None,
+                 head_shard_axis: Optional[str] = None):
         super().__init__()
         self.window_size, self.shift_size = tuple(window_size), tuple(shift_size)
         self.drop_path = DropPath(drop_path)
         self.norm1 = LayerNorm(dim, dtype=dtype)
         self.attn = WindowAttention(dim, self.window_size, num_heads, qkv_bias, qk_scale,
-                                    mut_attn, dtype=dtype)
+                                    mut_attn, head_shard_axis, dtype)
         self.norm2 = LayerNorm(dim, dtype=dtype)
         self.mlp = MlpGEGLU(dim, int(dim * mlp_ratio), dim, dtype=dtype)
 
@@ -97,7 +98,8 @@ class TMSAG(nn.Module):
                  window_size: Sequence[int] = (6, 8, 8),
                  shift_size: Optional[Sequence[int]] = None, mut_attn: bool = True,
                  mlp_ratio: float = 2.0, qkv_bias: bool = True,
-                 qk_scale: Optional[float] = None, drop_path=0.0, dtype=None):
+                 qk_scale: Optional[float] = None, drop_path=0.0, dtype=None,
+                 head_shard_axis: Optional[str] = None):
         super().__init__()
         self.depth, self.window_size = depth, tuple(window_size)
         self.base_shift = (tuple(i // 2 for i in window_size) if shift_size is None
@@ -107,7 +109,7 @@ class TMSAG(nn.Module):
             self.add_module(f"block_{i}", TMSA(
                 dim, num_heads, self.window_size,
                 (0, 0, 0) if i % 2 == 0 else self.base_shift, mut_attn, mlp_ratio, qkv_bias,
-                qk_scale, float(rate), dtype))
+                qk_scale, float(rate), dtype, head_shard_axis))
 
     def forward(self, x, deterministic: bool = True,
                 generator: Optional[torch.Generator] = None):
@@ -127,10 +129,11 @@ class RTMSA(nn.Module):
 
     def __init__(self, dim: int, depth: int, num_heads: int, window_size: Sequence[int],
                  mlp_ratio: float = 2.0, qkv_bias: bool = True,
-                 qk_scale: Optional[float] = None, drop_path=0.0, dtype=None):
+                 qk_scale: Optional[float] = None, drop_path=0.0, dtype=None,
+                 head_shard_axis: Optional[str] = None):
         super().__init__()
         self.residual_group = TMSAG(dim, depth, num_heads, window_size, None, False, mlp_ratio,
-                                    qkv_bias, qk_scale, drop_path, dtype)
+                                    qkv_bias, qk_scale, drop_path, dtype, head_shard_axis)
         self.linear = Linear(dim, dim, True, dtype)
 
     def forward(self, x, deterministic: bool = True,

@@ -21,6 +21,9 @@ default). SpyNet's flows carry no gradient unless ``optical_flow_train``
 each trunk RTMSA in the backward pass (``torch.utils.checkpoint``,
 non-reentrant), the units the JAX package rematerialises: its kernels
 then launch again in the backward, and each launch counts.
+``head_shard_axis`` reaches every ``WindowAttention``: inside
+``parallel.use_mesh`` of a mesh with that axis the heads are split over
+its ranks (every rank loads the whole ``state_dict``).
 """
 
 from __future__ import annotations
@@ -37,7 +40,6 @@ from torch.utils.checkpoint import checkpoint
 from vsrlab_tpu_torch.models.spynet import SpyNet
 from vsrlab_tpu_torch.models.vrt.stage import Stage, flat_frames
 from vsrlab_tpu_torch.models.vrt.tmsa import RTMSA
-from vsrlab_tpu_torch.models.vrt.window_attention import check_head_shard_axis
 from vsrlab_tpu_torch.nn.blocks import Conv2d, LayerNorm, Linear
 from vsrlab_tpu_torch.ops.pixel_shuffle import pixel_shuffle
 from vsrlab_tpu_torch.ops.resize import resize_bilinear
@@ -68,7 +70,6 @@ class _VRTBase(nn.Module):
                  remat: bool = False, align_chunks: int = 0, dtype=None):
         super().__init__()
         del img_size  # the parameters do not depend on the clip's shape
-        check_head_shard_axis(head_shard_axis)
         self.upscale, self.dtype = upscale, dtype
         self.optical_flow_train, self.remat = optical_flow_train, remat
         depths, dims = list(depths), list(embed_dims)
@@ -84,7 +85,7 @@ class _VRTBase(nn.Module):
                 drop_path=dpr[sum(depths[:i]):sum(depths[:i + 1])], pa_frames=pa_frames,
                 deformable_groups=deformable_groups, reshape=self.reshapes[i],
                 max_residue_magnitude=10.0 / self.scales[i], align_chunks=align_chunks,
-                dtype=dtype))
+                dtype=dtype, head_shard_axis=head_shard_axis))
         self.trunk_norm_in = LayerNorm(dims[ns - 1], dtype=dtype)
         self.trunk_linear_in = Linear(dims[ns - 1], dims[ns], True, dtype)
         indep = [i % len(depths) for i in indep_reconsts]
@@ -93,7 +94,7 @@ class _VRTBase(nn.Module):
             ws = (1, window_size[1], window_size[2]) if i in indep else tuple(window_size)
             self.add_module(f"trunk_rtmsa_{i}", RTMSA(
                 dims[i], depths[i], num_heads[i], ws, mlp_ratio, qkv_bias, qk_scale,
-                dpr[sum(depths[:i]):sum(depths[:i + 1])], dtype))
+                dpr[sum(depths[:i]):sum(depths[:i + 1])], dtype, head_shard_axis))
         self.norm = LayerNorm(dims[-1], dtype=dtype)
         self.conv_after_body = Linear(dims[-1], dims[0], True, dtype)
         self.conv_before_upsample = Conv2d(dims[0], NUM_FEAT, 3, 1, 1, dtype=dtype)

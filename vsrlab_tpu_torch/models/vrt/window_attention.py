@@ -8,7 +8,14 @@
 * self attention and both mutual-attention directions run as batched
   matmuls over a chunk of windows at a time, with fp32 logits and softmax;
 * mutual attention splits each temporal-window-2 token block into its two
-  frames and cross-attends them both ways.
+  frames and cross-attends them both ways;
+* ``head_shard_axis`` splits the heads over an axis of the active mesh
+  (``parallel.use_mesh``), as Megatron splits them: every rank holds the
+  whole parameters, computes a contiguous range of the heads (the q, k, v
+  rows and bias-table columns of those heads: column-parallel) and its
+  part of the output projection (those heads' input columns:
+  row-parallel), and one all-reduce sums the parts. Outside such a mesh
+  the module runs unsharded.
 """
 
 from __future__ import annotations
@@ -20,10 +27,12 @@ from typing import NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 from torch import nn
 
 from vsrlab_tpu_torch.nn.blocks import Linear
+from vsrlab_tpu_torch.parallel import active_mesh, all_reduce_mean, all_reduce_sum
 
 # fp32 logits of one chunk of windows: above this the windows are processed
 # in chunks. Unchunked, full VRT at 16x256x256 has (3072, 6, 384, 384) fp32
@@ -205,13 +214,69 @@ def sine_position_encoding(
     return pos.reshape(1, h * w, -1).astype(np.float32)
 
 
-def check_head_shard_axis(axis: Optional[str]) -> None:
-    """Only ``None`` runs: sharding the attention heads over a mesh axis
-    waits for a later slice (ROADMAP queue 1, item 6b)."""
-    if axis is not None:
-        raise NotImplementedError(
-            f"head_shard_axis={axis!r}: tensor parallelism over attention heads is not "
-            "ported yet (ROADMAP queue 1, item 6b); pass None")
+def head_range(num_heads: int, parts: int, index: int) -> Tuple[int, int]:
+    """``[start, stop)`` of part ``index`` of ``num_heads`` heads cut into
+    ``parts`` contiguous ranges whose sizes differ by at most one (the
+    first ``num_heads % parts`` ranges take one head more)."""
+    base, extra = divmod(num_heads, parts)
+    start = index * base + min(index, extra)
+    return start, start + base + (index < extra)
+
+
+class _CopyToGroup(torch.autograd.Function):
+    """Identity forward; backward sums the input's gradient over the group
+    (each rank's heads give a part of it)."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return _group_sum(grad, ctx.group), None
+
+
+class _ReduceFromGroup(torch.autograd.Function):
+    """Forward sums the ranks' partial outputs over the group; identity
+    backward (every rank's part gets the whole output's gradient)."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        return _group_sum(x, group)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad, None
+
+
+def _group_sum(x: torch.Tensor, group) -> torch.Tensor:
+    """The sum of ``x`` over ``group`` in a new tensor, added in fp32 (a bf16
+    sum is rounded once, at the end) and returned in ``x``'s dtype."""
+    out = x.to(torch.float32, memory_format=torch.contiguous_format, copy=True)
+    dist.all_reduce(out, group=group)
+    return out.to(x.dtype)
+
+
+def _qkv_heads(lin: Linear, x: torch.Tensor, lo: int, hi: int, hd: int) -> torch.Tensor:
+    """The q, k and v features of heads ``[lo, hi)`` of ``lin(x)`` (a fused
+    q | k | v projection): column-parallel."""
+    dt = lin.dtype or torch.promote_types(x.dtype, lin.weight.dtype)
+    heads = slice(lo * hd, hi * hd)
+    w = lin.weight.view(3, -1, lin.weight.shape[1])[:, heads].reshape(-1, lin.weight.shape[1])
+    b = None if lin.bias is None else lin.bias.view(3, -1)[:, heads].reshape(-1).to(dt)
+    return F.linear(x.to(dt), w.to(dt), b)
+
+
+def _proj_heads(lin: Linear, x: torch.Tensor, lo: int, hi: int, hd: int, halves: int,
+                bias: bool) -> torch.Tensor:
+    """What heads ``[lo, hi)`` contribute to ``lin`` of the whole input, from
+    their features ``x`` in each of the input's ``halves`` (mutual | self):
+    row-parallel; the bias where ``bias``."""
+    dt = lin.dtype or torch.promote_types(x.dtype, lin.weight.dtype)
+    out = lin.weight.shape[0]
+    w = lin.weight.view(out, halves, -1)[:, :, lo * hd:hi * hd].reshape(out, -1)
+    return F.linear(x.to(dt), w.to(dt), lin.bias.to(dt) if bias else None)
 
 
 class MlpGEGLU(nn.Module):
@@ -235,16 +300,20 @@ class WindowAttention(nn.Module):
     ``window_size`` is the DECLARED window: it sizes the relative-position
     bias table, which is indexed ``[:N, :N]`` when the input's window is
     smaller, so the same parameters serve every input size.
-    ``head_shard_axis`` (tensor parallelism over the heads) takes only
-    ``None`` here: see :func:`check_head_shard_axis`.
+    ``head_shard_axis`` names the mesh axis that splits the heads (tensor
+    parallelism) inside ``parallel.use_mesh`` of a mesh with that axis;
+    elsewhere it has no effect. A sharded backward leaves each rank the
+    gradient of its own heads' parameters: :func:`all_reduce_head_grads`
+    sums them into the whole gradient and makes the ranks' other gradients
+    agree.
     """
 
     def __init__(self, dim: int, window_size: Sequence[int], num_heads: int,
                  qkv_bias: bool = True, qk_scale: Optional[float] = None, mut_attn: bool = True,
                  head_shard_axis: Optional[str] = None, dtype=None):
         super().__init__()
-        check_head_shard_axis(head_shard_axis)
         self.dim, self.num_heads, self.mut_attn = dim, num_heads, mut_attn
+        self.head_shard_axis = head_shard_axis
         self.window_size = tuple(window_size)
         self.scale = qk_scale or (dim // num_heads) ** -0.5
         wd, wh, ww = self.window_size
@@ -290,19 +359,41 @@ class WindowAttention(nn.Module):
         x2 = self._core(qm[:, :, :half], km[:, :, half:], vm[:, :, half:], masks, tid, None)
         return torch.cat([torch.cat([x1, x2], 1), x_out], -1)
 
+    def head_shard(self):
+        """``(group, start, stop)``: this rank's heads under the active mesh,
+        or None where it does not shard them (no ``head_shard_axis``, no
+        active mesh, or one without that axis or with it of size 1)."""
+        mesh = active_mesh()
+        axis = self.head_shard_axis
+        if axis is None or mesh is None or mesh.shape.get(axis, 1) == 1:
+            return None
+        start, stop = head_range(self.num_heads, mesh.shape[axis], mesh.axis_index(axis))
+        return mesh.axis_group(axis), start, stop
+
     def forward(self, x, mask=None):
         b_, n, c = x.shape
-        nh = self.num_heads
+        hd = c // self.num_heads
+        shard = self.head_shard()
+        if shard is None:
+            lo, nh = 0, self.num_heads
+            qkv_self = self.qkv_self(x)
+            qkv_mut = self.qkv_mut(x + self.pos2.to(x.dtype)) if self.mut_attn else None
+        else:
+            group, lo, hi = shard
+            nh = hi - lo
+            x = _CopyToGroup.apply(x, group)
+            qkv_self = _qkv_heads(self.qkv_self, x, lo, hi, hd)
+            qkv_mut = (_qkv_heads(self.qkv_mut, x + self.pos2.to(x.dtype), lo, hi, hd)
+                       if self.mut_attn else None)
 
         def heads(t):
-            return t.reshape(b_, n, nh, c // nh).transpose(1, 2)  # B_, nH, N, hd
+            return t.reshape(b_, n, nh, hd).transpose(1, 2)  # B_, nH, N, hd
 
-        q, k, v = (heads(t) for t in self.qkv_self(x).chunk(3, -1))
-        qkv_m = None
-        if self.mut_attn:
-            qkv_m = tuple(heads(t) for t in self.qkv_mut(x + self.pos2.to(x.dtype)).chunk(3, -1))
+        q, k, v = (heads(t) for t in qkv_self.chunk(3, -1))
+        qkv_m = None if qkv_mut is None else tuple(heads(t) for t in qkv_mut.chunk(3, -1))
         rpi = self.rpi[:n, :n].reshape(-1)
-        bias = self.relative_position_bias_table[rpi].reshape(n, n, nh).permute(2, 0, 1)[None]
+        table = self.relative_position_bias_table[:, lo:lo + nh]
+        bias = table[rpi].reshape(n, n, nh).permute(2, 0, 1)[None]
 
         masks = tid = None
         if isinstance(mask, FactoredMask):
@@ -313,11 +404,40 @@ class WindowAttention(nn.Module):
             masks = torch.as_tensor(mask, dtype=torch.float32, device=x.device)
             tid = torch.arange(b_, device=x.device) % masks.shape[0]
 
-        chunk = max(1, LOGITS_BUDGET // (nh * n * n * 4))
+        chunk = max(1, LOGITS_BUDGET // (max(nh, 1) * n * n * 4))
         outs = []
         for s in range(0, b_, chunk):
             sl = slice(s, s + chunk)
             outs.append(self._block(
                 q[sl], k[sl], v[sl], None if qkv_m is None else tuple(t[sl] for t in qkv_m),
                 masks, None if tid is None else tid[sl], bias))
-        return self.proj(outs[0] if len(outs) == 1 else torch.cat(outs, 0))
+        out = outs[0] if len(outs) == 1 else torch.cat(outs, 0)
+        if shard is None:
+            return self.proj(out)
+        # the bias once, on the group's first rank, then the sum over the group
+        part = _proj_heads(self.proj, out, lo, lo + nh, hd, 2 if self.mut_attn else 1, lo == 0)
+        return _ReduceFromGroup.apply(part, group)
+
+
+def all_reduce_head_grads(model: nn.Module) -> None:
+    """Make every rank of each head-sharding group hold the same, unsharded
+    gradient (inside the ``use_mesh`` of the backward). The head-sharded
+    attention modules' parameters are summed over the group: each rank's
+    backward gave only its heads' part of them (a gradient it did not
+    reach is taken as zeros). Every other parameter's gradient is averaged
+    over the group: each rank computed the whole of it, but on the card
+    the ranks' sums differ by rounding (cuDNN's and the sampler's
+    backwards add in no fixed order), and replicas stepped on them would
+    drift apart."""
+    by_group, sharded = {}, set()
+    for m in model.modules():
+        if isinstance(m, WindowAttention) and (shard := m.head_shard()) is not None:
+            for p in m.parameters():
+                if p.grad is None:  # the projection's bias, on the ranks that skip it
+                    p.grad = torch.zeros_like(p)
+                by_group.setdefault(shard[0], []).append(p.grad)
+                sharded.add(p)
+    rest = [p.grad for p in model.parameters() if p not in sharded and p.grad is not None]
+    for group, grads in by_group.items():
+        all_reduce_sum(grads, group)
+        all_reduce_mean(rest, group)

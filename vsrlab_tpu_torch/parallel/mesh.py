@@ -1,11 +1,18 @@
-"""Data parallelism across processes (port of ``vsrlab_tpu/parallel/mesh.py``,
-the ``data`` axis).
+"""A mesh of named axes over processes (port of ``vsrlab_tpu/parallel/mesh.py``).
 
-One process a rank, as ``torchrun`` starts them; every rank holds the whole
-model and trains on its own slice of each global batch. The trainers
-average the gradients over the ranks with one explicit all-reduce of a
-flat bucket (:func:`all_reduce_mean`) before the norm, the clip and the
-update, so that every rank takes the JAX step on the global batch.
+One process a rank, as ``torchrun`` starts them. :func:`create_mesh` lays
+the ranks out row-major over up to three named axes, as JAX lays its
+devices out with ``np.asarray(devices).reshape(sizes)``:
+
+* ``data``: every rank holds the whole model and trains on its own slice
+  of each global batch. The trainers average the gradients over the ranks
+  with one explicit all-reduce of a flat bucket (:func:`all_reduce_mean`)
+  before the norm, the clip and the update, so that every rank takes the
+  JAX step on the global batch.
+* ``time``: the windows of a long clip are split over the ranks at
+  inference (``evaluation.harness.windowed_inference(..., mesh)``).
+* ``model``: the attention heads of a VRT-family model are split over the
+  ranks (``head_shard_axis="model"``) inside :func:`use_mesh`.
 
 * :func:`initialize_distributed`: the ``env://`` rendezvous from torchrun's
   ``RANK``, ``WORLD_SIZE``, ``LOCAL_RANK``, ``MASTER_ADDR``, ``MASTER_PORT``;
@@ -19,25 +26,32 @@ update, so that every rank takes the JAX step on the global batch.
 * :func:`rank_device`: a rank's device is ``cuda:LOCAL_RANK`` for
   ``"cuda"``, the one named for ``"cuda:k"``, the CPU for ``"cpu"``; it
   never falls back to the CPU.
-* :func:`create_mesh` builds the data axis; a ``time`` axis larger than 1
-  (sequence parallelism), :func:`clip_sharding` and :func:`shard_batch_sp`
-  raise: they wait for a later slice (ROADMAP queue 1, item 6b).
+* :func:`create_mesh` gives each axis one process group for each of its
+  lines (the ranks that differ only in their index on that axis);
+  :func:`use_mesh` makes a mesh the active one, which ``head_shard_axis``
+  reads (JAX's ``with mesh:`` / ``jax.set_mesh``).
+* :func:`batch_sharding` and :func:`clip_sharding` are the
+  ``PartitionSpec``s ``P(axis)`` and ``P(batch_axis, time_axis)`` over a
+  mesh; :func:`shard_batch_sp` takes this rank's block of a global batch.
+* The trainers run the data axis only: :func:`data_parallel` puts every
+  rank on it (sequence-parallel training needs a halo and carry exchange
+  between the ranks, ROADMAP queue 1, item 1).
 """
 
 from __future__ import annotations
 
 import contextlib
 import os
-from dataclasses import dataclass
-from typing import Dict, Iterable, List, Optional, Tuple, Union
+from dataclasses import dataclass, field
+from typing import Dict, Iterable, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
 import torch.distributed as dist
 from torch._utils import _flatten_dense_tensors, _unflatten_dense_tensors
 
-_SEQUENCE_PARALLEL = ("sequence parallelism over a 'time' mesh axis is not ported yet "
-                      "(ROADMAP queue 1, item 6b)")
+# the axes a mesh may have, in JAX's names
+AXES = ("data", "time", "model")
 
 
 def _env_int(name: str, default: int) -> int:
@@ -101,60 +115,148 @@ def process_count() -> int:
 
 
 @dataclass(frozen=True)
-class DataMesh:
-    """The data axis: ``size`` ranks, ``group`` the process group to reduce
-    over (None for one rank: nothing to reduce)."""
+class Mesh:
+    """Named axes over the ranks, laid out row-major in ``names``' order:
+    rank ``r`` sits at ``np.unravel_index(r, sizes)``. ``rank`` is this
+    process's global rank (rank 0 alone logs and writes); ``groups`` holds
+    its process group on each axis (None for an axis of size 1). The
+    trainers read the ``data`` axis through ``size``, ``data_index``,
+    ``group`` and :meth:`barrier`."""
 
-    size: int
-    rank: int
-    group: Optional[object]
+    names: Tuple[str, ...]
+    sizes: Tuple[int, ...]
+    rank: int = 0
+    groups: Dict[str, Optional[object]] = field(default_factory=dict, compare=False)
 
     @property
     def shape(self) -> Dict[str, int]:
-        return {"data": self.size}
+        return dict(zip(self.names, self.sizes))
+
+    @property
+    def coords(self) -> Dict[str, int]:
+        """This rank's index on each axis."""
+        return dict(zip(self.names, (int(i) for i in np.unravel_index(self.rank, self.sizes))))
+
+    def axis_index(self, axis: str) -> int:
+        return self.coords[axis]
+
+    def axis_group(self, axis: str):
+        return self.groups.get(axis)
+
+    def axis_ranks(self, axis: str) -> List[int]:
+        """The global ranks of this rank's line along ``axis``, by index."""
+        grid = np.arange(int(np.prod(self.sizes))).reshape(self.sizes)
+        where = [self.coords[n] if n != axis else slice(None) for n in self.names]
+        return [int(r) for r in grid[tuple(where)]]
+
+    @property
+    def size(self) -> int:
+        """The data axis's size."""
+        return self.shape.get("data", 1)
+
+    @property
+    def data_index(self) -> int:
+        """This rank's index on the data axis: the loader's shard."""
+        return self.coords.get("data", 0)
+
+    @property
+    def group(self):
+        """The data axis's group (None for one rank: nothing to reduce)."""
+        return self.axis_group("data")
 
     def barrier(self) -> None:
         if self.group is not None:
             dist.barrier(group=self.group)
 
 
-def create_mesh(axes: Union[int, Dict[str, int], None] = None) -> DataMesh:
-    """The data axis over every rank: ``None`` or the rank count, an int
-    equal to it, or ``{"data": n or -1, "time": 1}``. A ``time`` axis
-    larger than 1 raises (sequence parallelism comes later)."""
-    n = process_count()
+# the trainers' name for the mesh they are given (its data axis)
+DataMesh = Mesh
+
+
+def mesh_layout(axes: Union[int, Dict[str, int], None], world: int
+                ) -> Tuple[Tuple[str, ...], Tuple[int, ...]]:
+    """``(names, sizes)`` of ``axes`` over ``world`` ranks: ``None`` puts every
+    rank on ``data``, an int ``n`` is ``{"data": n}``, a dict names the
+    axes (of :data:`AXES`) in layout order, one size of ``-1`` inferred.
+    The sizes must multiply to ``world``."""
     if axes is None:
-        axes = {"data": n}
+        axes = {"data": world}
     elif isinstance(axes, int):
         axes = {"data": axes}
-    axes = dict(axes)
-    if axes.pop("time", 1) != 1:
-        raise NotImplementedError(_SEQUENCE_PARALLEL)
-    if set(axes) - {"data"}:
-        raise ValueError(f"unknown mesh axes: {sorted(set(axes) - {'data'})}")
-    size = axes.get("data", n)
-    size = n if size == -1 else size
-    if size != n:
-        raise ValueError(f"mesh data={size} != {n} processes")
-    return DataMesh(size, process_index(), dist.group.WORLD if n > 1 else None)
+    unknown = sorted(set(axes) - set(AXES))
+    if unknown:
+        raise ValueError(f"unknown mesh axes: {unknown}")
+    names, sizes = tuple(axes), [int(v) for v in axes.values()]
+    if sizes.count(-1) == 1:
+        known = int(np.prod([v for v in sizes if v != -1]))
+        sizes[sizes.index(-1)] = world // known
+    if int(np.prod(sizes)) != world or min(sizes) < 1:
+        raise ValueError(f"mesh {dict(zip(names, sizes))} != {world} processes")
+    return names, tuple(sizes)
+
+
+def create_mesh(axes: Union[int, Dict[str, int], None] = None) -> Mesh:
+    """The mesh of :func:`mesh_layout` over this process group's ranks, one
+    process group for each line of each axis larger than 1 (the whole
+    world's group where a line holds every rank). Every rank calls it, with
+    the same ``axes``: each rank creates every group, in one order."""
+    n = process_count()
+    names, sizes = mesh_layout(axes, n)
+    rank = process_index()
+    grid = np.arange(n).reshape(sizes)
+    groups: Dict[str, Optional[object]] = {}
+    for a, name in enumerate(names):
+        if sizes[a] == 1:
+            groups[name] = None
+            continue
+        if sizes[a] == n:
+            groups[name] = dist.group.WORLD
+            continue
+        for line in np.moveaxis(grid, a, -1).reshape(-1, sizes[a]):
+            group = dist.new_group([int(r) for r in line])
+            if rank in line:
+                groups[name] = group
+    return Mesh(names, sizes, rank, groups)
+
+
+_ACTIVE: List[Mesh] = []
+
+
+@contextlib.contextmanager
+def use_mesh(mesh: Mesh):
+    """Make ``mesh`` the active mesh inside the block (JAX's ``with mesh:``
+    / ``jax.set_mesh``): a module with ``head_shard_axis`` splits its heads
+    over that axis of the active mesh."""
+    _ACTIVE.append(mesh)
+    try:
+        yield mesh
+    finally:
+        _ACTIVE.pop()
+
+
+def active_mesh() -> Optional[Mesh]:
+    """The innermost :func:`use_mesh`'s mesh, None outside one."""
+    return _ACTIVE[-1] if _ACTIVE else None
 
 
 def data_parallel(ddp: bool, device: Union[str, torch.device]
-                  ) -> Tuple[torch.device, DataMesh, bool]:
+                  ) -> Tuple[torch.device, Mesh, bool]:
     """The trainers' set-up: with ``ddp``, join torchrun's group (none in a
     world of one) and take this rank's device; without it, one process
-    (a larger world raises). Returns ``(device, mesh, created)``, where
-    ``created`` says that the caller is to destroy the group at its end."""
+    (a larger world raises). Every rank is on the mesh's ``data`` axis.
+    Returns ``(device, mesh, created)``, where ``created`` says that the
+    caller is to destroy the group at its end."""
     created = False
     if ddp:
         created = initialize_distributed(device)
     elif _world_from_env() > 1:
         raise ValueError(f"train.ddp is false but WORLD_SIZE={_world_from_env()}: "
                          "launch one process, or set train.ddp=true")
+    mesh = create_mesh()
     device = rank_device(device)
     if device.type == "cuda" and device.index is not None:
         torch.cuda.set_device(device)
-    return device, create_mesh(), created
+    return device, mesh, created
 
 
 @contextlib.contextmanager
@@ -191,14 +293,59 @@ def shard_batch(batch: dict, device: Union[str, torch.device] = "cpu") -> dict:
     return out
 
 
-def clip_sharding(*_, **__):
-    """Frames of a clip over a ``time`` axis: not ported yet."""
-    raise NotImplementedError(_SEQUENCE_PARALLEL)
+@dataclass(frozen=True)
+class Sharding:
+    """A ``NamedSharding(mesh, P(*spec))``: ``spec[i]`` names the mesh axis
+    that splits array axis ``i`` into equal contiguous blocks (None, or an
+    axis past the spec: whole on every rank)."""
+
+    mesh: Mesh
+    spec: Tuple[Optional[str], ...]
+
+    def index(self, shape: Sequence[int]) -> Tuple[slice, ...]:
+        """This rank's block of an array of ``shape``, as JAX's
+        ``shard.index``: a slice on each split axis, ``slice(None)`` on the
+        others."""
+        out = []
+        for i, dim in enumerate(shape):
+            axis = self.spec[i] if i < len(self.spec) else None
+            if axis is None:
+                out.append(slice(None))
+                continue
+            if axis not in self.mesh.shape:
+                raise ValueError(f"mesh {self.mesh.shape} has no axis {axis!r}")
+            n = self.mesh.shape[axis]
+            if dim % n:
+                raise ValueError(f"axis {i} of {tuple(shape)} does not split into {n} "
+                                 f"equal parts over {axis!r}")
+            per, k = dim // n, self.mesh.axis_index(axis)
+            out.append(slice(k * per, (k + 1) * per))
+        return tuple(out)
 
 
-def shard_batch_sp(*_, **__):
-    """A batch sharded over batch and time: not ported yet."""
-    raise NotImplementedError(_SEQUENCE_PARALLEL)
+def batch_sharding(mesh: Mesh, axis: str = "data") -> Sharding:
+    """Axis 0 (the batch) split over ``axis``, the rest whole: ``P(axis)``."""
+    return Sharding(mesh, (axis,))
+
+
+def clip_sharding(mesh: Mesh, batch_axis: str = "data", time_axis: str = "time") -> Sharding:
+    """Clips ``(B, T, H, W, C)`` with the batch split over ``batch_axis`` and
+    the frames over ``time_axis``: ``P(batch_axis, time_axis)``."""
+    return Sharding(mesh, (batch_axis, time_axis))
+
+
+def shard_batch_sp(batch: dict, mesh: Mesh, device: Union[str, torch.device] = "cpu",
+                   batch_axis: str = "data", time_axis: str = "time") -> dict:
+    """This rank's block of a global host batch under :func:`clip_sharding`
+    (its rows of the batch axis and its frames of the time axis, the
+    slices JAX's ``P(batch_axis, time_axis)`` gives a device), on
+    ``device``."""
+    sharding = clip_sharding(mesh, batch_axis, time_axis)
+    out = {}
+    for k, v in batch.items():
+        t = torch.as_tensor(np.ascontiguousarray(v) if isinstance(v, np.ndarray) else v)
+        out[k] = t[sharding.index(t.shape)].to(device)
+    return out
 
 
 def _tensors(obj) -> List[torch.Tensor]:
@@ -224,6 +371,16 @@ def _each_bucket(tensors, fn) -> None:
         fn(flat)
         for t, new in zip(bucket, _unflatten_dense_tensors(flat, bucket)):
             t.copy_(new)
+
+
+def all_reduce_sum(tensors: Iterable[torch.Tensor], group=None) -> List[torch.Tensor]:
+    """Sum ``tensors`` over the ranks of ``group`` in place, one flat bucket
+    a dtype (a no-op without a group); returns them."""
+    tensors = list(tensors)
+    if group is not None and tensors:
+        with torch.no_grad():
+            _each_bucket(tensors, lambda flat: dist.all_reduce(flat, group=group))
+    return tensors
 
 
 def all_reduce_mean(tensors: Iterable[torch.Tensor], group=None) -> List[torch.Tensor]:
@@ -265,18 +422,19 @@ def replicated(obj, group=None, src: int = 0):
 
 
 def assert_replicated(obj, group=None, what: str = "state") -> None:
-    """Raise on every rank unless every rank holds rank 0's tensors bit for
-    bit (a broadcast of rank 0's flat copy, compared on each rank, and an
-    all-reduce of the verdict)."""
+    """Raise on every rank of ``group`` unless each holds the group's first
+    rank's tensors bit for bit (a broadcast of that rank's flat copy,
+    compared on each rank, and an all-reduce of the verdict)."""
     if group is None:
         return
+    src = dist.get_process_group_ranks(group)[0]
     differ = 0
     for bucket in _buckets(_tensors(obj)).values():
         flat = _flatten_dense_tensors([t.detach() for t in bucket])
         ref = flat.clone()
-        dist.broadcast(ref, 0, group=group)
+        dist.broadcast(ref, src, group=group)
         differ += int(not torch.equal(flat.view(torch.uint8), ref.view(torch.uint8)))
     flag = torch.tensor([float(differ)], device=_tensors(obj)[0].device)
     dist.all_reduce(flag, group=group)
     if flag.item():
-        raise RuntimeError(f"the ranks' {what} differ from rank 0's")
+        raise RuntimeError(f"the ranks' {what} differ from rank {src}'s")

@@ -175,7 +175,7 @@ def _run(cfg, device, mesh):
     # the GAN step takes the whole batch: num_grad_acc only divides the val batch
     train_dl, val_dl = build_loaders(tcfg.data, num_grad_acc=int(tcfg.get("num_grad_acc", 1)),
                                      device_put=to_device(device), num_shards=mesh.size,
-                                     shard_index=mesh.rank,
+                                     shard_index=mesh.data_index,
                                      seed=int(cfg.get("seed_index") or 0))
     ema_decay = float(tcfg.get("ema_decay", 0.0))
     g_state = create_train_state(model, tx_g, ema_decay=ema_decay)

@@ -170,7 +170,7 @@ def train_one_level(cfg, k: int, trained_units: Dict[str, dict], cleaner, logger
     workers = int(cfg.train.data.get("num_workers", 2))
     train_dl, val_dl = (FlowLoader(ds, batch_size=bs, shuffle=shuffle, num_workers=workers,
                                    device_put=to_device(device), num_shards=mesh.size,
-                                   shard_index=mesh.rank)
+                                   shard_index=mesh.data_index)
                         for ds, shuffle in ((train_ds, True), (val_ds, False)))
     step = make_level_step(unit, pyramid, cleaner, k, tx, train=True, group=group)
     eval_step = make_level_step(unit, pyramid, cleaner, k, tx, train=False, group=group)

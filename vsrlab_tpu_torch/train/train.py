@@ -166,7 +166,7 @@ def _run(cfg, device, mesh):
     num_grad_acc = int(tcfg.get("num_grad_acc", 1))
     train_dl, val_dl = build_loaders(tcfg.data, num_grad_acc=num_grad_acc,
                                      device_put=to_device(device), num_shards=mesh.size,
-                                     shard_index=mesh.rank,
+                                     shard_index=mesh.data_index,
                                      seed=int(cfg.get("seed_index") or 0))
     ema_decay = float(tcfg.get("ema_decay", 0.0))
     state = create_train_state(model, tx, ema_decay=ema_decay)
