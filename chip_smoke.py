@@ -10,11 +10,12 @@
     python3 chip_smoke.py --dp-cards              # phase 10 (c) with one rank a card
                                                   # over every visible card (NCCL),
                                                   # train.train under torchrun, phase
-                                                  # 11 (a), (b) over the cards and the
-                                                  # VRT train step data-parallel
-    (``--dp-rank DIR``, ``--p11-rank DIR`` and ``--vrt-dp-rank DIR`` are one
-    rank of phase 10 (c), of phase 11 (a), (b) and of ``--dp-cards``' VRT
-    step; the script starts them)
+                                                  # 11 (a), (b) over the cards, the
+                                                  # VRT train step data-parallel and
+                                                  # phase 12's split step
+    (``--dp-rank DIR``, ``--p11-rank DIR``, ``--vrt-dp-rank DIR`` and
+    ``--sp-rank DIR`` are one rank of phase 10 (c), of phase 11 (a), (b),
+    of ``--dp-cards``' VRT step and of phase 12; the script starts them)
 
 Phases, in order; any failure exits non-zero:
 
@@ -225,7 +226,7 @@ Phases, in order; any failure exits non-zero:
    ``expected_vrt_launches``); the main path, one step with ``fused`` and
    one with ``take``, each exactly 4 microbatches' launches by shape; the
    losses finite, SpyNet bitwise unchanged. Then the step's ms and train
-   frames/s (median of 5 after 2), one step's device ms and busy share
+   frames/s (median of 3 after 1), one step's device ms and busy share
    (torch.profiler tracing the card alone), one microbatch's device ms by
    part (attention, MLP, LayerNorm and SpyNet, forward with the recompute
    and backward; the sampler kernel; ``sample_grads``; the rest), and a
@@ -282,9 +283,29 @@ Phases, in order; any failure exits non-zero:
    loader's ms a batch of 8, native and numpy side by side. (d) The
    phase's wall seconds. The ranks' launches count into the ``kernels``
    line.
-12. One JSON line ``{"kernels": [...]}``: per kernel its main-path launches
+12. Sequence-parallel training over the ``time`` axis (run after phase 11,
+   before phase 6): this process's runs of the headline RealBasicVSR on the
+   train leg's 4 clips of 6 frames (the eval metrics and one step's loss
+   and gradients in fp32 with TF32 off; the plain route's bf16
+   gradients; the bf16 step's ms, device ms and peak memory), then two
+   gloo ranks sharing the card (``--sp-rank``), each holding 3 frames of
+   every clip (``shard_batch_sp`` over ``create_mesh({"data": 1, "time":
+   2})``), the model built with ``time_shard_axis="time"`` and each step
+   ``make_supervised_train_step(model, group=mesh.mesh_group)`` inside
+   ``use_mesh``: the carries of both recurrences and a halo frame each way
+   handed between the ranks, gradients included. Gates: each rank's eval
+   metrics within rtol 1e-5 of this process's; the fp32 step's loss within
+   rtol 1e-5 and the gradients the update averaged within ``1e-5 +
+   1e-4|b|`` of this process's; the bf16 step's within twice plain bf16's
+   deviation from fp32 (phase 5's rule); the ranks' parameters bitwise
+   equal after each step; each step's pair launches on a rank, 60 at
+   ``(12,64,64,64)`` and 180 at ``(4,64,64,64)``. Then a rank's bf16 step
+   ms, device ms and peak memory beside this process's. ``--dp-cards``
+   runs it with one NCCL rank a card, ``data = 2 x time = 2`` on four cards
+   (``time = 2`` on two), against card 0's one-process step.
+13. One JSON line ``{"kernels": [...]}``: per kernel its main-path launches
    (inference, training, serving, GAN fine-tuning, the flow paths, VRT
-   training and phase 11's ranks) and,
+   training and the ranks of phases 11 and 12) and,
    summed over those launches (per-launch time at each shape times that
    shape's count), ``ms``, ``plain_ms``,
    ``library_ms`` and ``bound_ms``; ``max_abs_err`` is the largest bf16
@@ -1389,13 +1410,13 @@ def profile_request(request, wall_s: float, top: int = 12,
     return out
 
 
-def build_model(dtype):
+def build_model(dtype, **kw):
     import torch
 
     from vsrlab_tpu_torch.models import RealBasicVSR
     from vsrlab_tpu_torch.nn.blocks import init_weights
 
-    model = RealBasicVSR(**HEADLINE, dtype=dtype)
+    model = RealBasicVSR(**HEADLINE, **kw, dtype=dtype)
     return init_weights(model, torch.Generator().manual_seed(0))
 
 
@@ -3202,7 +3223,7 @@ def serving_phase(device, card):
 # (remat on), Adam 1e-4 (0.9, 0.99), the cosine schedule, clip 1.0, 4 microbatches
 VRT_TRAIN_OVERRIDES = ("+experiment=vrt", "train.precision=bf16")
 VRT_TRAIN_CLIP = (8, 6, 64, 64)  # the experiment's global batch of 8 clips of 6 frames, LR 64x64
-VRT_TRAIN_STEPS, VRT_TRAIN_WARMUP = 5, 2
+VRT_TRAIN_STEPS, VRT_TRAIN_WARMUP = 3, 1
 DP_RANKS = 2
 DP_STEPS = 2
 DP_TOL = (1e-5, 1e-4)  # the all-reduced gradient against one process's: atol + rtol*|b|
@@ -3666,12 +3687,13 @@ def backward_grad_phase(calls, device) -> dict:
     return {"rows": out, "max_abs_err": errs}
 
 
-def dp_launches(batch: int) -> dict:
+def dp_launches(batch: int, t: int = 0) -> dict:
     """One headline train step's pair launches by shape at ``batch`` clips
-    of ``TRAIN_CLIP``'s frames: the recurrences 2 directions x T frames x
-    the residual blocks at ``batch``, the cleaner's steps x blocks at
-    ``batch * T`` frames."""
-    _, t, h, w = TRAIN_CLIP
+    of ``t`` frames (``TRAIN_CLIP``'s by default): the recurrences 2
+    directions x t frames x the residual blocks at ``batch``, the
+    cleaner's steps x blocks at ``batch * t`` frames."""
+    _, frames, h, w = TRAIN_CLIP
+    t = t or frames
     c = HEADLINE["mid_channels"]
     return {(batch, h, w, c): 2 * t * HEADLINE["res_blocks"],
             (batch * t, h, w, c): HEADLINE["cleaning_steps"] * HEADLINE["cleaning_blocks"]}
@@ -3946,9 +3968,12 @@ def dp_cards_main() -> int:
     log("  the VRT +experiment=vrt step, data-parallel over the cards")
     vrt_dp_cards(ranks, card)
     t.append(time.perf_counter())
+    log("  sequence-parallel training over the cards (phase 12's split step)")
+    sp_cards(ranks, card)
+    t.append(time.perf_counter())
     log(f"  took {t[-1] - t[0]:.1f} s: the ranks' steps {t[1] - t[0]:.1f}, the trainer "
         f"{t[2] - t[1]:.1f}, the time and model axes {t[3] - t[2]:.1f}, the VRT step "
-        f"{t[4] - t[3]:.1f}")
+        f"{t[4] - t[3]:.1f}, the split step {t[5] - t[4]:.1f}")
     log(json.dumps({"ok": True, "device": {"platform": "gpu",
                                            "kind": torch.cuda.get_device_name(0),
                                            "count": ranks}}))
@@ -4170,9 +4195,10 @@ def run_ranks(flag: str, outdir: str, ranks: int, timeout: int) -> list:
             if p.poll() is None:
                 p.kill()
                 p.communicate()
-    for rank, (p, out) in enumerate(zip(procs, outs)):
-        if p.returncode != 0:
-            raise AssertionError(f"{flag} rank {rank} exited {p.returncode}:\n{out[-4000:]}")
+    failed = [f"{flag} rank {rank} exited {p.returncode}:\n{out[-3000:]}"
+              for rank, (p, out) in enumerate(zip(procs, outs)) if p.returncode != 0]
+    if failed:  # every failed rank: the first to fail may not be the first listed
+        raise AssertionError("\n".join(failed))
     records = []
     for rank in range(ranks):
         with open(os.path.join(outdir, f"rank{rank}.json")) as f:
@@ -4573,6 +4599,265 @@ def phase11(device, card):
     return launches
 
 
+# phase 12: sequence-parallel training of the headline RealBasicVSR over the time axis
+SP_TRAIN_AXES = {"data": 1, "time": 2}  # the train leg's 6 frames, 3 a rank
+SP_TRAIN_STEPS, SP_TRAIN_WARMUP = 5, 2
+SP_TRAIN_TIMEOUT = 300
+SP_EVAL_RTOL = 1e-5
+
+
+def sp_rank_main(outdir: str) -> int:
+    """One rank of phase 12 (and of ``--dp-cards``' split step), started with
+    torchrun's environment and ``outdir/spec.json``: the headline
+    RealBasicVSR with ``time_shard_axis="time"`` on this rank's block of
+    the train leg's 4 clips (``shard_batch_sp`` over ``create_mesh(axes)``),
+    each step ``make_supervised_train_step`` with ``group=mesh.mesh_group``
+    inside ``use_mesh``, Adam 1e-4, clip 1.0: the eval step's metrics from
+    the seeded weights (fp32, TF32 off), one fp32 step (TF32 off) and one
+    bf16 step (TF32 on, as phase 5), each with its pair launches, its loss,
+    the gradients the update averaged (rank 0 writes them) and the ranks'
+    parameters after it checked bitwise equal; then the bf16 step's ms
+    (median of ``SP_TRAIN_STEPS`` after ``SP_TRAIN_WARMUP``), its device ms
+    (torch.profiler) and this rank's peak memory. Writes
+    ``outdir/rank{RANK}.json``."""
+    global HEADLINE, TRAIN_CLIP
+    import torch
+
+    from vsrlab_tpu_torch import parallel
+    from vsrlab_tpu_torch.ops.residual_pair import reset_launch_counts
+    from vsrlab_tpu_torch.train import builders
+    from vsrlab_tpu_torch.train.state import create_train_state
+    from vsrlab_tpu_torch.train.step import make_eval_step, make_supervised_train_step
+
+    with open(os.path.join(outdir, "spec.json")) as f:
+        spec = json.load(f)
+    HEADLINE, TRAIN_CLIP = spec["headline"], tuple(spec["clip"])
+    torch.backends.cuda.matmul.allow_tf32 = False
+    created = parallel.initialize_distributed(spec["device"])
+    device = parallel.rank_device(spec["device"])
+    cuda = device.type == "cuda"
+    if cuda:
+        torch.cuda.set_device(device)
+    sync = torch.cuda.synchronize if cuda else (lambda: None)
+    mesh = parallel.create_mesh(spec["axes"])
+    group = mesh.mesh_group
+    rank = mesh.rank
+    record = {"rank": rank, "backend": torch.distributed.get_backend(), "device": str(device),
+              "mesh": mesh.shape, "coords": mesh.coords}
+    batch = parallel.shard_batch_sp(train_batch("cpu"), mesh, device)
+    record["block"] = list(batch["lr"].shape)
+    reduce, kept = builders.all_reduce_mean, []
+
+    def keep(tensors, g):  # what the updater averaged, before its clip, kept for the gates
+        out = reduce(tensors, g)
+        kept.append([t.detach().clone() for t in out])
+        return out
+
+    builders.all_reduce_mean = keep
+    steps = {}
+    for label, dtype in (("fp32", None), ("bf16", torch.bfloat16)):
+        tf32(dtype is not None)
+        model = build_model(dtype, time_shard_axis="time").to(device).train()
+        state = create_train_state(model, builders.build_tx(
+            model.parameters(), ("adam", {"lr": 1e-4}), None, 1.0, group=group))
+        step = make_supervised_train_step(model, group=group)
+        with parallel.use_mesh(mesh):
+            if dtype is None:
+                metrics, sr = make_eval_step(model, group=group)(None, batch)
+                record["eval"] = {k: float(v) for k, v in metrics.items()}
+                record["eval_finite"] = bool(torch.isfinite(sr).all())
+            kept.clear()
+            reset_launch_counts()
+            _, m = step(state, batch)
+            sync()
+        record[label] = {"loss": float(m["Loss"]), "launches": listed(pair_counts())}
+        parallel.assert_replicated(model, group, f"the {label} step's parameters")
+        if rank == 0:
+            names = [n for n, _ in model.named_parameters()]
+            torch.save(dict(zip(names, (g.cpu() for g in kept[0]))),
+                       os.path.join(outdir, f"grads_{label}.pt"))
+        steps[label] = (model, state, step)
+    builders.all_reduce_mean = reduce
+    del steps["fp32"]
+    model, state, step = steps.pop("bf16")
+    free = torch.cuda.empty_cache if cuda else (lambda: None)
+    free()
+    if cuda:
+        torch.cuda.reset_peak_memory_stats()
+    times = []
+    with parallel.use_mesh(mesh):
+        for _ in range(SP_TRAIN_WARMUP + SP_TRAIN_STEPS):
+            sync()
+            t0 = time.perf_counter()
+            step(state, batch)
+            sync()
+            times.append(time.perf_counter() - t0)
+        record["step_ms"] = statistics.median(times[SP_TRAIN_WARMUP:]) * 1e3
+        record["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30 if cuda else None
+        record["profile"] = profile_request(lambda: step(state, batch), record["step_ms"] / 1e3,
+                                            top=8, groups=TRAIN_GROUPS, host=False) if cuda else {}
+    parallel.assert_replicated(model, group, "the timed steps' parameters")
+    with open(os.path.join(outdir, f"rank{rank}.json"), "w") as f:
+        json.dump(record, f)
+    if created:
+        torch.distributed.destroy_process_group()
+    return 0
+
+
+def sp_train_reference(device) -> dict:
+    """Phase 12's one-process runs on the train leg's 4 clips: the eval
+    metrics and one step's loss and gradients in fp32 (TF32 off, through
+    the fp32 pair kernel, as the ranks' fp32 step), the plain route's bf16
+    gradients (with the fp32 ones, phase 5's gate), and the bf16 step's
+    ms, device ms and peak memory."""
+    import torch
+
+    from vsrlab_tpu_torch.train.builders import build_tx
+    from vsrlab_tpu_torch.train.state import create_train_state
+    from vsrlab_tpu_torch.train.step import (make_eval_step, make_supervised_train_step,
+                                             supervised_loss)
+
+    batch = train_batch(device)
+    before = tf32(False)
+    model32 = build_model(None).to(device).train()
+    metrics, _ = make_eval_step(model32)(None, batch)
+    ref = {"eval": {k: float(v) for k, v in metrics.items()}}
+    model32.zero_grad(set_to_none=True)
+    loss = supervised_loss(model32(batch["lr"]), batch)[0]
+    loss.backward()
+    ref["loss32"] = float(loss.detach())
+    ref["grads32"] = {n: (p.grad if p.grad is not None else torch.zeros_like(p)).detach().clone()
+                      for n, p in model32.named_parameters()}
+    del model32, loss
+    tf32(True)
+    model = build_model(torch.bfloat16).to(device).train()
+    ref["plain16"] = step_grads(model, batch, "plain")
+    state = create_train_state(model, build_tx(model.parameters(), ("adam", {"lr": 1e-4}), None,
+                                               1.0))
+    step = make_supervised_train_step(model)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    times = time_steps(model, lambda: step(state, batch), "taps", n=SP_TRAIN_STEPS,
+                       warmup=SP_TRAIN_WARMUP)
+    ref["step_ms"] = statistics.median(times) * 1e3
+    ref["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    ref["profile"] = profile_request(lambda: step(state, batch), ref["step_ms"] / 1e3, top=8,
+                                     groups=TRAIN_GROUPS, host=False)
+    tf32(before)
+    del model, state, step, batch
+    torch.cuda.empty_cache()
+    return ref
+
+
+def sp_train_ranks(ref, axes: dict, device_spec: str, per_card: bool, card: str) -> dict:
+    """Start ``axes``' ranks of :func:`sp_rank_main` and gate their records
+    against ``ref``: each rank's eval metrics within ``SP_EVAL_RTOL`` of one
+    process's, its fp32 loss within rtol 1e-5 and the fp32 gradients the
+    update averaged within ``DP_TOL`` (``1e-5 + 1e-4|b|``) of one process's,
+    the bf16 ones within twice plain bf16's deviation from fp32 (phase 5's
+    rule), and each step's pair launches by shape; the ranks checked their
+    parameters bitwise equal after each step. Returns the ranks' pair
+    launches by shape, bf16 and fp32."""
+    import collections
+
+    import torch
+
+    n = math.prod(axes.values())
+    outdir = rank_outdir("chip_smoke_sp_train")
+    with open(os.path.join(outdir, "spec.json"), "w") as f:
+        json.dump({"device": device_spec, "axes": axes, "headline": HEADLINE,
+                   "clip": TRAIN_CLIP}, f)
+    t0 = time.perf_counter()
+    records = run_ranks("--sp-rank", outdir, n, SP_TRAIN_TIMEOUT)
+    seconds = time.perf_counter() - t0
+    one_card = "cuda:0" if device_spec.startswith("cuda") else "cpu"
+    b, t = TRAIN_CLIP[0] // axes.get("data", 1), TRAIN_CLIP[1] // axes["time"]
+    want = {"taps": dp_launches(b, t)}
+    launches = {"bf16": collections.Counter(), "fp32": collections.Counter()}
+    for r in records:
+        k = r["rank"]
+        expect = ("nccl", f"cuda:{k}") if per_card else ("gloo", one_card)
+        if (r["backend"], r["device"]) != expect:
+            raise AssertionError(f"rank {k}: {r['backend']} on {r['device']}, not {expect}")
+        if r["block"] != [b, t, *TRAIN_CLIP[2:], 3] or not r["eval_finite"]:
+            raise AssertionError(f"rank {k}: block {r['block']}, eval finite {r['eval_finite']}")
+        for name, v in ref["eval"].items():
+            if not math.isclose(r["eval"][name], v, rel_tol=SP_EVAL_RTOL):
+                raise AssertionError(f"rank {k}: eval {name} {r['eval'][name]} against one "
+                                     f"process's {v}")
+        if not math.isclose(r["fp32"]["loss"], ref["loss32"], rel_tol=1e-5):
+            raise AssertionError(f"rank {k}: fp32 loss {r['fp32']['loss']} against one "
+                                 f"process's {ref['loss32']}")
+        for label in ("fp32", "bf16"):
+            got = unlisted(r[label]["launches"])
+            gate_counts(f"rank {k} ({r['coords']}): the {label} step, {b} clips of {t} frames",
+                        got, want)
+            launches[label] += got["taps"]
+    grads32 = torch.load(os.path.join(outdir, "grads_fp32.pt"))
+    worst = 0.0
+    for name, w in ref["grads32"].items():
+        d = (grads32[name] - w.cpu()).abs()
+        if not bool((d <= DP_TOL[0] + DP_TOL[1] * w.cpu().abs()).all()):
+            raise AssertionError(f"the split fp32 gradient of {name} differs from one process's "
+                                 f"by {float(d.max()):.3e}")
+        worst = max(worst, float(d.max()))
+    grads16 = {k: v.to(ref["plain16"][k].device)
+               for k, v in torch.load(os.path.join(outdir, "grads_bf16.pt")).items()}
+    ratio = gate_grads("split bf16 gradient", grads16, ref["plain16"], ref["grads32"])
+    where = "one rank a card" if per_card else "sharing the card"
+    log(f"  {n} {records[0]['backend']} ranks {axes} ({where}), {b} clips x {t} frames a rank: "
+        f"eval metrics within rtol {SP_EVAL_RTOL} of one process's, fp32 losses within rtol "
+        f"1e-5, the averaged fp32 gradients within {DP_TOL[0]} + {DP_TOL[1]}*|b| (max |a-b| "
+        f"{worst:.3e}), the bf16 ones within twice plain bf16's deviation from fp32 (worst "
+        f"ratio max {ratio['max'][0]:.2f}, rms {ratio['rms'][0]:.2f}); parameters bitwise equal "
+        f"on the ranks after each step; {sum(want['taps'].values())} pair launches a step")
+    def num(x):
+        return f"{x:.2f}" if isinstance(x, float) else str(x)
+
+    log(f"  bf16 step on {card}: a rank "
+        + " / ".join(f"{r['step_ms']:.2f}" for r in records) + " ms (device "
+        + " / ".join(num(r["profile"].get("device_ms")) for r in records) + " ms), peak "
+        + " / ".join(num(r["peak_gib"]) for r in records)
+        + f" GiB; one process on the {TRAIN_CLIP[0]} clips: {ref['step_ms']:.2f} ms (device "
+        f"{num(ref['profile'].get('device_ms'))} ms), peak {num(ref['peak_gib'])} GiB (median of "
+        f"{SP_TRAIN_STEPS} after {SP_TRAIN_WARMUP}, host clock with synchronize); the ranks took "
+        f"{seconds:.1f} s")
+    log(json.dumps({"sp_train": {"card": card, "axes": axes, "per_card": per_card,
+                                 "ranks": records, "one_process": {
+                                     k: ref[k] for k in ("step_ms", "peak_gib", "profile",
+                                                         "eval", "loss32")},
+                                 "fp32_grad_max_abs_diff": worst,
+                                 "bf16_grad_ratio": ratio}}, default=str))
+    return launches
+
+
+def phase12(device, card) -> dict:
+    """Phase 12: sequence-parallel training of the headline RealBasicVSR over
+    ``time = 2`` on two gloo ranks sharing the card, against this process's
+    step on the whole batch. Returns the ranks' pair launches by shape."""
+    t = [time.perf_counter()]
+    ref = sp_train_reference(device)
+    t.append(time.perf_counter())
+    one_card = f"cuda:{device.index or 0}" if device.type == "cuda" else "cpu"
+    launches = sp_train_ranks(ref, SP_TRAIN_AXES, one_card, False, card)
+    t.append(time.perf_counter())
+    log(f"  phase 12 took {t[2] - t[0]:.1f} s: this process's runs {t[1] - t[0]:.1f}, the ranks "
+        f"and their gates {t[2] - t[1]:.1f}")
+    return launches
+
+
+def sp_cards(cards: int, card: str) -> None:
+    """``--dp-cards``: the split step with one NCCL rank a card, ``data = 2 x
+    time = 2`` on four cards or more, ``time = 2`` on two or three, under
+    phase 12's gates against one card's step on the 4 clips."""
+    import torch
+
+    axes = {"data": 2, "time": 2} if cards >= 4 else dict(SP_TRAIN_AXES)
+    ref = sp_train_reference(torch.device("cuda", 0))
+    sp_train_ranks(ref, axes, "cuda", True, card)
+
+
 def main() -> int:
     import torch
 
@@ -4665,6 +4950,14 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     torch.cuda.empty_cache()
 
+    log("phase 12: sequence-parallel training over the time axis (the headline RealBasicVSR, the "
+        "train leg's 4 x 6 frames split 3 a rank over two gloo ranks on the card)")
+    p12 = phase12(device, card)
+    pair_launches["taps"] += p12["bf16"]
+    fp32_pairs["taps"] += p12["fp32"]
+    torch.backends.cudnn.allow_tf32 = False
+    torch.cuda.empty_cache()
+
     log("phase 6: each kernel at its paths' shapes")
     kernels = []
     for form, (name, replaces) in KERNELS.items():
@@ -4703,6 +4996,8 @@ if __name__ == "__main__":
         sys.exit(p11_rank_main(sys.argv[2]))
     if sys.argv[1:2] == ["--vrt-dp-rank"]:  # one rank of --dp-cards' VRT step
         sys.exit(vrt_dp_rank_main(sys.argv[2]))
+    if sys.argv[1:2] == ["--sp-rank"]:  # one rank of phase 12, started by the script
+        sys.exit(sp_rank_main(sys.argv[2]))
     if sys.argv[1:2] == ["--dp-cards"]:
         sys.exit(dp_cards_main())
     sys.exit(main())

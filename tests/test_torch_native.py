@@ -73,9 +73,15 @@ def test_codec_matches_numpy_path(quality, gop, subsample):
 
 
 @pytest.mark.parametrize("quality,gop,subsample", SETTINGS)
-def test_codec_matches_jax_native(quality, gop, subsample):
+def test_codec_matches_jax_native(quality, gop, subsample, monkeypatch):
     clip = _clip(1)
     want = jnative.codec_degrade(clip, quality, gop, subsample)
+    if want is None and jnative._lib is None:
+        # the JAX package builds its library with make on a process's first
+        # call; a process that loaded it while another was still writing it
+        # got none and does not try again: load it once more
+        monkeypatch.setattr(jnative, "_tried", False)
+        want = jnative.codec_degrade(clip, quality, gop, subsample)
     if want is None:
         pytest.skip("the JAX package's native library is not built")
     np.testing.assert_allclose(native.codec_degrade(clip, quality, gop, subsample), want,

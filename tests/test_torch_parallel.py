@@ -388,7 +388,8 @@ def test_sequence_parallelism_and_bad_meshes_raise():
     with pytest.raises(ValueError, match="unknown mesh axes"):
         parallel.create_mesh({"data": 1, "pipe": 2})
     with pytest.raises(ValueError, match="does not split"):
-        parallel.shard_batch_sp({"lr": torch.zeros(3, 4)}, parallel.Mesh(("data", "time"), (2, 1)))
+        parallel.shard_batch_sp({"lr": torch.zeros(3, 4)}, parallel.Mesh(("data", "time"), (2, 1)),
+                                "cpu")
     with pytest.raises(ValueError, match="no axis 'data'"):
         parallel.clip_sharding(parallel.Mesh(("time",), (1,))).index((2, 4))
 

@@ -75,7 +75,7 @@ rows = harness.run_test_matrix(f"{root}/run", f"{root}/matrix/lr", f"{root}/matr
 res["rows"] = rows
 batch = {"lr": torch.arange(2 * 4 * 3, dtype=torch.float32).reshape(2, 4, 3)}
 dt = parallel.create_mesh({"data": 1, "time": 2})
-res["sp"] = parallel.shard_batch_sp(batch, dt)["lr"].tolist()
+res["sp"] = parallel.shard_batch_sp(batch, dt, "cpu")["lr"].tolist()
 res["data_index"] = (mesh.data_index, dt.data_index, parallel.create_mesh({"data": 2}).data_index)
 json.dump(res, open(f"{root}/rank{r}.json", "w"))
 torch.distributed.destroy_process_group()
@@ -271,7 +271,7 @@ def test_shard_batch_sp_matches_jax_shards(axes):
             index = parallel.clip_sharding(mesh).index(batch[key].shape)
             assert [s.indices(n) for s, n in zip(index, batch[key].shape)] == \
                 [s.indices(n) for s, n in zip(shard.index, batch[key].shape)]
-            got = parallel.shard_batch_sp(batch, mesh)[key]
+            got = parallel.shard_batch_sp(batch, mesh, "cpu")[key]
             np.testing.assert_array_equal(got.numpy(), np.asarray(shard.data))
             # the trainers' loader takes the same rows: its shard is the data index
             assert parallel.shard_slice(8, mesh.size, mesh.data_index) == index[0]

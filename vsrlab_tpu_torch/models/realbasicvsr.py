@@ -4,9 +4,15 @@ An :class:`~vsrlab_tpu_torch.nn.blocks.IterativeRefinement` cleaner
 removes compression artifacts from the low-res clip, then
 :class:`~vsrlab_tpu_torch.models.basicvsr.BasicVSR` super-resolves it.
 Returns ``(sr, lq)``, where ``lq`` is the cleaned input.
+
+With ``time_shard_axis`` (sequence-parallel training) the cleaner stays
+per frame and local; BasicVSR's halo exchange hands the neighbours
+cleaned frames, and their gradients reach the owner's cleaner.
 """
 
 from __future__ import annotations
+
+from typing import Optional
 
 from torch import nn
 
@@ -21,12 +27,14 @@ class RealBasicVSR(nn.Module):
     def __init__(self, mid_channels: int = 64, res_blocks: int = 30, cleaning_blocks: int = 20,
                  cleaning_steps: int = 3, upscale: int = 4, train_flow: bool = False,
                  remat: bool = False, fuse_directions: bool = True, block_unroll: int = 0,
-                 time_unroll: int = 0, frame_pack: bool = True, dtype=None):
+                 time_unroll: int = 0, frame_pack: bool = True,
+                 time_shard_axis: Optional[str] = None, dtype=None):
         super().__init__()
         self.cleaner = IterativeRefinement(mid_channels, cleaning_blocks, cleaning_steps,
                                            dtype=dtype)
         self.basicvsr = BasicVSR(mid_channels, res_blocks, upscale, train_flow, remat,
-                                 fuse_directions, block_unroll, time_unroll, dtype=dtype)
+                                 fuse_directions, block_unroll, time_unroll, time_shard_axis,
+                                 dtype=dtype)
 
     def forward(self, lr, stream_state=None, return_state: bool = False):
         """``(sr, lq)``; with ``return_state`` also the streaming state, whose

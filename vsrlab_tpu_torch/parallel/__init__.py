@@ -2,20 +2,24 @@
 rendezvous, a mesh of named axes over the ranks (``data``, ``time``,
 ``model``) with one process group for each line of each axis, the active
 mesh that head-sharded attention reads, the placement specs, this rank's
-device and batch slice, the parameters broadcast from rank 0, and the
+device and batch slice, the parameters broadcast from rank 0, the
 gradients and metrics averaged over the data axis by one explicit
-all-reduce of a flat bucket."""
+all-reduce of a flat bucket, and the halo frames and recurrence carries
+that neighbours on the time axis hand each other in sequence-parallel
+training (``sequence.TimeLinks``)."""
 
 from vsrlab_tpu_torch.parallel.mesh import (
     AXES,
     DataMesh,
     Mesh,
     Sharding,
+    active_links,
     active_mesh,
     all_reduce_mean,
     all_reduce_sum,
     assert_replicated,
     batch_sharding,
+    check_step_group,
     clip_sharding,
     create_mesh,
     data_parallel,
@@ -34,17 +38,21 @@ from vsrlab_tpu_torch.parallel.mesh import (
     stdout_on_rank0,
     use_mesh,
 )
+from vsrlab_tpu_torch.parallel.sequence import TimeLinks
 
 __all__ = [
     "AXES",
     "DataMesh",
     "Mesh",
     "Sharding",
+    "TimeLinks",
+    "active_links",
     "active_mesh",
     "all_reduce_mean",
     "all_reduce_sum",
     "assert_replicated",
     "batch_sharding",
+    "check_step_group",
     "clip_sharding",
     "create_mesh",
     "data_parallel",

@@ -10,7 +10,11 @@ devices out with ``np.asarray(devices).reshape(sizes)``:
   before the norm, the clip and the update, so that every rank takes the
   JAX step on the global batch.
 * ``time``: the windows of a long clip are split over the ranks at
-  inference (``evaluation.harness.windowed_inference(..., mesh)``).
+  inference (``evaluation.harness.windowed_inference(..., mesh)``), and
+  the frames of each clip in sequence-parallel training of the BasicVSR
+  family (``time_shard_axis="time"`` inside :func:`use_mesh`): neighbours
+  on a line of the axis hand each other halo frames and the recurrences'
+  carries through :class:`~vsrlab_tpu_torch.parallel.sequence.TimeLinks`.
 * ``model``: the attention heads of a VRT-family model are split over the
   ranks (``head_shard_axis="model"``) inside :func:`use_mesh`.
 
@@ -27,15 +31,20 @@ devices out with ``np.asarray(devices).reshape(sizes)``:
   ``"cuda"``, the one named for ``"cuda:k"``, the CPU for ``"cpu"``; it
   never falls back to the CPU.
 * :func:`create_mesh` gives each axis one process group for each of its
-  lines (the ranks that differ only in their index on that axis);
+  lines (the ranks that differ only in their index on that axis), and
+  each pair of neighbours on the ``time`` axis one two-rank group for each
+  kind of message they exchange (``Mesh.links``);
   :func:`use_mesh` makes a mesh the active one, which ``head_shard_axis``
   reads (JAX's ``with mesh:`` / ``jax.set_mesh``).
 * :func:`batch_sharding` and :func:`clip_sharding` are the
   ``PartitionSpec``s ``P(axis)`` and ``P(batch_axis, time_axis)`` over a
   mesh; :func:`shard_batch_sp` takes this rank's block of a global batch.
+  :func:`shard_batch`, :func:`shard_batch_sp` and
+  :func:`initialize_distributed` default to this rank's card.
 * The trainers run the data axis only: :func:`data_parallel` puts every
-  rank on it (sequence-parallel training needs a halo and carry exchange
-  between the ranks, ROADMAP queue 1, item 1).
+  rank on it. A sequence-parallel step is the port's
+  ``make_supervised_train_step`` with ``group=mesh.mesh_group`` inside
+  :func:`use_mesh`, as the JAX package's is its step under ``with mesh:``.
 """
 
 from __future__ import annotations
@@ -49,6 +58,8 @@ import numpy as np
 import torch
 import torch.distributed as dist
 from torch._utils import _flatten_dense_tensors, _unflatten_dense_tensors
+
+from vsrlab_tpu_torch.parallel.sequence import KINDS, TimeLinks
 
 # the axes a mesh may have, in JAX's names
 AXES = ("data", "time", "model")
@@ -87,7 +98,7 @@ def default_backend(device: Union[str, torch.device]) -> str:
     return "nccl" if torch.cuda.device_count() >= local_world else "gloo"
 
 
-def initialize_distributed(device: Union[str, torch.device] = "cpu") -> bool:
+def initialize_distributed(device: Union[str, torch.device] = "cuda") -> bool:
     """Join the process group torchrun's environment describes, over
     :func:`default_backend`'s backend; ``device`` is the one the caller
     asked for (before :func:`rank_device`). Returns True where this call
@@ -119,14 +130,16 @@ class Mesh:
     """Named axes over the ranks, laid out row-major in ``names``' order:
     rank ``r`` sits at ``np.unravel_index(r, sizes)``. ``rank`` is this
     process's global rank (rank 0 alone logs and writes); ``groups`` holds
-    its process group on each axis (None for an axis of size 1). The
-    trainers read the ``data`` axis through ``size``, ``data_index``,
-    ``group`` and :meth:`barrier`."""
+    its process group on each axis (None for an axis of size 1); ``links``
+    its :class:`TimeLinks` on the ``time`` axis where that axis has more
+    than one rank. The trainers read the ``data`` axis through ``size``,
+    ``data_index``, ``group`` and :meth:`barrier`."""
 
     names: Tuple[str, ...]
     sizes: Tuple[int, ...]
     rank: int = 0
     groups: Dict[str, Optional[object]] = field(default_factory=dict, compare=False)
+    links: Dict[str, TimeLinks] = field(default_factory=dict, compare=False)
 
     @property
     def shape(self) -> Dict[str, int]:
@@ -164,6 +177,14 @@ class Mesh:
         """The data axis's group (None for one rank: nothing to reduce)."""
         return self.axis_group("data")
 
+    @property
+    def mesh_group(self):
+        """The group of every rank of the mesh (None for one rank): a
+        sequence-parallel step averages its gradients and metrics over it."""
+        if int(np.prod(self.sizes)) == 1 or not dist.is_initialized():
+            return None
+        return dist.group.WORLD
+
     def barrier(self) -> None:
         if self.group is not None:
             dist.barrier(group=self.group)
@@ -198,8 +219,11 @@ def mesh_layout(axes: Union[int, Dict[str, int], None], world: int
 def create_mesh(axes: Union[int, Dict[str, int], None] = None) -> Mesh:
     """The mesh of :func:`mesh_layout` over this process group's ranks, one
     process group for each line of each axis larger than 1 (the whole
-    world's group where a line holds every rank). Every rank calls it, with
-    the same ``axes``: each rank creates every group, in one order."""
+    world's group where a line holds every rank) and, on a ``time`` axis
+    larger than 1, one two-rank group for each pair of neighbours and each
+    of :data:`~vsrlab_tpu_torch.parallel.sequence.KINDS`. Every rank calls
+    it, with the same ``axes``: each rank creates every group, in one
+    order."""
     n = process_count()
     names, sizes = mesh_layout(axes, n)
     rank = process_index()
@@ -216,7 +240,19 @@ def create_mesh(axes: Union[int, Dict[str, int], None] = None) -> Mesh:
             group = dist.new_group([int(r) for r in line])
             if rank in line:
                 groups[name] = group
-    return Mesh(names, sizes, rank, groups)
+    links = {}
+    if "time" in names and sizes[names.index("time")] > 1:
+        a = names.index("time")
+        for line in np.moveaxis(grid, a, -1).reshape(-1, sizes[a]).tolist():
+            pairs = {(lo, hi): {k: dist.new_group([lo, hi]) for k in KINDS}
+                     for lo, hi in zip(line[:-1], line[1:])}
+            if rank in line:
+                k = line.index(rank)
+                prev = line[k - 1] if k > 0 else None
+                nxt = line[k + 1] if k + 1 < len(line) else None
+                links["time"] = TimeLinks(rank, prev, nxt, pairs.get((prev, rank), {}),
+                                          pairs.get((rank, nxt), {}))
+    return Mesh(names, sizes, rank, groups, links)
 
 
 _ACTIVE: List[Mesh] = []
@@ -237,6 +273,36 @@ def use_mesh(mesh: Mesh):
 def active_mesh() -> Optional[Mesh]:
     """The innermost :func:`use_mesh`'s mesh, None outside one."""
     return _ACTIVE[-1] if _ACTIVE else None
+
+
+def active_links(axis: Optional[str]) -> Optional[TimeLinks]:
+    """This rank's :class:`TimeLinks` on ``axis`` of the active mesh, or None
+    where nothing is split over it (no ``axis``, no active mesh, or one
+    without that axis or with it of size 1)."""
+    mesh = active_mesh()
+    if axis is None or mesh is None or mesh.shape.get(axis, 1) == 1:
+        return None
+    if axis not in mesh.links:
+        raise ValueError(f"mesh {mesh.shape} has no neighbour links on {axis!r} "
+                         "(create_mesh builds them on 'time')")
+    return mesh.links[axis]
+
+
+def check_step_group(*groups) -> None:
+    """Raise unless each of ``groups`` holds every rank of the active mesh
+    where that mesh splits the frames over ``time``: a rank's gradients then
+    hold its part of every rank's loss, and only their mean over the whole
+    mesh is one process's gradient (the data line's is not)."""
+    mesh = active_mesh()
+    if mesh is None or mesh.shape.get("time", 1) == 1:
+        return
+    n = int(np.prod(mesh.sizes))
+    for group in groups:
+        if group is None or dist.get_world_size(group) != n:
+            size = 1 if group is None else dist.get_world_size(group)
+            raise ValueError(f"the frames are split over 'time' of mesh {mesh.shape}: a step "
+                             f"averages over all {n} ranks (group=mesh.mesh_group), not over "
+                             f"a group of {size}")
 
 
 def data_parallel(ddp: bool, device: Union[str, torch.device]
@@ -283,9 +349,11 @@ def local_batch_slice(global_batch: int, axis_size: Optional[int] = None) -> sli
                        process_index())
 
 
-def shard_batch(batch: dict, device: Union[str, torch.device] = "cpu") -> dict:
+def shard_batch(batch: dict, device: Union[str, torch.device] = "cuda") -> dict:
     """This rank's rows of a global host batch (arrays or tensors with the
-    global batch on axis 0), on ``device``."""
+    global batch on axis 0), on :func:`rank_device` of ``device`` (this
+    rank's card unless the caller names another device)."""
+    device = rank_device(device)
     out = {}
     for k, v in batch.items():
         t = torch.as_tensor(np.ascontiguousarray(v) if isinstance(v, np.ndarray) else v)
@@ -334,12 +402,14 @@ def clip_sharding(mesh: Mesh, batch_axis: str = "data", time_axis: str = "time")
     return Sharding(mesh, (batch_axis, time_axis))
 
 
-def shard_batch_sp(batch: dict, mesh: Mesh, device: Union[str, torch.device] = "cpu",
+def shard_batch_sp(batch: dict, mesh: Mesh, device: Union[str, torch.device] = "cuda",
                    batch_axis: str = "data", time_axis: str = "time") -> dict:
     """This rank's block of a global host batch under :func:`clip_sharding`
     (its rows of the batch axis and its frames of the time axis, the
     slices JAX's ``P(batch_axis, time_axis)`` gives a device), on
-    ``device``."""
+    :func:`rank_device` of ``device``. Raises where the batch or the
+    frames do not split into equal blocks."""
+    device = rank_device(device)
     sharding = clip_sharding(mesh, batch_axis, time_axis)
     out = {}
     for k, v in batch.items():

@@ -18,7 +18,7 @@ from torch.func import functional_call
 from vsrlab_tpu_torch.core.losses import charbonnier_loss
 from vsrlab_tpu_torch.core.metrics import MetricCollection, resolve_metric_names
 from vsrlab_tpu_torch.ops.resize import resize_bilinear
-from vsrlab_tpu_torch.parallel import reduce_metrics
+from vsrlab_tpu_torch.parallel import check_step_group, reduce_metrics
 from vsrlab_tpu_torch.train.state import TrainState
 
 Batch = Dict[str, torch.Tensor]
@@ -77,11 +77,15 @@ def make_supervised_train_step(model: torch.nn.Module, loss_fn: Callable = charb
     ``num_grad_accum``. ``log_grad_norm`` adds the global gradient norm
     after accumulation and before clipping as ``GradNorm``. With a process
     ``group`` the batch is this rank's slice and the metrics are averaged
-    over the ranks (the state's updater averages the gradients). The state
-    is updated in place and returned."""
+    over the ranks (the state's updater averages the gradients). Inside
+    ``parallel.use_mesh`` of a mesh whose ``time`` axis splits the frames
+    (``shard_batch_sp``) both groups must hold the whole mesh
+    (``mesh.mesh_group``; ``parallel.check_step_group`` raises otherwise).
+    The state is updated in place and returned."""
     metrics = resolve_metric_names(metrics)
 
     def train_step(state: TrainState, batch: Batch):
+        check_step_group(group, state.tx.group)
         lr, hr = batch["lr"], batch["hr"]
         n = num_grad_accum
         if lr.shape[0] % n:
