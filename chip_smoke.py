@@ -7,15 +7,18 @@
                                                   # package in TREE
     python3 chip_smoke.py --sampler-times [TREE]  # only the fused sampler route's
                                                   # device times, the same way
+    python3 chip_smoke.py --split-rounding        # a one-process diagnostic of a split's
+                                                  # bf16 gradient rounding (PERF.md)
     python3 chip_smoke.py --dp-cards              # phase 10 (c) with one rank a card
                                                   # over every visible card (NCCL),
                                                   # train.train under torchrun, phase
                                                   # 11 (a), (b) over the cards, the
                                                   # VRT train step data-parallel and
-                                                  # phase 12's split step
-    (``--dp-rank DIR``, ``--p11-rank DIR``, ``--vrt-dp-rank DIR`` and
-    ``--sp-rank DIR`` are one rank of phase 10 (c), of phase 11 (a), (b),
-    of ``--dp-cards``' VRT step and of phase 12; the script starts them)
+                                                  # phase 12's and 13's split steps
+    (``--dp-rank DIR``, ``--p11-rank DIR``, ``--vrt-dp-rank DIR``,
+    ``--sp-rank DIR`` and ``--vrt-sp-rank DIR`` are one rank of phase 10
+    (c), of phase 11 (a), (b), of ``--dp-cards``' VRT step, of phase 12 and
+    of phase 13; the script starts them)
 
 Phases, in order; any failure exits non-zero:
 
@@ -303,9 +306,30 @@ Phases, in order; any failure exits non-zero:
    ms, device ms and peak memory beside this process's. ``--dp-cards``
    runs it with one NCCL rank a card, ``data = 2 x time = 2`` on four cards
    (``time = 2`` on two), against card 0's one-process step.
-13. One JSON line ``{"kernels": [...]}``: per kernel its main-path launches
+13. Sequence-parallel VRT training over the ``time`` axis (run after phase
+   12, before phase 6): this process's runs of the paper VRT
+   (``+experiment=vrt``, ``remat``) on one microbatch of 2 clips x 6
+   frames of 64x64 (one fp32 forward and backward with TF32 off, the plain
+   route's bf16 gradients, the bf16 step's ms, device ms, busy share and
+   peak memory, and the peak of one step without ``remat``), then two gloo
+   ranks sharing the card (``--vrt-sp-rank``), 3 frames of each clip a
+   rank, the model built with ``time_shard_axis="time"``: the frames of
+   every attention window that straddles the ranks, the edge LR frames and
+   each Stage's edge features handed between them, gradients included.
+   Gates: each rank's fp32 loss within rtol 1e-5 and the averaged fp32
+   gradients within ``1e-5 + 1e-4|b|`` of this process's; the bf16 ones
+   within twice the deviation from fp32 of the plain route on the ranks
+   (split alike: a split rounds each rank's partial sums, so one
+   process's plain bf16 is no yardstick; its ratio is printed); SpyNet's
+   gradients zero; the ranks' parameters bitwise equal after each step;
+   each rank's sampler launches by shape in its fp32 and bf16 steps (the
+   fused kernel) and in one ``take`` step (the row gather). Then a rank's
+   bf16 step ms, device ms, busy share and peak memory with and without
+   ``remat`` beside this process's. ``--dp-cards`` runs it with one NCCL
+   rank a card, ``data = 2 x time = 2`` on four cards.
+14. One JSON line ``{"kernels": [...]}``: per kernel its main-path launches
    (inference, training, serving, GAN fine-tuning, the flow paths, VRT
-   training and the ranks of phases 11 and 12) and,
+   training and the ranks of phases 11 to 13) and,
    summed over those launches (per-launch time at each shape times that
    shape's count), ``ms``, ``plain_ms``,
    ``library_ms`` and ``bound_ms``; ``max_abs_err`` is the largest bf16
@@ -3241,9 +3265,10 @@ def check_paper_config(tcfg) -> None:
         raise AssertionError(f"+experiment=vrt is not the paper configuration: {got}")
 
 
-def build_train_vrt(cfg, dtype_name, device):
+def build_train_vrt(cfg, dtype_name, device, **kw):
     """The configured VRT with seeded weights (the offset heads drawn), in
-    ``dtype_name`` (``bf16`` or ``fp32``), on ``device``, in train mode."""
+    ``dtype_name`` (``bf16`` or ``fp32``), on ``device``, in train mode;
+    ``kw`` joins the model's config (``time_shard_axis``)."""
     import torch
 
     import vsrlab_tpu_torch.components  # noqa: F401  (fills the registry)
@@ -3251,7 +3276,7 @@ def build_train_vrt(cfg, dtype_name, device):
     from vsrlab_tpu_torch.train import builders
 
     g = torch.Generator().manual_seed(0)
-    model = builders.build_model(cfg.train.model.to_dict(), dtype_name)
+    model = builders.build_model({**cfg.train.model.to_dict(), **kw}, dtype_name)
     model = seed_offset_heads(init_weights(model, g), g)
     return model.to(device).train()
 
@@ -3971,9 +3996,13 @@ def dp_cards_main() -> int:
     log("  sequence-parallel training over the cards (phase 12's split step)")
     sp_cards(ranks, card)
     t.append(time.perf_counter())
+    log("  sequence-parallel VRT training over the cards (phase 13's split step)")
+    vrt_sp_cards(ranks, card)
+    t.append(time.perf_counter())
     log(f"  took {t[-1] - t[0]:.1f} s: the ranks' steps {t[1] - t[0]:.1f}, the trainer "
         f"{t[2] - t[1]:.1f}, the time and model axes {t[3] - t[2]:.1f}, the VRT step "
-        f"{t[4] - t[3]:.1f}, the split step {t[5] - t[4]:.1f}")
+        f"{t[4] - t[3]:.1f}, the split step {t[5] - t[4]:.1f}, the split VRT step "
+        f"{t[6] - t[5]:.1f}")
     log(json.dumps({"ok": True, "device": {"platform": "gpu",
                                            "kind": torch.cuda.get_device_name(0),
                                            "count": ranks}}))
@@ -4858,6 +4887,430 @@ def sp_cards(cards: int, card: str) -> None:
     sp_train_ranks(ref, axes, "cuda", True, card)
 
 
+# phase 13: sequence-parallel training of the paper VRT over the time axis
+VRT_SP_AXES = {"data": 1, "time": 2}  # +experiment=vrt's 6 frames, 3 a rank
+VRT_SP_STEPS, VRT_SP_WARMUP = 3, 1
+VRT_SP_TIMEOUT = 600
+
+
+def vrt_microbatch(device) -> dict:
+    """One microbatch of ``+experiment=vrt``: the first ``batch / num_grad_acc``
+    (2) clips of :func:`vrt_train_batch`, 6 LR frames of 64x64 and their
+    256x256 HR."""
+    acc = 4  # +experiment=vrt's num_grad_acc (check_paper_config)
+    return {k: v[: VRT_TRAIN_CLIP[0] // acc] for k, v in vrt_train_batch(device).items()}
+
+
+def split_vrt_launches(clip, kernel, rank: int, ranks: int) -> dict:
+    """Sampler launches of one remat'd forward and backward of a rank's
+    block of ``clip`` (``(B, T, H, W, 3)``, ``T / ranks`` frames a rank):
+    at every stage 9 taps over ``B * nb * groups`` images for the backward
+    direction (``nb``: the rank's frames that have a next frame in the
+    clip) and 9 over ``B * nf * groups`` for the forward one, twice
+    (the recompute)."""
+    import collections
+
+    b, t, h, w, _ = clip
+    per = t // ranks
+    nb, nf = per - (rank == ranks - 1), per - (rank == 0)
+    want = collections.Counter()
+    for frames in (nb, nf):
+        for key, n in expected_vrt_launches((b, frames + 1, h, w, 3), kernel, groups=VRT_GROUPS,
+                                            cg=VRT_CG, gp=VRT_GP).items():
+            want[key] += n  # 18 a stage: 9 taps of this direction, twice (the recompute)
+    return want
+
+
+def vrt_sp_rank_main(outdir: str) -> int:
+    """One rank of phase 13 (and of ``--dp-cards``' split VRT step), started
+    with torchrun's environment and ``outdir/spec.json``: the paper VRT of
+    ``+experiment=vrt`` (``remat``) built with ``time_shard_axis="time"``
+    on this rank's block of one microbatch (``shard_batch_sp`` over
+    ``create_mesh(axes)``), each step ``make_supervised_train_step`` with
+    ``group=mesh.mesh_group`` inside ``use_mesh`` and the experiment's
+    optimizer, schedule and clip: one fp32 step (TF32 off) and one bf16
+    step (cuDNN's TF32 on, as phase 10) with the fused sampler, each with
+    its sampler launches by shape, its loss and the gradients the update
+    averaged (rank 0 writes them), the ranks' parameters checked bitwise
+    equal after it; one bf16 step with the row gather (its launches);
+    then the bf16 step's ms (median of ``VRT_SP_STEPS`` after
+    ``VRT_SP_WARMUP``), its device ms and busy share (torch.profiler), this
+    rank's peak memory with ``remat`` and, in one more step, without it.
+    Writes ``outdir/rank{RANK}.json``."""
+    import torch
+
+    from vsrlab_tpu_torch import parallel
+    from vsrlab_tpu_torch.core.config import load_config
+    from vsrlab_tpu_torch.nn.blocks import set_sampler_impl
+    from vsrlab_tpu_torch.train import builders
+    from vsrlab_tpu_torch.train.state import create_train_state
+    from vsrlab_tpu_torch.train.step import make_supervised_train_step, supervised_loss
+
+    global VRT_TRAIN_OVERRIDES, VRT_TRAIN_CLIP
+    with open(os.path.join(outdir, "spec.json")) as f:
+        spec = json.load(f)
+    VRT_TRAIN_OVERRIDES, VRT_TRAIN_CLIP = tuple(spec["overrides"]), tuple(spec["clip"])
+    torch.backends.cuda.matmul.allow_tf32 = False
+    created = parallel.initialize_distributed(spec["device"])
+    device = parallel.rank_device(spec["device"])
+    cuda = device.type == "cuda"
+    if cuda:
+        torch.cuda.set_device(device)
+    sync = torch.cuda.synchronize if cuda else (lambda: None)
+    free = torch.cuda.empty_cache if cuda else (lambda: None)
+
+    def peak(reset: bool = False):
+        if not cuda:
+            return None
+        if reset:
+            torch.cuda.reset_peak_memory_stats()
+        return torch.cuda.max_memory_allocated() / 2**30
+
+    mesh = parallel.create_mesh(spec["axes"])
+    group, rank = mesh.mesh_group, mesh.rank
+    cfg = load_config(overrides=list(VRT_TRAIN_OVERRIDES))
+    tcfg = cfg.train
+    record = {"rank": rank, "backend": torch.distributed.get_backend(), "device": str(device),
+              "mesh": mesh.shape, "coords": mesh.coords}
+    batch = parallel.shard_batch_sp(vrt_microbatch("cpu"), mesh, device)
+    record["block"] = list(batch["lr"].shape)
+    reduce, kept = builders.all_reduce_mean, []
+
+    def keep(tensors, g):  # what the updater averaged, before its clip, kept for the gates
+        out = reduce(tensors, g)
+        kept.append([t.detach().clone() for t in out])
+        return out
+
+    def new_step(dtype_name):
+        model = build_train_vrt(cfg, dtype_name, device, time_shard_axis="time")
+        state = create_train_state(model, builders.build_tx(
+            model.parameters(), tcfg.optimizer, tcfg.scheduler, tcfg.gradient_clip_val,
+            group=group))
+        return model, state, make_supervised_train_step(model, group=group)
+
+    builders.all_reduce_mean = keep
+    for label in ("fp32", "bf16"):
+        tf32(label == "bf16")
+        model, state, step = new_step(label)
+        if label == "bf16":  # the plain route's gradients, split alike: the bf16 gate's yardstick
+            with parallel.use_mesh(mesh):
+                set_sampler_impl(model, "plain")
+                supervised_loss(model(batch["lr"]), batch)[0].backward()
+                set_sampler_impl(model, "fused")
+            plain = [p.grad if p.grad is not None else torch.zeros_like(p)
+                     for p in model.parameters()]
+            reduce(plain, group)
+            if rank == 0:
+                torch.save(dict(zip([n for n, _ in model.named_parameters()],
+                                    (g.cpu() for g in plain))),
+                           os.path.join(outdir, "grads_plain16.pt"))
+            model.zero_grad(set_to_none=True)
+            del plain
+        with parallel.use_mesh(mesh):
+            kept.clear()
+            reset_vrt_counts()
+            _, m = step(state, batch)
+            sync()
+        record[label] = {"loss": float(m["Loss"]), "launches": listed(vrt_counts())}
+        parallel.assert_replicated(model, group, f"the {label} step's parameters")
+        if rank == 0:
+            names = [n for n, _ in model.named_parameters()]
+            torch.save(dict(zip(names, (g.cpu() for g in kept[0]))),
+                       os.path.join(outdir, f"grads_{label}.pt"))
+        if label == "fp32":
+            del model, state, step
+            free()
+    builders.all_reduce_mean = reduce
+    with parallel.use_mesh(mesh):
+        set_sampler_impl(model, "take")
+        reset_vrt_counts()
+        _, m = step(state, batch)
+        sync()
+        record["take"] = {"loss": float(m["Loss"]), "launches": listed(vrt_counts())}
+        set_sampler_impl(model, "fused")
+        parallel.assert_replicated(model, group, "the take step's parameters")
+        free()
+        peak(reset=True)
+        times = []
+        for _ in range(VRT_SP_WARMUP + VRT_SP_STEPS):
+            sync()
+            t0 = time.perf_counter()
+            step(state, batch)
+            sync()
+            times.append(time.perf_counter() - t0)
+        times = times[VRT_SP_WARMUP:]
+        record["step_ms"] = statistics.median(times) * 1e3
+        record["steps_ms"] = [t * 1e3 for t in times]
+        record["peak_gib_remat"] = peak()
+        record["profile"] = profile_request(
+            lambda: step(state, batch), record["step_ms"] / 1e3, top=8,
+            ours=("bilinear_sample",), host=False) if cuda else {}
+        model.remat = False
+        free()
+        peak(reset=True)
+        step(state, batch)
+        sync()
+        record["peak_gib_no_remat"] = peak()
+    parallel.assert_replicated(model, group, "the timed steps' parameters")
+    with open(os.path.join(outdir, f"rank{rank}.json"), "w") as f:
+        json.dump(record, f)
+    if created:
+        torch.distributed.destroy_process_group()
+    return 0
+
+
+def vrt_sp_reference(device) -> dict:
+    """Phase 13's one-process runs on the microbatch: one fp32 forward and
+    backward's loss and gradients with the fused sampler (TF32 off), the
+    plain route's bf16 gradients (with the fp32 ones, phase 5's gate),
+    then the bf16 step's ms, device ms, busy share and peak memory with
+    ``remat``, and the peak of one more step without it."""
+    import torch
+
+    from vsrlab_tpu_torch.core.config import load_config
+    from vsrlab_tpu_torch.train.builders import build_tx
+    from vsrlab_tpu_torch.train.state import create_train_state
+    from vsrlab_tpu_torch.train.step import make_supervised_train_step
+
+    cfg = load_config(overrides=list(VRT_TRAIN_OVERRIDES))
+    tcfg = cfg.train
+    check_paper_config(tcfg)
+    batch = vrt_microbatch(device)
+    before = tf32(False)
+    model32 = build_train_vrt(cfg, "fp32", device)
+    loss32, _, grads32, _ = vrt_grads(model32, batch, "fused")
+    del model32
+    torch.cuda.empty_cache()
+    tf32(True)
+    model = build_train_vrt(cfg, "bf16", device)
+    ref = {"loss32": loss32, "grads32": grads32, "plain16": vrt_grads(model, batch, "plain")[2]}
+    state = create_train_state(model, build_tx(model.parameters(), tcfg.optimizer,
+                                               tcfg.scheduler, tcfg.gradient_clip_val))
+    step = make_supervised_train_step(model)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    times = time_steps(model, lambda: step(state, batch), "taps", n=VRT_SP_STEPS,
+                       warmup=VRT_SP_WARMUP)
+    ref["step_ms"] = statistics.median(times) * 1e3
+    ref["steps_ms"] = [t * 1e3 for t in times]
+    ref["peak_gib_remat"] = torch.cuda.max_memory_allocated() / 2**30
+    ref["profile"] = profile_request(lambda: step(state, batch), ref["step_ms"] / 1e3, top=8,
+                                     ours=("bilinear_sample",), host=False)
+    model.remat = False
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    step(state, batch)
+    torch.cuda.synchronize()
+    ref["peak_gib_no_remat"] = torch.cuda.max_memory_allocated() / 2**30
+    tf32(before)
+    del model, state, step, batch
+    torch.cuda.empty_cache()
+    return ref
+
+
+def vrt_sp_ranks(ref, axes: dict, device_spec: str, per_card: bool, card: str) -> dict:
+    """Start ``axes``' ranks of :func:`vrt_sp_rank_main` and gate their
+    records against ``ref``: each rank's fp32 loss within rtol 1e-5 of one
+    process's (the rank's share of the mesh's mean), the fp32 gradients the
+    update averaged within ``DP_TOL`` (``1e-5 + 1e-4|b|``) of one process's,
+    the bf16 ones within twice plain bf16's deviation from fp32 (phase 5's
+    rule), SpyNet's zero, and each step's sampler launches by shape on
+    each rank; the ranks checked their parameters bitwise equal after each
+    step. Returns the ranks' sampler launches by kernel and shape: the bf16
+    steps' (fused and take) and the fp32 step's."""
+    import collections
+
+    import torch
+
+    n = math.prod(axes.values())
+    outdir = rank_outdir("chip_smoke_vrt_sp")
+    with open(os.path.join(outdir, "spec.json"), "w") as f:
+        json.dump({"device": device_spec, "axes": axes, "overrides": VRT_TRAIN_OVERRIDES,
+                   "clip": VRT_TRAIN_CLIP}, f)
+    t0 = time.perf_counter()
+    records = run_ranks("--vrt-sp-rank", outdir, n, VRT_SP_TIMEOUT)
+    seconds = time.perf_counter() - t0
+    one_card = "cuda:0" if device_spec.startswith("cuda") else "cpu"
+    clip = (*vrt_microbatch("cpu")["lr"].shape[:4], 3)
+    b, t = clip[0] // axes.get("data", 1), clip[1] // axes["time"]
+    launches = {"bf16": {k: collections.Counter() for k in VRT_KERNELS},
+                "fp32": collections.Counter()}
+    for r in records:
+        k, coords = r["rank"], r["coords"]
+        expect = ("nccl", f"cuda:{k}") if per_card else ("gloo", one_card)
+        if (r["backend"], r["device"]) != expect:
+            raise AssertionError(f"rank {k}: {r['backend']} on {r['device']}, not {expect}")
+        if r["block"] != [b, t, *clip[2:4], 3]:
+            raise AssertionError(f"rank {k}: block {r['block']}")
+        if not math.isclose(r["fp32"]["loss"], ref["loss32"], rel_tol=1e-5):
+            raise AssertionError(f"rank {k}: fp32 loss {r['fp32']['loss']} against one "
+                                 f"process's {ref['loss32']}")
+        for label in ("fp32", "bf16", "take"):
+            if not math.isfinite(r[label]["loss"]):
+                raise AssertionError(f"rank {k}: the {label} step's loss {r[label]['loss']}")
+        for label, kernel in (("fp32", "bilinear_sample"), ("bf16", "bilinear_sample"),
+                              ("take", "packed_row_gather")):
+            got = unlisted(r[label]["launches"])
+            want = {name: {} for name in VRT_KERNELS}
+            want[kernel] = split_vrt_launches((b, clip[1], *clip[2:]), kernel,
+                                              coords["time"], axes["time"])
+            gate_counts(f"rank {k} ({coords}): the {label} step, {b} clips of {t} frames", got,
+                        want)
+            if label == "fp32":
+                launches["fp32"] += got["bilinear_sample"]
+            else:
+                launches["bf16"][kernel] += got[kernel]
+    grads32 = torch.load(os.path.join(outdir, "grads_fp32.pt"))
+    worst = 0.0
+    for name, w in ref["grads32"].items():
+        w = w.cpu()
+        d = (grads32[name].float() - w).abs()
+        if not bool((d <= DP_TOL[0] + DP_TOL[1] * w.abs()).all()):
+            raise AssertionError(f"the split fp32 gradient of {name} differs from one process's "
+                                 f"by {float(d.max()):.3e}")
+        worst = max(worst, float(d.max()))
+    grads16, plain16 = (torch.load(os.path.join(outdir, f"grads_{k}.pt"))
+                        for k in ("bf16", "plain16"))
+    rows, bad = [], []
+    for name, w in ref["grads32"].items():
+        g = grads16[name].to(w.device).float()
+        if not bool(torch.isfinite(g).all()):
+            raise AssertionError(f"the split bf16 gradient of {name} is not finite")
+        if name.startswith("optical_flow."):
+            if bool(g.abs().sum() > 0):
+                raise AssertionError(f"SpyNet's {name} got a gradient on the ranks")
+            continue
+        got, base = dev(g, w), dev(plain16[name].to(w.device), w)
+        once = dev(ref["plain16"][name], w)  # one process's plain bf16: reported, not gated
+        rows.append(tuple(d / b if b else 0.0 for d, b in zip(got + got, base + once)) + (name,))
+        if got[0] > 2 * base[0] or got[1] > 2 * base[1]:
+            bad.append(f"{name}: max {got[0]:.3e} rms {got[1]:.3e} against twice the split plain "
+                       f"bf16 route's max {base[0]:.3e} rms {base[1]:.3e}")
+    top = sorted(rows, reverse=True)[:3]
+    once = sorted(rows, key=lambda r: -r[2])[:3]
+    log("  the split bf16 gradients' deviation from fp32 over the split plain route's (max / "
+        "rms), worst: " + ", ".join(f"{r[4]} {r[0]:.2f} / {r[1]:.2f}" for r in top)
+        + "; over one process's plain bf16 (not gated: a split rounds each rank's sum), worst: "
+        + ", ".join(f"{r[4]} {r[2]:.2f} / {r[3]:.2f}" for r in once) + f", "
+        f"{sum(r[2] > 2 or r[3] > 2 for r in rows)} of {len(rows)} tensors beyond 2")
+    if bad:
+        raise AssertionError("the split bf16 gradients beyond twice the split plain route's "
+                             "deviation from fp32: " + "; ".join(bad))
+    ratio = {"max": max((r[0], r[4]) for r in rows), "rms": max((r[1], r[4]) for r in rows),
+             "one_process_max": max((r[2], r[4]) for r in rows),
+             "one_process_rms": max((r[3], r[4]) for r in rows),
+             "one_process_beyond_2": sum(r[2] > 2 or r[3] > 2 for r in rows)}
+    where = "one rank a card" if per_card else "sharing the card"
+    log(f"  {n} {records[0]['backend']} ranks {axes} ({where}), {b} clips x {t} frames a rank: "
+        f"the averaged fp32 gradients within {DP_TOL[0]} + {DP_TOL[1]}*|b| of one process's "
+        f"(max |a-b| {worst:.3e}), the bf16 ones within twice the split plain route's deviation "
+        f"from fp32 (worst ratio max {ratio['max'][0]:.2f} ({ratio['max'][1]}), rms "
+        f"{ratio['rms'][0]:.2f} ({ratio['rms'][1]})); SpyNet's zero; parameters bitwise equal "
+        f"on the ranks after each "
+        f"step; fp32 losses " + " / ".join(f"{r['fp32']['loss']:.6f}" for r in records)
+        + f" (one process {ref['loss32']:.6f}); sampler launches by shape gated on each step")
+
+    def num(x, fmt="{:.2f}"):
+        return fmt.format(x) if isinstance(x, float) else str(x)
+
+    def prof(p):
+        return (f"device {num(p.get('device_ms'))} ms, busy "
+                f"{num(p.get('device_busy_share'), '{:.3f}')}")
+
+    log(f"  bf16 step on {card}: a rank "
+        + " / ".join(f"{r['step_ms']:.2f}" for r in records) + " ms ("
+        + " / ".join(prof(r["profile"]) for r in records) + "), peak "
+        + " / ".join(num(r["peak_gib_remat"]) for r in records) + " GiB with remat, "
+        + " / ".join(num(r["peak_gib_no_remat"]) for r in records)
+        + f" without; one process on the {clip[0]} clips: {ref['step_ms']:.2f} ms "
+        f"({prof(ref['profile'])}), peak {num(ref['peak_gib_remat'])} GiB with remat, "
+        f"{num(ref['peak_gib_no_remat'])} without (median of {VRT_SP_STEPS} after "
+        f"{VRT_SP_WARMUP}, host clock with synchronize); the ranks took {seconds:.1f} s")
+    log(json.dumps({"vrt_sp_train": {
+        "card": card, "axes": axes, "per_card": per_card, "ranks": records,
+        "one_process": {k: ref[k] for k in ("step_ms", "steps_ms", "peak_gib_remat",
+                                            "peak_gib_no_remat", "profile", "loss32")},
+        "fp32_grad_max_abs_diff": worst, "bf16_grad_ratio": ratio}}, default=str))
+    return launches
+
+
+def phase13(device, card) -> dict:
+    """Phase 13: sequence-parallel training of the paper VRT over ``time =
+    2`` on two gloo ranks sharing the card, against this process's step on
+    the same microbatch. Returns the ranks' sampler launches by shape."""
+    t = [time.perf_counter()]
+    ref = vrt_sp_reference(device)
+    t.append(time.perf_counter())
+    one_card = f"cuda:{device.index or 0}" if device.type == "cuda" else "cpu"
+    launches = vrt_sp_ranks(ref, VRT_SP_AXES, one_card, False, card)
+    t.append(time.perf_counter())
+    log(f"  phase 13 took {t[2] - t[0]:.1f} s: this process's runs {t[1] - t[0]:.1f}, the ranks "
+        f"and their gates {t[2] - t[1]:.1f}")
+    return launches
+
+
+def vrt_sp_cards(cards: int, card: str) -> None:
+    """``--dp-cards``: the split VRT step with one NCCL rank a card, ``data =
+    2 x time = 2`` on four cards or more, ``time = 2`` on two or three,
+    under phase 13's gates against card 0's one-process step."""
+    import torch
+
+    axes = {"data": 2, "time": 2} if cards >= 4 else dict(VRT_SP_AXES)
+    ref = vrt_sp_reference(torch.device("cuda", 0))
+    vrt_sp_ranks(ref, axes, "cuda", True, card)
+
+
+def split_rounding_main() -> int:
+    """``--split-rounding``: where a split step's bf16 gradient error comes
+    from, in one process on card 0 with no exchange: the paper VRT's bf16
+    gradients (fused sampler) on one ``+experiment=vrt`` microbatch, and
+    the mean of the same route's gradients on each of its clips alone,
+    each against the fp32 ones (TF32 off) over plain bf16's deviation from
+    them; prints how many tensors lie beyond twice and the worst ratios."""
+    import torch
+
+    from vsrlab_tpu_torch.build import load
+    from vsrlab_tpu_torch.core.config import load_config
+
+    if not torch.cuda.is_available():
+        print("chip_smoke --split-rounding: needs a CUDA GPU", file=sys.stderr)
+        return 1
+    torch.backends.cuda.matmul.allow_tf32 = False
+    with concurrent.futures.ThreadPoolExecutor() as pool:
+        list(pool.map(load, ("packed_gather", "bilinear_sample")))
+    log(card_line())
+    device = torch.device("cuda")
+    cfg = load_config(overrides=list(VRT_TRAIN_OVERRIDES))
+    check_paper_config(cfg.train)
+    mb = vrt_microbatch(device)
+    tf32(False)
+    model32 = build_train_vrt(cfg, "fp32", device)
+    ref = vrt_grads(model32, mb, "fused")[2]
+    del model32
+    torch.cuda.empty_cache()
+    tf32(True)
+    model = build_train_vrt(cfg, "bf16", device)
+    plain = vrt_grads(model, mb, "plain")[2]
+    whole = vrt_grads(model, mb, "fused")[2]
+    parts = [vrt_grads(model, {k: v[i:i + 1] for k, v in mb.items()}, "fused")[2]
+             for i in range(mb["lr"].shape[0])]
+    split = {k: sum(p[k] for p in parts) / len(parts) for k in whole}
+    for label, grads in (("the whole microbatch", whole),
+                         (f"the mean of its {len(parts)} clips taken alone", split)):
+        rows = []
+        for k, w in ref.items():
+            if not k.startswith("optical_flow."):
+                a, b = dev(grads[k], w), dev(plain[k], w)
+                rows.append((a[0] / b[0] if b[0] else 0.0, a[1] / b[1] if b[1] else 0.0, k))
+        beyond = sum(r[0] > 2 or r[1] > 2 for r in rows)
+        rows.sort(reverse=True)
+        log(f"  one process, fused, {label}: {beyond} of {len(rows)} tensors beyond twice plain "
+            "bf16's deviation from fp32; worst (max / rms) "
+            + ", ".join(f"{k} {a:.2f} / {b:.2f}" for a, b, k in rows[:4]))
+    return 0
+
+
 def main() -> int:
     import torch
 
@@ -4871,7 +5324,12 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     device = torch.device("cuda")
     card = card_line()
-    log("phase 1: device and build")
+    started = time.perf_counter()
+
+    def phase(msg: str) -> None:  # a phase's header, with the seconds since the start
+        log(f"{msg} [{time.perf_counter() - started:.1f} s]")
+
+    phase("phase 1: device and build")
     log(f"  torch {torch.__version__}, CUDA {torch.version.cuda}, "
         f"{torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}")
     log(card)
@@ -4890,48 +5348,48 @@ def main() -> int:
             if "registers" in line or "spill" in line or "Compiling entry" in line:
                 log(f"  ptxas: {line.strip()}")
 
-    log("phase 2: kernels against their plain version")
+    phase("phase 2: kernels against their plain version")
     errs = check_kernels(device)
     vrt_errs = {"bilinear_sample": check_sampler_kernel(device),
                 "packed_row_gather": check_gather_kernel(device)}
 
-    log("phase 3: RealBasicVSR path (4x, mid 64, 30+20 blocks, bf16; one fp32 request)")
+    phase("phase 3: RealBasicVSR path (4x, mid 64, 30+20 blocks, bf16; one fp32 request)")
     pair_launches, fp32_launches = realbasicvsr_phase(device, card)
     torch.cuda.empty_cache()
 
-    log("phase 4: VRT path (4x, paper configuration, 16x256x256 request, bf16)")
+    phase("phase 4: VRT path (4x, paper configuration, 16x256x256 request, bf16)")
     vrt_launches = vrt_phase(device, card)
     torch.cuda.empty_cache()
     tiny_vrt_phase(device, card)
     torch.cuda.empty_cache()
 
-    log("phase 5: RealBasicVSR training (batch 4 x 6 frames, 64x64 -> 256x256, bf16)")
+    phase("phase 5: RealBasicVSR training (batch 4 x 6 frames, 64x64 -> 256x256, bf16)")
     for form, by_shape in training_phase(device, card).items():
         pair_launches[form] += by_shape
     torch.cuda.empty_cache()
 
-    log("phase 7: serving from a checkpoint (headline RealBasicVSR, paper-configuration VRT)")
+    phase("phase 7: serving from a checkpoint (headline RealBasicVSR, paper-configuration VRT)")
     serve_pairs, serve_samplers = serving_phase(device, card)
     for form, by_shape in serve_pairs.items():
         pair_launches[form] += by_shape
     vrt_launches["bilinear_sample"] += serve_samplers
     torch.cuda.empty_cache()
 
-    log("phase 8: GAN fine-tuning (headline G, UNet D mid 64, VGG19, batch 4 x 6 frames, 64x64 -> "
-        "256x256, bf16)")
+    phase("phase 8: GAN fine-tuning (headline G, UNet D mid 64, VGG19, batch 4 x 6 frames, "
+          "64x64 -> 256x256, bf16)")
     for form, by_shape in gan_phase(device, card).items():
         pair_launches[form] += by_shape
     torch.cuda.empty_cache()
 
-    log("phase 9: the flow paths (RAFT teacher, OpticalFlowConsistency, the SpyNet curriculum, "
-        "IRR-PWC; fp32)")
-    flow_samplers, flow_pairs = flow_phase(device, card)
+    phase("phase 9: the flow paths (RAFT teacher, OpticalFlowConsistency, the SpyNet curriculum, "
+          "IRR-PWC; fp32)")
+    fp32_samplers, flow_pairs = flow_phase(device, card)
     fp32_pairs = {form: flow_pairs[form] + fp32_launches[form] for form in KERNELS}
     torch.backends.cudnn.allow_tf32 = False
     torch.cuda.empty_cache()
 
-    log("phase 10: VRT training at +experiment=vrt's shape (paper configuration, batch 8 x 6 "
-        "frames, 64x64 -> 256x256, 4 microbatches, remat, bf16) and data parallelism")
+    phase("phase 10: VRT training at +experiment=vrt's shape (paper configuration, batch 8 x 6 "
+          "frames, 64x64 -> 256x256, 4 microbatches, remat, bf16) and data parallelism")
     vrt_train_calls, backward, dp_pairs = phase10(device, card)
     for impl, by_kernel in vrt_train_calls.items():
         for name, by_shape in by_kernel.items():
@@ -4941,8 +5399,8 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     torch.cuda.empty_cache()
 
-    log("phase 11: the time and model mesh axes (two gloo ranks on the card) and the host data "
-        "core")
+    phase("phase 11: the time and model mesh axes (two gloo ranks on the card) and the host data "
+          "core")
     p11 = phase11(device, card)
     pair_launches["taps"] += p11["taps"]
     for name, by_shape in p11["samplers"].items():
@@ -4950,15 +5408,25 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     torch.cuda.empty_cache()
 
-    log("phase 12: sequence-parallel training over the time axis (the headline RealBasicVSR, the "
-        "train leg's 4 x 6 frames split 3 a rank over two gloo ranks on the card)")
+    phase("phase 12: sequence-parallel training over the time axis (the headline RealBasicVSR, the "
+          "train leg's 4 x 6 frames split 3 a rank over two gloo ranks on the card)")
     p12 = phase12(device, card)
     pair_launches["taps"] += p12["bf16"]
     fp32_pairs["taps"] += p12["fp32"]
     torch.backends.cudnn.allow_tf32 = False
     torch.cuda.empty_cache()
 
-    log("phase 6: each kernel at its paths' shapes")
+    phase("phase 13: sequence-parallel VRT training over the time axis (the paper VRT, one "
+          "microbatch of +experiment=vrt, 2 clips x 6 frames split 3 a rank over two gloo ranks on "
+          "the card, remat)")
+    p13 = phase13(device, card)
+    for name, by_shape in p13["bf16"].items():
+        vrt_launches[name] += by_shape
+    fp32_samplers += p13["fp32"]
+    torch.backends.cudnn.allow_tf32 = False
+    torch.cuda.empty_cache()
+
+    phase("phase 6: each kernel at its paths' shapes")
     kernels = []
     for form, (name, replaces) in KERNELS.items():
         err, rows = time_kernel(form, pair_launches[form], device)
@@ -4969,14 +5437,15 @@ def main() -> int:
     timers = {"bilinear_sample": time_sampler, "packed_row_gather": time_gather}
     for name, (source, replaces, also) in VRT_KERNELS.items():
         err, rows = timers[name](vrt_launches[name], device)
-        if name == "bilinear_sample":  # the flow paths' launches, fp32
-            rows += time_sampler(flow_samplers, device, torch.float32)[1]
+        if name == "bilinear_sample":  # the flow paths' and phase 13's fp32 launches
+            rows += time_sampler(fp32_samplers, device, torch.float32)[1]
         kernels.append({"name": name, "route": "cuda", "source": source, "replaces": replaces,
                         "also_replaces": also, **kernel_summary(rows, err, vrt_errs[name]),
                         # phase 10 (b): the PyTorch backward at the training shapes
                         "backward": backward["rows"][name]})
     pair_host_split(device)
     train_host_split(device)
+    phase("the kernels line")
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu",
                                            "kind": torch.cuda.get_device_name(0),
@@ -4998,6 +5467,10 @@ if __name__ == "__main__":
         sys.exit(vrt_dp_rank_main(sys.argv[2]))
     if sys.argv[1:2] == ["--sp-rank"]:  # one rank of phase 12, started by the script
         sys.exit(sp_rank_main(sys.argv[2]))
+    if sys.argv[1:2] == ["--vrt-sp-rank"]:  # one rank of phase 13, started by the script
+        sys.exit(vrt_sp_rank_main(sys.argv[2]))
+    if sys.argv[1:2] == ["--split-rounding"]:
+        sys.exit(split_rounding_main())
     if sys.argv[1:2] == ["--dp-cards"]:
         sys.exit(dp_cards_main())
     sys.exit(main())

@@ -45,7 +45,7 @@ from vsrlab_tpu_torch.core.metrics import MetricCollection, resolve_metric_names
 from vsrlab_tpu_torch.data.datasets import load_frame
 from vsrlab_tpu_torch.evaluation.tiled import tiled_forward
 from vsrlab_tpu_torch.nn.blocks import refresh_pair_caches
-from vsrlab_tpu_torch.parallel import Mesh, process_index
+from vsrlab_tpu_torch.parallel import Mesh, active_links, process_index
 
 
 def resolve_device(device: str | torch.device = "cuda") -> torch.device:
@@ -144,6 +144,12 @@ def make_forward(model: torch.nn.Module, tile: Optional[int] = None, tile_overla
         return forward
 
     def tiled(x):
+        # the tiles of frames split over a time axis would each need the
+        # other ranks' tiles at once: not one process's numbers
+        for m in model.modules():
+            if active_links(getattr(m, "time_shard_axis", None)) is not None:
+                raise ValueError(f"tiled serving does not combine with frames split over "
+                                 f"{m.time_shard_axis!r}")
         return tiled_forward(forward, _to(x, device), (tile, tile), tile_overlap)
 
     return tiled

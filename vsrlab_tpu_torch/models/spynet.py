@@ -107,14 +107,17 @@ class SpyNet(nn.Module):
         pyr = self._build_pyramid(torch.cat([ref, supp], 0), h_up, w_up)
         return self._flows([p[:n] for p in pyr], [p[n:] for p in pyr], h, w, h_up, w_up)
 
-    def adjacent_pairs(self, frames, t: int):
-        """Both-direction flows for all adjacent frame pairs of clips.
+    def adjacent_pairs(self, frames, t: int, backward: slice = slice(None),
+                       forward: slice = slice(None)):
+        """Both-direction flows for adjacent frame pairs of clips.
 
         ``frames`` is ``(B*t, H, W, 3)`` (clips flattened row-major). The
         pyramid is built once on the unique frames. Output layout matches
         ``forward(cat([f[:-1], f[1:]]), cat([f[1:], f[:-1]]))``: the first
         half are backward flows (ref = earlier frame), the second half
-        forward flows.
+        forward flows. ``backward`` and ``forward`` pick the pairs (pair i
+        is frames i, i+1 of each clip) whose flow of that direction is
+        computed: all by default.
         """
         bt, h, w, _ = frames.shape
         b = bt // t
@@ -122,8 +125,11 @@ class SpyNet(nn.Module):
         ref_pyr, supp_pyr = [], []
         for p in self._build_pyramid(frames, h_up, w_up):
             pb = p.reshape(b, t, *p.shape[1:])
-            earlier = pb[:, :-1].reshape(b * (t - 1), *p.shape[1:])
-            later = pb[:, 1:].reshape(b * (t - 1), *p.shape[1:])
-            ref_pyr.append(torch.cat([earlier, later], 0))
-            supp_pyr.append(torch.cat([later, earlier], 0))
+            earlier, later = pb[:, :-1], pb[:, 1:]
+
+            def flat(clips):
+                return clips.reshape(-1, *p.shape[1:])
+
+            ref_pyr.append(torch.cat([flat(earlier[:, backward]), flat(later[:, forward])], 0))
+            supp_pyr.append(torch.cat([flat(later[:, backward]), flat(earlier[:, forward])], 0))
         return self._flows(ref_pyr, supp_pyr, h, w, h_up, w_up)

@@ -7,7 +7,13 @@
   run as one flow_warp and one flow-guided deformable conv over a
   ``B*(T-1)`` batch, or, with ``align_chunks``, both directions as chunks
   of the ``2*B*(T-1)`` batch in a Python loop (same numerics, less memory);
-* everything stays (B, D, H, W, C).
+* everything stays (B, D, H, W, C);
+* with ``links`` (the frames split over a ``time`` axis) the TMSA groups
+  attend over the whole clip's windows, and the rank's edge frames are
+  aligned to the neighbours' edge features, handed across by
+  :meth:`~vsrlab_tpu_torch.parallel.TimeLinks.halo` after
+  ``residual_group2`` (their gradients return to their owners); the zero
+  frames stand at the clip's ends only.
 """
 
 from __future__ import annotations
@@ -64,7 +70,12 @@ class Stage(nn.Module):
         self.pa_fuse = MlpGEGLU(3 * dim, 3 * dim, dim, dtype)
 
     def forward(self, x, flows_backward: List[torch.Tensor], flows_forward: List[torch.Tensor],
-                deterministic: bool = True, generator: Optional[torch.Generator] = None):
+                deterministic: bool = True, generator: Optional[torch.Generator] = None,
+                links=None):
+        """``flows_backward[0]`` aligns frame i+1 to i for each of the rank's
+        frames i that has a next frame in the clip, ``flows_forward[0]``
+        frame i-1 to i for each that has a previous one (``T - 1`` each
+        unsplit)."""
         b, d, h, w, c = x.shape
         if self.reshape == "down":
             # space-to-channel 2x2, channel order (w-offset, h-offset, c)
@@ -78,38 +89,71 @@ class Stage(nn.Module):
         if self.reshape != "none":
             x = self.reshape_linear(x)
 
-        x = self.linear1(self.residual_group1(x, deterministic, generator)) + x
-        x = self.linear2(self.residual_group2(x, deterministic, generator)) + x
+        x = self.linear1(self.residual_group1(x, deterministic, generator, links)) + x
+        x = self.linear2(self.residual_group2(x, deterministic, generator, links)) + x
 
-        x_backward, x_forward = self._aligned_features(x, flows_backward[0], flows_forward[0])
+        prev = nxt = None
+        if links is not None:
+            prev, nxt = links.halo(x[:, 0], x[:, -1])
+        x_backward, x_forward = self._aligned_features(x, flows_backward[0], flows_forward[0],
+                                                       prev, nxt)
         return self.pa_fuse(torch.cat([x, x_backward, x_forward], -1))
 
     def _warp_align(self, frames, flows, currents):
         return self.pa_deform(frames, [flow_warp(frames, flows)], currents, [flows])
 
-    def _aligned_features(self, x, flow_backward, flow_forward):
+    def _aligned_features(self, x, flow_backward, flow_forward, prev=None, nxt=None):
         """Align neighbour frames with flow + deformable conv: backward is
-        frame i+1 aligned towards i (i = 0..T-2), forward frame i-1
-        towards i (i = 1..T-1)."""
+        frame i+1 aligned towards i, forward frame i-1 towards i, for each
+        frame i that has such a neighbour. ``prev`` and ``nxt`` are the
+        frames before and after ``x`` ((B, H, W, C), the neighbour ranks'
+        edge frames; None at the clip's ends, where the zero frames stand)."""
         b, t, h, w, c = x.shape
-        later, earlier = flat_frames(x[:, 1:]), flat_frames(x[:, :-1])
+        (cur_b, src_b), (cur_f, src_f) = neighbour_pairs(x, prev, nxt)
+        nb, nf = cur_b.shape[1], cur_f.shape[1]
         if self.align_chunks > 1:
             # both directions share pa_deform, so they run as ONE batch cut
             # into chunks; every op is per sample
-            frames = torch.cat([later, earlier], 0)
+            frames = torch.cat([flat_frames(src_b), flat_frames(src_f)], 0)
             flows = torch.cat([flat_frames(flow_backward), flat_frames(flow_forward)], 0)
-            currents = torch.cat([earlier, later], 0)
+            currents = torch.cat([flat_frames(cur_b), flat_frames(cur_f)], 0)
             n = frames.shape[0]
             size = -(-n // min(self.align_chunks, n))
             aligned = torch.cat([
                 self._warp_align(frames[s:s + size], flows[s:s + size], currents[s:s + size])
-                for s in range(0, n, size)], 0).reshape(2, b, t - 1, h, w, c)
-            aligned_b, aligned_f = aligned[0], aligned[1]
+                for s in range(0, n, size)], 0)
+            aligned_b = aligned[:b * nb].reshape(b, nb, h, w, c)
+            aligned_f = aligned[b * nb:].reshape(b, nf, h, w, c)
         else:
-            aligned_b = self._warp_align(later, flat_frames(flow_backward), earlier)
-            aligned_b = aligned_b.reshape(b, t - 1, h, w, c)
-            aligned_f = self._warp_align(earlier, flat_frames(flow_forward), later)
-            aligned_f = aligned_f.reshape(b, t - 1, h, w, c)
-        x_backward = torch.cat([aligned_b, torch.zeros_like(x[:, -1:])], 1)
-        x_forward = torch.cat([torch.zeros_like(x[:, :1]), aligned_f], 1)
+            aligned_b = self._warp_align(flat_frames(src_b), flat_frames(flow_backward),
+                                         flat_frames(cur_b)).reshape(b, nb, h, w, c)
+            aligned_f = self._warp_align(flat_frames(src_f), flat_frames(flow_forward),
+                                         flat_frames(cur_f)).reshape(b, nf, h, w, c)
+        zeros = torch.zeros_like(x[:, :1])
+        x_backward = aligned_b if nb == t else torch.cat([aligned_b, zeros], 1)
+        x_forward = aligned_f if nf == t else torch.cat([zeros, aligned_f], 1)
         return x_backward, x_forward
+
+
+def extend_clip(x, prev=None, nxt=None):
+    """``x`` (B, T, ...) with the frames just before and after it, ``prev``
+    and ``nxt`` (B, ...; None at the clip's ends), on the time axis."""
+    if prev is None and nxt is None:
+        return x
+    return torch.cat([f for f in (None if prev is None else prev[:, None], x,
+                                  None if nxt is None else nxt[:, None]) if f is not None], 1)
+
+
+def neighbour_pairs(x, prev=None, nxt=None):
+    """``((current, next), (current, previous))`` frames of a clip's frames
+    ``x`` (B, T, ...): each frame that has a next frame beside that frame,
+    and each that has a previous one beside that one. ``prev`` and ``nxt``
+    (B, ...) are the frames just before and after ``x`` (None at the clip's
+    ends)."""
+    t = x.shape[1]
+    ext = extend_clip(x, prev, nxt)
+    off = 0 if prev is None else 1
+    nb = t if nxt is not None else t - 1
+    nf = t if prev is not None else t - 1
+    return ((x[:, :nb], ext[:, off + 1:off + 1 + nb]),
+            (x[:, t - nf:], ext[:, off + t - nf - 1:off + t - 1]))

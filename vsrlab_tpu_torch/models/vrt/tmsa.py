@@ -10,14 +10,23 @@
 Everything is (B, D, H, W, C). Each block's two residual branches go
 through :class:`DropPath` (stochastic depth), which is the identity in
 deterministic mode, the default and the trainer's, as in the JAX package.
+
+With ``links`` (a :class:`~vsrlab_tpu_torch.parallel.TimeLinks`: the
+frames split over a ``time`` axis, ``D`` the rank's ``L`` of the clip's
+``L * links.size``) the window geometry is the whole clip's: the window
+size, the temporal padding and the shift mask read the clip's length, and
+each rank fetches the frames of the windows that hold its own
+(:meth:`TimeLinks.window_frames`, the block's ``norm1`` output: cheaper
+than keys and values, which the rank's own linear layers then compute)
+and computes attention rows for its own frames only.
 """
 
 from __future__ import annotations
 
 from typing import Optional, Sequence
 
-import torch.nn.functional as F
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from vsrlab_tpu_torch.models.vrt.window_attention import (
@@ -69,10 +78,17 @@ class TMSA(nn.Module):
         self.mlp = MlpGEGLU(dim, int(dim * mlp_ratio), dim, dtype=dtype)
 
     def forward(self, x, mask_matrix=None, deterministic: bool = True,
-                generator: Optional[torch.Generator] = None):
+                generator: Optional[torch.Generator] = None, links=None):
+        if links is None:
+            x = x + self.drop_path(self._attention(x, mask_matrix), deterministic, generator)
+        else:
+            x = x + self.drop_path(self._split_attention(x, mask_matrix, links), deterministic,
+                                   generator)
+        return x + self.drop_path(self.mlp(self.norm2(x)), deterministic, generator)
+
+    def _attention(self, x, mask_matrix):
         b, d, h, w, c = x.shape
         window_size, shift_size = get_window_size((d, h, w), self.window_size, self.shift_size)
-        shortcut = x
         x = self.norm1(x)
         pad_d, pad_b, pad_r = ((-s) % ws for s, ws in zip((d, h, w), window_size))
         if pad_d or pad_b or pad_r:
@@ -87,8 +103,48 @@ class TMSA(nn.Module):
             x = torch.roll(x, shift_size, (1, 2, 3))
         if pad_d or pad_b or pad_r:
             x = x[:, :d, :h, :w]
-        x = shortcut + self.drop_path(x, deterministic, generator)
-        return x + self.drop_path(self.mlp(self.norm2(x)), deterministic, generator)
+        return x
+
+    def _split_attention(self, x, mask_matrix, links):
+        """The attention branch of this rank's ``L`` frames of a clip split
+        over ``links``: the windows that hold them, assembled from its own
+        frames, the frames fetched from their owners and zeros for padding
+        (:meth:`TimeLinks.window_frames`), attend with queries of its own
+        frames only; the rows go back to their frames."""
+        b, l, h, w, c = x.shape
+        frames = l * links.size
+        (wd, wh, ww), shift = get_window_size((frames, h, w), self.window_size, self.shift_size)
+        plan = links.window_plan(frames, wd, shift[0])
+        x = links.window_frames(self.norm1(x), plan)
+        pad_b, pad_r = (-h) % wh, (-w) % ww
+        if pad_b or pad_r:
+            x = F.pad(x, (0, 0, 0, pad_r, 0, pad_b))
+        hp, wp = h + pad_b, w + pad_r
+        if shift[1] or shift[2]:
+            x = torch.roll(x, (-shift[1], -shift[2]), (2, 3))
+        nw, nwh, nww = len(plan.windows), hp // wh, wp // ww
+        # (B, windows, spatial windows, tokens, C): window_partition's order
+        x = x.reshape(b, nw, wd, nwh, wh, nww, ww, c).permute(0, 1, 3, 5, 2, 4, 6, 7)
+        x = x.reshape(b, nw, nwh * nww, wd * wh * ww, c)
+        mask = mask_matrix if any(shift) else None
+        types = None
+        if mask is not None:
+            types = torch.from_numpy(mask.type_ids.reshape(-1, nwh * nww)).to(x.device).long()
+            types = types[list(plan.windows)]
+        outs = []
+        for wins, own in plan.rows:
+            tid = None if types is None else types[list(wins)].reshape(-1).repeat(b)
+            out = self.attn.forward_rows(x[:, list(wins)].reshape(-1, wd * wh * ww, c), wd, own,
+                                         mask, tid)
+            outs.append(out.reshape(b, len(wins), nwh * nww, len(own), wh * ww, c))
+        x = torch.stack([outs[g][:, i, :, p] for g, i, p in plan.place], 1)
+        x = x.reshape(b, l, nwh, nww, wh, ww, c).permute(0, 1, 2, 4, 3, 5, 6)
+        x = x.reshape(b, l, hp, wp, c)
+        if shift[1] or shift[2]:
+            x = torch.roll(x, (shift[1], shift[2]), (2, 3))
+        if pad_b or pad_r:
+            x = x[:, :, :h, :w]
+        return x
 
 
 class TMSAG(nn.Module):
@@ -112,15 +168,17 @@ class TMSAG(nn.Module):
                 qk_scale, float(rate), dtype, head_shard_axis))
 
     def forward(self, x, deterministic: bool = True,
-                generator: Optional[torch.Generator] = None):
+                generator: Optional[torch.Generator] = None, links=None):
         _, d, h, w, _ = x.shape
+        if links is not None:  # the clip's length, split over the line
+            d *= links.size
         window_size, shift_size = get_window_size((d, h, w), self.window_size, self.base_shift)
         dp, hp, wp = (-(-s // ws) * ws for s, ws in zip((d, h, w), window_size))
         # the factored mask: the dense (nW, N, N) one is 1.8 GB for full
         # VRT at 16x256x256
         mask = compute_mask_factored(dp, hp, wp, tuple(window_size), tuple(shift_size))
         for i in range(self.depth):
-            x = getattr(self, f"block_{i}")(x, mask, deterministic, generator)
+            x = getattr(self, f"block_{i}")(x, mask, deterministic, generator, links)
         return x
 
 
@@ -137,5 +195,5 @@ class RTMSA(nn.Module):
         self.linear = Linear(dim, dim, True, dtype)
 
     def forward(self, x, deterministic: bool = True,
-                generator: Optional[torch.Generator] = None):
-        return x + self.linear(self.residual_group(x, deterministic, generator))
+                generator: Optional[torch.Generator] = None, links=None):
+        return x + self.linear(self.residual_group(x, deterministic, generator, links))

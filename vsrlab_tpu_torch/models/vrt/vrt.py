@@ -24,6 +24,23 @@ then launch again in the backward, and each launch counts.
 ``head_shard_axis`` reaches every ``WindowAttention``: inside
 ``parallel.use_mesh`` of a mesh with that axis the heads are split over
 its ranks (every rank loads the whole ``state_dict``).
+
+``time_shard_axis`` (sequence-parallel training): inside
+``parallel.use_mesh`` of a mesh with that axis, each rank holds its block
+of every clip's frames (``parallel.shard_batch_sp``) and returns the SR
+frames of that block. Its neighbours on the axis hand it their edge LR
+frames, so that it computes the flows whose current frame is its own
+(each flow once over the ranks), and in every Stage their edge features
+for the parallel warping; every TMSA block attends over the whole clip's
+windows, fetching the frames of its windows from their owners
+(``TimeLinks.window_frames``). The zero frames of the alignments stand at
+the clip's ends only, so the outputs and, through the exchanges'
+backward, the gradients are one process's. Outside such a mesh, or where
+the axis has one rank, the forward is the unsplit one. It raises where
+the ranks hold different numbers of frames, where ``head_shard_axis``
+splits the heads on the same mesh, and where stochastic depth's
+generators differ over a time line (every rank of the line must drop the
+same paths of a clip).
 """
 
 from __future__ import annotations
@@ -38,12 +55,14 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from vsrlab_tpu_torch.models.spynet import SpyNet
-from vsrlab_tpu_torch.models.vrt.stage import Stage, flat_frames
+from vsrlab_tpu_torch.models.vrt.stage import (Stage, extend_clip, flat_frames,
+                                                neighbour_pairs)
 from vsrlab_tpu_torch.models.vrt.tmsa import RTMSA
 from vsrlab_tpu_torch.nn.blocks import Conv2d, LayerNorm, Linear
 from vsrlab_tpu_torch.ops.pixel_shuffle import pixel_shuffle
 from vsrlab_tpu_torch.ops.resize import resize_bilinear
 from vsrlab_tpu_torch.ops.warp import flow_warp
+from vsrlab_tpu_torch.parallel import active_links, active_mesh, assert_replicated
 
 NUM_FEAT = 64  # reconstruction width
 
@@ -67,10 +86,12 @@ class _VRTBase(nn.Module):
                  qk_scale: Optional[float] = None, drop_path_rate: float = 0.2,
                  optical_flow_train: bool = False, pa_frames: int = 2,
                  deformable_groups: int = 16, head_shard_axis: Optional[str] = None,
-                 remat: bool = False, align_chunks: int = 0, dtype=None):
+                 remat: bool = False, align_chunks: int = 0,
+                 time_shard_axis: Optional[str] = None, dtype=None):
         super().__init__()
         del img_size  # the parameters do not depend on the clip's shape
         self.upscale, self.dtype = upscale, dtype
+        self.head_shard_axis, self.time_shard_axis = head_shard_axis, time_shard_axis
         self.optical_flow_train, self.remat = optical_flow_train, remat
         depths, dims = list(depths), list(embed_dims)
         ns = len(self.scales)
@@ -115,37 +136,52 @@ class _VRTBase(nn.Module):
         y = conv(flat_frames(x))
         return y.reshape(b, t, *y.shape[1:])
 
-    def _get_flows(self, x) -> Tuple[List[torch.Tensor], List[torch.Tensor]]:
+    def _get_flows(self, x, prev=None, nxt=None
+                   ) -> Tuple[List[torch.Tensor], List[torch.Tensor]]:
         """Multi-scale flows, fine to coarse, both directions in one SpyNet
         batch; without ``optical_flow_train`` SpyNet runs without a
-        gradient (its parameters get none: the JAX stop-gradient)."""
+        gradient (its parameters get none: the JAX stop-gradient). With the
+        frames before and after ``x`` (``prev``, ``nxt``: the neighbour
+        ranks' edge frames) the flows of the pairs they form whose current
+        frame is ``x``'s are computed too: the backward flows of each frame
+        that has a next frame, the forward flows of each that has a
+        previous one."""
         b, t, h, w, c = x.shape
+        frames = extend_clip(x, prev, nxt)
+        te = frames.shape[1]
+        # the pair (prev, x[0])'s backward flow and (x[-1], nxt)'s forward flow
+        # are the neighbours' own
+        nb, nf = te - 1 - (prev is not None), te - 1 - (nxt is not None)
         with torch.set_grad_enabled(torch.is_grad_enabled() and self.optical_flow_train):
-            flows = self.optical_flow.adjacent_pairs(x.reshape(-1, h, w, c), t)
+            flows = self.optical_flow.adjacent_pairs(
+                frames.reshape(-1, h, w, c), te, slice(te - 1 - nb, None), slice(0, nf))
         if not isinstance(flows, list):
             flows = [flows]
         backward, forward = [], []
         for i, f in enumerate(flows):
-            fb, ff = f.chunk(2, 0)
             s = 2 ** i
-            backward.append(fb.reshape(b, t - 1, h // s, w // s, 2))
-            forward.append(ff.reshape(b, t - 1, h // s, w // s, 2))
+            backward.append(f[:b * nb].reshape(b, nb, h // s, w // s, 2))
+            forward.append(f[b * nb:].reshape(b, nf, h // s, w // s, 2))
         return backward, forward
 
     @staticmethod
-    def _aligned_image(x, flow_backward, flow_forward):
-        """nearest4 neighbour warping, batched over frames."""
+    def _aligned_image(x, flow_backward, flow_forward, prev=None, nxt=None):
+        """nearest4 neighbour warping, batched over frames; ``prev`` and
+        ``nxt`` as for :meth:`_get_flows`."""
         b, t, h, w, c = x.shape
+        (_, src_b), (_, src_f) = neighbour_pairs(x, prev, nxt)
+        nb, nf = src_b.shape[1], src_f.shape[1]
         zeros = x.new_zeros((b, 1, h, w, 4 * c))
-        wb = flow_warp(flat_frames(x[:, 1:]), flat_frames(flow_backward), "nearest4")
-        wf = flow_warp(flat_frames(x[:, :-1]), flat_frames(flow_forward), "nearest4")
-        return (torch.cat([wb.reshape(b, t - 1, h, w, 4 * c), zeros], 1),
-                torch.cat([zeros, wf.reshape(b, t - 1, h, w, 4 * c)], 1))
+        wb = flow_warp(flat_frames(src_b), flat_frames(flow_backward), "nearest4")
+        wf = flow_warp(flat_frames(src_f), flat_frames(flow_forward), "nearest4")
+        wb, wf = wb.reshape(b, nb, h, w, 4 * c), wf.reshape(b, nf, h, w, 4 * c)
+        return (wb if nb == t else torch.cat([wb, zeros], 1),
+                wf if nf == t else torch.cat([zeros, wf], 1))
 
-    def _forward_features(self, x, fb, ff, det, gen):
+    def _forward_features(self, x, fb, ff, det, gen, links):
         raise NotImplementedError
 
-    def _unit(self, module, *args, deterministic: bool, generator):
+    def _unit(self, module, *args, deterministic: bool, generator, links=None):
         """Call a Stage or a trunk RTMSA, through a non-reentrant checkpoint
         where ``remat`` is set and a gradient is recorded. A stochastic
         call draws a seed for the unit from ``generator`` here, outside the
@@ -157,32 +193,55 @@ class _VRTBase(nn.Module):
 
         def run(*a):
             gen = None if seed is None else torch.Generator().manual_seed(seed)
-            return module(*a, deterministic=deterministic, generator=gen)
+            return module(*a, deterministic=deterministic, generator=gen, links=links)
 
         if self.remat and torch.is_grad_enabled():
             return checkpoint(run, *args, use_reentrant=False)
         return run(*args)
 
-    def _stage_call(self, i, x, fb, ff, det, gen):
-        return self._unit(self.stage(i), x, fb, ff, deterministic=det, generator=gen)
+    def _stage_call(self, i, x, fb, ff, det, gen, links):
+        return self._unit(self.stage(i), x, fb, ff, deterministic=det, generator=gen,
+                          links=links)
 
-    def _trunk(self, x, det, gen):
+    def _trunk(self, x, det, gen, links):
         """LN + Linear, then the RTMSA blocks and the final norm."""
         x = self.trunk_linear_in(self.trunk_norm_in(x))
         for i in self.trunk_ids:
             x = self._unit(getattr(self, f"trunk_rtmsa_{i}"), x, deterministic=det,
-                           generator=gen)
+                           generator=gen, links=links)
         return self.norm(x)
+
+    def _split_links(self, x, deterministic: bool, generator):
+        """This rank's links where ``time_shard_axis`` splits the frames,
+        after the checks that the split gives one process's numbers."""
+        links = active_links(self.time_shard_axis)
+        if links is None:
+            return None
+        mesh = active_mesh()
+        if self.head_shard_axis is not None and mesh.shape.get(self.head_shard_axis, 1) > 1:
+            raise ValueError(f"frames split over {self.time_shard_axis!r} do not combine with "
+                             f"heads split over {self.head_shard_axis!r} yet")
+        links.wait()
+        links.check_frames(x.shape[1])
+        if not deterministic and generator is not None:
+            # every rank of the line must drop the same paths of a clip
+            assert_replicated([generator.get_state().to(x.device)], links.line_group,
+                              "stochastic-depth generators")
+        return links
 
     def forward(self, x, deterministic: bool = True,
                 generator: Optional[torch.Generator] = None):
         b, t, h, w, c = x.shape
         x_lq = x
-        flows_backward, flows_forward = self._get_flows(x)
-        x_b, x_f = self._aligned_image(x, flows_backward[0], flows_forward[0])
+        links = self._split_links(x, deterministic, generator)
+        prev = nxt = None
+        if links is not None:
+            prev, nxt = links.halo(x[:, 0], x[:, -1])
+        flows_backward, flows_forward = self._get_flows(x, prev, nxt)
+        x_b, x_f = self._aligned_image(x, flows_backward[0], flows_forward[0], prev, nxt)
         feat = self._frame_conv(self.conv_first, torch.cat([x, x_b, x_f], -1))
         body = self._forward_features(feat, flows_backward, flows_forward, deterministic,
-                                      generator)
+                                      generator, links)
         feat = feat + self.conv_after_body(body)
 
         y = F.leaky_relu(self._frame_conv(self.conv_before_upsample, feat), 0.01)
@@ -195,6 +254,8 @@ class _VRTBase(nn.Module):
 
         s = self.upscale
         base = resize_bilinear(x_lq.reshape(b * t, h, w, c), (h * s, w * s), align_corners=False)
+        if links is not None:
+            links.wait()
         return y + base.reshape(b, t, h * s, w * s, c), x_lq
 
 
@@ -212,15 +273,15 @@ class VRT(_VRTBase):
         super().__init__(upscale=upscale, depths=depths, embed_dims=embed_dims,
                          num_heads=num_heads, deformable_groups=deformable_groups, **kw)
 
-    def _forward_features(self, x, fb, ff, det, gen):
-        x1 = self._stage_call(0, x, fb[0::4], ff[0::4], det, gen)
-        x2 = self._stage_call(1, x1, fb[1::4], ff[1::4], det, gen)
-        x3 = self._stage_call(2, x2, fb[2::4], ff[2::4], det, gen)
-        x4 = self._stage_call(3, x3, fb[3::4], ff[3::4], det, gen)
-        x = self._stage_call(4, x4, fb[2::4], ff[2::4], det, gen)
-        x = self._stage_call(5, x + x3, fb[1::4], ff[1::4], det, gen)
-        x = self._stage_call(6, x + x2, fb[0::4], ff[0::4], det, gen)
-        return self._trunk(x + x1, det, gen)
+    def _forward_features(self, x, fb, ff, det, gen, links):
+        x1 = self._stage_call(0, x, fb[0::4], ff[0::4], det, gen, links)
+        x2 = self._stage_call(1, x1, fb[1::4], ff[1::4], det, gen, links)
+        x3 = self._stage_call(2, x2, fb[2::4], ff[2::4], det, gen, links)
+        x4 = self._stage_call(3, x3, fb[3::4], ff[3::4], det, gen, links)
+        x = self._stage_call(4, x4, fb[2::4], ff[2::4], det, gen, links)
+        x = self._stage_call(5, x + x3, fb[1::4], ff[1::4], det, gen, links)
+        x = self._stage_call(6, x + x2, fb[0::4], ff[0::4], det, gen, links)
+        return self._trunk(x + x1, det, gen, links)
 
 
 class TinyVRT(_VRTBase):
@@ -236,10 +297,10 @@ class TinyVRT(_VRTBase):
         super().__init__(upscale=upscale, depths=depths, embed_dims=embed_dims,
                          num_heads=num_heads, deformable_groups=deformable_groups, **kw)
 
-    def _forward_features(self, x, fb, ff, det, gen):
-        x1 = self._stage_call(0, x, fb[0::3], ff[0::3], det, gen)
-        x2 = self._stage_call(1, x1, fb[1::3], ff[1::3], det, gen)
-        x3 = self._stage_call(2, x2, fb[2::3], ff[2::3], det, gen)
-        x = self._stage_call(3, x3, fb[1::3], ff[1::3], det, gen)
-        x = self._stage_call(4, x + x2, fb[0::3], ff[0::3], det, gen)
-        return self._trunk(x + x1, det, gen)
+    def _forward_features(self, x, fb, ff, det, gen, links):
+        x1 = self._stage_call(0, x, fb[0::3], ff[0::3], det, gen, links)
+        x2 = self._stage_call(1, x1, fb[1::3], ff[1::3], det, gen, links)
+        x3 = self._stage_call(2, x2, fb[2::3], ff[2::3], det, gen, links)
+        x = self._stage_call(3, x3, fb[1::3], ff[1::3], det, gen, links)
+        x = self._stage_call(4, x + x2, fb[0::3], ff[0::3], det, gen, links)
+        return self._trunk(x + x1, det, gen, links)

@@ -9,6 +9,9 @@
   matmuls over a chunk of windows at a time, with fp32 logits and softmax;
 * mutual attention splits each temporal-window-2 token block into its two
   frames and cross-attends them both ways;
+* :meth:`WindowAttention.forward_rows` computes the output rows of some
+  frames of each window only (sequence-parallel attention: a rank's own
+  frames, against every frame of the window);
 * ``head_shard_axis`` splits the heads over an axis of the active mesh
   (``parallel.use_mesh``), as Megatron splits them: every rank holds the
   whole parameters, computes a contiguous range of the heads (the q, k, v
@@ -336,13 +339,17 @@ class WindowAttention(nn.Module):
             self.relative_position_bias_table.clamp_(-0.04, 0.04)
 
     def _core(self, q, k, v, masks, tid, bias):
-        """Windowed attention on one chunk: ``q``, ``k``, ``v`` (Bc, nH, nq, hd)."""
+        """Windowed attention on one chunk: ``q`` (Bc, nH, nq, hd) against
+        ``k``, ``v`` (Bc, nH, nk, hd); ``bias`` (1, nH, nq, nk) and the
+        window types' ``masks`` (types, nq, nk) are already cut to these rows
+        and columns (``rpi[rows][:, cols]``, ``masks[:, rows][:, :, cols]``),
+        ``tid`` the chunk's window types."""
         nq = q.shape[2]
         attn = torch.matmul((q * self.scale).float(), k.float().transpose(-1, -2))
         if bias is not None:
             attn = attn + bias
         if masks is not None:
-            attn = attn + masks[tid, :nq, :nq][:, None]
+            attn = attn + masks[tid][:, None]
         attn = torch.softmax(attn, dim=-1).to(v.dtype)
         out = torch.matmul(attn, v)
         return out.transpose(1, 2).reshape(out.shape[0], nq, -1)
@@ -355,8 +362,10 @@ class WindowAttention(nn.Module):
             return x_out
         qm, km, vm = qkv_m
         half = q.shape[2] // 2
-        x1 = self._core(qm[:, :, half:], km[:, :, :half], vm[:, :, :half], masks, tid, None)
-        x2 = self._core(qm[:, :, :half], km[:, :, half:], vm[:, :, half:], masks, tid, None)
+        # both directions read the first frame's mask (the JAX package's slice)
+        m = None if masks is None else masks[:, :half, :half]
+        x1 = self._core(qm[:, :, half:], km[:, :, :half], vm[:, :, :half], m, tid, None)
+        x2 = self._core(qm[:, :, :half], km[:, :, half:], vm[:, :, half:], m, tid, None)
         return torch.cat([torch.cat([x1, x2], 1), x_out], -1)
 
     def head_shard(self):
@@ -417,6 +426,61 @@ class WindowAttention(nn.Module):
         # the bias once, on the group's first rank, then the sum over the group
         part = _proj_heads(self.proj, out, lo, lo + nh, hd, 2 if self.mut_attn else 1, lo == 0)
         return _ReduceFromGroup.apply(part, group)
+
+    def forward_rows(self, x, slots: int, positions: Sequence[int], mask=None, tid=None):
+        """The output rows of the tokens at temporal ``positions`` of each
+        window only, against every token of the window: ``x`` (B*nW, N, C)
+        holds whole windows of ``slots`` frames, ``mask`` a
+        :class:`FactoredMask` (or None) and ``tid`` the windows' types.
+        Returns (B*nW, len(positions) * N / slots, C), the rows in
+        ``positions``' order. The projections run over the whole window, as
+        in :meth:`forward`; the logits, the softmax and the output rows only
+        for those rows. Mutual attention (``slots`` 2) reads the partner
+        frame's query for the rows at a frame's positions, as
+        :meth:`forward` does. Sequence-parallel attention: a rank computes
+        the rows of its own frames."""
+        b_, n, c = x.shape
+        nh, hd = self.num_heads, c // self.num_heads
+        s = n // slots
+        dev = x.device
+        x = x.to(self.qkv_self.dtype or torch.promote_types(x.dtype, self.qkv_self.weight.dtype))
+
+        def span(ps):
+            return torch.cat([torch.arange(p * s, (p + 1) * s, device=dev) for p in ps])
+
+        def heads(t):
+            return t.reshape(b_, t.shape[1], nh, hd).transpose(1, 2)
+
+        rows = span(positions)
+        nq = rows.numel()
+        q, k, v = self.qkv_self(x).chunk(3, -1)
+        q, k, v = heads(q[:, rows]), heads(k), heads(v)
+        rpi = self.rpi[:n, :n][rows].reshape(-1)
+        bias = self.relative_position_bias_table[rpi].reshape(nq, n, nh).permute(2, 0, 1)[None]
+        masks = mut_masks = None
+        if mask is not None:
+            full = torch.from_numpy(mask.masks).to(dev)
+            masks, mut_masks = full[:, rows], full[:, :s, :s]
+        if self.mut_attn:
+            if slots != 2:
+                raise ValueError(f"mutual attention pairs 2 frames a window, not {slots}")
+            qm, km, vm = self.qkv_mut(x + self.pos2.to(x.dtype)).chunk(3, -1)
+            qm = heads(qm[:, span([1 - p for p in positions])])
+            km, vm = heads(km[:, rows]), heads(vm[:, rows])
+
+        chunk = max(1, LOGITS_BUDGET // (nh * nq * n * 4))
+        outs = []
+        for at in range(0, b_, chunk):
+            sl = slice(at, at + chunk)
+            t = None if tid is None else tid[sl]
+            out = self._core(q[sl], k[sl], v[sl], masks, t, bias)
+            if self.mut_attn:
+                mut = [self._core(qm[sl, :, i * s:(i + 1) * s], km[sl, :, i * s:(i + 1) * s],
+                                  vm[sl, :, i * s:(i + 1) * s], mut_masks, t, None)
+                       for i in range(len(positions))]
+                out = torch.cat([torch.cat(mut, 1), out], -1)
+            outs.append(out)
+        return self.proj(outs[0] if len(outs) == 1 else torch.cat(outs, 0))
 
 
 def all_reduce_head_grads(model: nn.Module) -> None:

@@ -4,9 +4,10 @@ rendezvous, a mesh of named axes over the ranks (``data``, ``time``,
 mesh that head-sharded attention reads, the placement specs, this rank's
 device and batch slice, the parameters broadcast from rank 0, the
 gradients and metrics averaged over the data axis by one explicit
-all-reduce of a flat bucket, and the halo frames and recurrence carries
-that neighbours on the time axis hand each other in sequence-parallel
-training (``sequence.TimeLinks``)."""
+all-reduce of a flat bucket, and what the ranks of a time line hand each
+other in sequence-parallel training (``sequence.TimeLinks``): halo frames,
+recurrence carries, and the frames of attention windows that straddle
+them (``sequence.window_plan``)."""
 
 from vsrlab_tpu_torch.parallel.mesh import (
     AXES,
@@ -38,7 +39,7 @@ from vsrlab_tpu_torch.parallel.mesh import (
     stdout_on_rank0,
     use_mesh,
 )
-from vsrlab_tpu_torch.parallel.sequence import TimeLinks
+from vsrlab_tpu_torch.parallel.sequence import TimeLinks, WindowPlan, window_plan
 
 __all__ = [
     "AXES",
@@ -46,6 +47,7 @@ __all__ = [
     "Mesh",
     "Sharding",
     "TimeLinks",
+    "WindowPlan",
     "active_links",
     "active_mesh",
     "all_reduce_mean",
@@ -70,4 +72,5 @@ __all__ = [
     "shard_slice",
     "stdout_on_rank0",
     "use_mesh",
+    "window_plan",
 ]

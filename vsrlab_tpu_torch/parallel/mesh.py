@@ -12,9 +12,10 @@ devices out with ``np.asarray(devices).reshape(sizes)``:
 * ``time``: the windows of a long clip are split over the ranks at
   inference (``evaluation.harness.windowed_inference(..., mesh)``), and
   the frames of each clip in sequence-parallel training of the BasicVSR
-  family (``time_shard_axis="time"`` inside :func:`use_mesh`): neighbours
-  on a line of the axis hand each other halo frames and the recurrences'
-  carries through :class:`~vsrlab_tpu_torch.parallel.sequence.TimeLinks`.
+  and VRT families (``time_shard_axis="time"`` inside :func:`use_mesh`):
+  the ranks of a line of the axis hand each other halo frames, the
+  recurrences' carries and the frames of attention windows that straddle
+  them through :class:`~vsrlab_tpu_torch.parallel.sequence.TimeLinks`.
 * ``model``: the attention heads of a VRT-family model are split over the
   ranks (``head_shard_axis="model"``) inside :func:`use_mesh`.
 
@@ -32,8 +33,8 @@ devices out with ``np.asarray(devices).reshape(sizes)``:
   never falls back to the CPU.
 * :func:`create_mesh` gives each axis one process group for each of its
   lines (the ranks that differ only in their index on that axis), and
-  each pair of neighbours on the ``time`` axis one two-rank group for each
-  kind of message they exchange (``Mesh.links``);
+  each pair of ranks on a line of the ``time`` axis one two-rank group for
+  each kind of message they exchange (``Mesh.links``);
   :func:`use_mesh` makes a mesh the active one, which ``head_shard_axis``
   reads (JAX's ``with mesh:`` / ``jax.set_mesh``).
 * :func:`batch_sharding` and :func:`clip_sharding` are the
@@ -59,7 +60,7 @@ import torch
 import torch.distributed as dist
 from torch._utils import _flatten_dense_tensors, _unflatten_dense_tensors
 
-from vsrlab_tpu_torch.parallel.sequence import KINDS, TimeLinks
+from vsrlab_tpu_torch.parallel.sequence import KINDS, WINDOW_KINDS, TimeLinks
 
 # the axes a mesh may have, in JAX's names
 AXES = ("data", "time", "model")
@@ -221,7 +222,9 @@ def create_mesh(axes: Union[int, Dict[str, int], None] = None) -> Mesh:
     process group for each line of each axis larger than 1 (the whole
     world's group where a line holds every rank) and, on a ``time`` axis
     larger than 1, one two-rank group for each pair of neighbours and each
-    of :data:`~vsrlab_tpu_torch.parallel.sequence.KINDS`. Every rank calls
+    of :data:`~vsrlab_tpu_torch.parallel.sequence.KINDS`, and for each pair
+    of ranks of a line (its ends included) and each of
+    :data:`~vsrlab_tpu_torch.parallel.sequence.WINDOW_KINDS`. Every rank calls
     it, with the same ``axes``: each rank creates every group, in one
     order."""
     n = process_count()
@@ -244,14 +247,13 @@ def create_mesh(axes: Union[int, Dict[str, int], None] = None) -> Mesh:
     if "time" in names and sizes[names.index("time")] > 1:
         a = names.index("time")
         for line in np.moveaxis(grid, a, -1).reshape(-1, sizes[a]).tolist():
-            pairs = {(lo, hi): {k: dist.new_group([lo, hi]) for k in KINDS}
-                     for lo, hi in zip(line[:-1], line[1:])}
+            pairs = {}
+            for i, lo in enumerate(line):
+                for j in range(i + 1, len(line)):
+                    kinds = (KINDS if j == i + 1 else ()) + WINDOW_KINDS
+                    pairs[(lo, line[j])] = {k: dist.new_group([lo, line[j]]) for k in kinds}
             if rank in line:
-                k = line.index(rank)
-                prev = line[k - 1] if k > 0 else None
-                nxt = line[k + 1] if k + 1 < len(line) else None
-                links["time"] = TimeLinks(rank, prev, nxt, pairs.get((prev, rank), {}),
-                                          pairs.get((rank, nxt), {}))
+                links["time"] = TimeLinks(rank, line, pairs, groups["time"])
     return Mesh(names, sizes, rank, groups, links)
 
 
