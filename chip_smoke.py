@@ -109,7 +109,7 @@ Phases, in order; any failure exits non-zero:
    exactly 60 launches at ``(24,64,64,64)`` and 360 at ``(4,64,64,64)``; the
    loss falling over 20 steps on the batch, SpyNet unmoved; the trained
    weights served (no grad) with ``taps`` within the same gate of fp32. Then
-   the step's ms and train frames/s (median of 10 after 3, host clock with
+   the step's ms and train frames/s (median of 5 after 2, host clock with
    synchronize), its peak memory and a torch.profiler breakdown by part, each
    with ``taps`` and with ``plain`` (the library yardstick). Last,
    ``train.run`` on SyntheticVSR (8 clips of 6x256x256, batch 4, one epoch
@@ -126,7 +126,8 @@ Phases, in order; any failure exits non-zero:
    replay (calls captured in a graph, median of 20 replays: a launch from
    Python takes longer than many of these kernels run), and each kernel's
    share of its bound; at the training shapes also the unit's backward
-   (``pair_grads``); the fp32 kernel at the fp32 paths' shapes (phase 3's
+   (``pair_grads``) beside its bound and autograd through the library
+   forward (forward and backward to every operand); the fp32 kernel at the fp32 paths' shapes (phase 3's
    request, phase 9's cleaner) beside cuDNN with TF32 off (its
    ``library_ms``) and on (``library_tf32_ms``, for information). The sampler and the row gather run on the same
    realistic operands at each image size; beside the row gather, the
@@ -172,7 +173,7 @@ Phases, in order; any failure exits non-zero:
    step (60 at ``(24,64,64,64)``, 360 at ``(4,64,64,64)``), in an updating
    and in a frozen step; the frozen step leaves G bitwise unchanged and
    moves D and every ``u``; 20 steps with every loss finite. (b) The step's
-   ms and frames/s (median of 10 after 3) with ``taps`` and ``plain``, peak
+   ms and frames/s (median of 5 after 2) with ``taps`` and ``plain``, peak
    memory, device ms and busy share (torch.profiler), and the device ms of
    each part run alone: G's forward and backward, the VGG19 loss, D in the G
    half, the D half, the optimizers. (c) ``train.gan.run`` restored from
@@ -229,8 +230,9 @@ Phases, in order; any failure exits non-zero:
    ``expected_vrt_launches``); the main path, one step with ``fused`` and
    one with ``take``, each exactly 4 microbatches' launches by shape; the
    losses finite, SpyNet bitwise unchanged. Then the step's ms and train
-   frames/s (median of 3 after 1), one step's device ms and busy share
-   (torch.profiler tracing the card alone), one microbatch's device ms by
+   frames/s (one step, after the two main-path steps), one step's
+   device ms and busy share (torch.profiler tracing the card alone), one
+   microbatch's device ms by
    part (attention, MLP, LayerNorm and SpyNet, forward with the recompute
    and backward; the sampler kernel; ``sample_grads``; the rest), and a
    microbatch's peak memory with and without remat. (b) At every shape (a)
@@ -327,9 +329,35 @@ Phases, in order; any failure exits non-zero:
    bf16 step ms, device ms, busy share and peak memory with and without
    ``remat`` beside this process's. ``--dp-cards`` runs it with one NCCL
    rank a card, ``data = 2 x time = 2`` on four cards.
-14. One JSON line ``{"kernels": [...]}``: per kernel its main-path launches
+14. Reference checkpoints (run after phase 13, before phase 6), at the
+   headline width under ``build/chip_smoke_import/``: (a) phase 3's seeded
+   weights written as a reference vsrlab RealBasicVSR checkpoint
+   (``{"epoch", "model_state_dict"}``, the reference's names from a key map
+   in this script, SpyNet's ``mean`` / ``std`` included), loaded by
+   ``load_reference_checkpoint`` + ``load_torch_realbasicvsr`` with
+   ``strict=True``: a 10-frame 180x320 request bitwise equal to phase 3's
+   model, 660 taps launches; (b) the acceptance command
+   (``evaluation.acceptance.main``) on a REDS4-layout folder of two
+   10-frame SyntheticVSR clips, one paired (720x1280 HR and its LR), one
+   HR-only at 722x1283 (cropped, LR derived): fp32 (TF32 off), ``--bf16``
+   and ``--bf16 --stream`` (two windows of 5 a clip), each against the
+   same model evaluated directly (``evaluate_video``, or a ``first`` /
+   ``rest`` chain) as ``--published-psnr`` with a bar of 0.001 dB: exit 0,
+   the pair's launches by shape as the windows predict, frames/s beside
+   ``make_forward``'s; (c) phase 4's seeded paper VRT written in the
+   reference's layout (Conv3d ``(O, I, 1, 3, 3)`` kernels,
+   ``conv_offset.{0,2,4,6}``, trunk ``stage8``, ``optical_flow.*`` with
+   ``mean`` / ``std``, every attention's ``relative_position_index``) as
+   ``{"params": ...}``, imported with ``n_scale_stages=7``: phase 4's
+   request bitwise equal, 126 fused launches; then ``--model vrt --bf16
+   --tile 128 --window 16`` on one 16-frame 256x256 LR clip against the
+   tiled model evaluated directly (``--align-chunks 0``: the alignment in
+   one batch, as phase 4 runs it; the default 30 runs it one frame a chunk,
+   15x the launches and ~4x the time), 126 fused launches a tile. The
+   phase's wall seconds. The launches count into the ``kernels`` line.
+15. One JSON line ``{"kernels": [...]}``: per kernel its main-path launches
    (inference, training, serving, GAN fine-tuning, the flow paths, VRT
-   training and the ranks of phases 11 to 13) and,
+   training, the ranks of phases 11 to 13 and phase 14's imported models) and,
    summed over those launches (per-launch time at each shape times that
    shape's count), ``ms``, ``plain_ms``,
    ``library_ms`` and ``bound_ms``; ``max_abs_err`` is the largest bf16
@@ -500,6 +528,18 @@ def bound(shape, dname: str = "bf16") -> tuple[float, str]:
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
+def pair_backward_bound(shape) -> tuple[float, str]:
+    """Least time (ms) of one bf16 ``pair_grads``: five convolutions' FLOPs
+    (conv1 recomputed, the data and weight gradients of both convs) on the
+    tensor cores; ``x`` and ``g`` read once, ``dx`` written once, both
+    weights read and their gradients written once, biases and theirs."""
+    b, h, w, c = shape
+    flops = 5 * (2 * b * h * w * c * c * 9)
+    nbytes = 3 * b * h * w * c * 2 + 4 * 9 * c * c * 2 + 4 * c * 4
+    t_ops, t_bytes = flops / PEAK_BF16_FLOPS * 1e3, nbytes / PEAK_BYTES * 1e3
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
 def check_pair(fn, ops, tol, label, repeats: int = 1) -> float:
     """max |fn - plain| on ``ops``; raises beyond ``tol + tol*|plain|``, and
     when one of ``repeats`` launches differs from the first in any bit."""
@@ -597,9 +637,21 @@ def time_kernel(form, launches_by_shape, device, dtype=None):
         if shape in TRAIN_SHAPES and dname == "bf16":  # the unit's backward in a train step (TF32 on, as there)
             g = torch.randn(shape, generator=torch.Generator().manual_seed(5)).to(device,
                                                                                  torch.bfloat16)
+            leaves = [t.detach().requires_grad_(True) for t in (xc, wc1, bb1, wc2, bb2)]
+            gc = g.permute(0, 3, 1, 2)
+
+            def library_grads():  # autograd through the library forward, to every operand
+                xl, k1, c1, k2, c2 = leaves
+                out = xl + F.conv2d(torch.relu(F.conv2d(xl, k1, c1, padding=1)), k2, c2,
+                                    padding=1)
+                return torch.autograd.grad(out, leaves, gc)
+
             before = tf32(True)
             row["backward_ms"] = graph_ms(lambda: pair_grads(*ops, g))
+            row["library_fwd_bwd_ms"] = graph_ms(library_grads)
             tf32(before)
+            row["backward_bound_ms"], row["backward_bound_by"] = pair_backward_bound(shape)
+            row["backward_share_of_bound"] = row["backward_bound_ms"] / row["backward_ms"]
         rows.append(row)
         plan = pair_launch_plan(form, shape, device, dtype)  # the library's own account, not measured
         tiling = (f"; {plan['tiles']} tiles of {plan['tile'][0]}x{plan['tile'][1]}, "
@@ -611,7 +663,11 @@ def time_kernel(form, launches_by_shape, device, dtype=None):
             f"{row['library_eager_ms']:.4f} ms"
             + (f"; cuDNN with TF32 on {row['library_tf32_ms']:.4f} ms" if "library_tf32_ms" in row
                else "")
-            + (f"; the unit's backward {row['backward_ms']:.4f} ms" if "backward_ms" in row else ""))
+            + (f"; the unit's backward {row['backward_ms']:.4f} ms ("
+               f"{100 * row['backward_share_of_bound']:.1f} % of its bound, "
+               f"{row['backward_bound_ms']:.4f} ms by {row['backward_bound_by']}), autograd "
+               f"through the library forward {row['library_fwd_bwd_ms']:.4f} ms"
+               if "backward_ms" in row else ""))
     return err, rows
 
 
@@ -1364,10 +1420,10 @@ def vrt_phase(device, card):
     del plain, ref32, res["fused"], res["take"]
 
     seconds = {}
-    for impl in ("fused", "take", "plain"):
+    for impl, reps in (("fused", 3), ("take", 1), ("plain", 1)):
         set_sampler_impl(model, impl)
         times = []
-        for _ in range(3):
+        for _ in range(reps):
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             forward(clip)
@@ -1377,8 +1433,8 @@ def vrt_phase(device, card):
     set_sampler_impl(model, "fused")
     fps = {impl: VRT_CLIP[1] / t for impl, t in seconds.items()}
     log(f"  frames/s on {card}: 16-frame 256x256 request, fused {fps['fused']:.3f}, take "
-        f"{fps['take']:.3f}, plain {fps['plain']:.3f} (median of 3, host clock, input "
-        "upload included)")
+        f"{fps['take']:.3f}, plain {fps['plain']:.3f} (fused the median of 3, the others "
+        "one request each, host clock, input upload included)")
     log(json.dumps({"vrt_fps": fps, "card": card}))
     log(json.dumps({"profile_vrt_fused": profile_request(
         lambda: forward(clip), seconds["fused"], ours=("bilinear_sample",))}))
@@ -1986,14 +2042,14 @@ def training_phase(device, card):
     timing = {}
     for impl in ("taps", "plain"):
         torch.cuda.reset_peak_memory_stats()
-        times = time_steps(model, lambda: step(state, batch), impl)
+        times = time_steps(model, lambda: step(state, batch), impl, n=5, warmup=2)
         med = statistics.median(times)
         timing[impl] = {"train_step_ms": med * 1e3, "train_fps": frames / med,
                         "steps_ms": [t * 1e3 for t in times],
                         "max_memory_allocated_gib": torch.cuda.max_memory_allocated() / 2**30}
     log(f"  train step on {card}: taps {timing['taps']['train_step_ms']:.2f} ms "
         f"({timing['taps']['train_fps']:.2f} frames/s), plain {timing['plain']['train_step_ms']:.2f} "
-        f"ms ({timing['plain']['train_fps']:.2f} frames/s) (median of 10 after 3, host clock "
+        f"ms ({timing['plain']['train_fps']:.2f} frames/s) (median of 5 after 2, host clock "
         f"with synchronize; peak memory {timing['taps']['max_memory_allocated_gib']:.2f} / "
         f"{timing['plain']['max_memory_allocated_gib']:.2f} GiB)")
     for impl, ours in (("taps", ("pair_taps",)), ("plain", ())):
@@ -2315,7 +2371,7 @@ def gan_phase(device, card):
     timing = {}
     for impl in ("taps", "plain"):
         torch.cuda.reset_peak_memory_stats()
-        times = time_steps(model, lambda: step(g, d, batch), impl)
+        times = time_steps(model, lambda: step(g, d, batch), impl, n=5, warmup=2)
         med = statistics.median(times)
         timing[impl] = {"gan_step_ms": med * 1e3, "gan_fps": frames / med,
                         "steps_ms": [x * 1e3 for x in times],
@@ -2330,7 +2386,7 @@ def gan_phase(device, card):
     prof = timing["taps"]["profile"]
     log(f"  GAN step on {card}: taps {timing['taps']['gan_step_ms']:.2f} ms "
         f"({timing['taps']['gan_fps']:.2f} frames/s), plain {timing['plain']['gan_step_ms']:.2f} "
-        f"ms ({timing['plain']['gan_fps']:.2f} frames/s) (median of 10 after 3, host clock with "
+        f"ms ({timing['plain']['gan_fps']:.2f} frames/s) (median of 5 after 2, host clock with "
         f"synchronize; peak memory {timing['taps']['max_memory_allocated_gib']:.2f} / "
         f"{timing['plain']['max_memory_allocated_gib']:.2f} GiB)")
     if "own_kernels_ms" in prof:
@@ -3247,7 +3303,7 @@ def serving_phase(device, card):
 # (remat on), Adam 1e-4 (0.9, 0.99), the cosine schedule, clip 1.0, 4 microbatches
 VRT_TRAIN_OVERRIDES = ("+experiment=vrt", "train.precision=bf16")
 VRT_TRAIN_CLIP = (8, 6, 64, 64)  # the experiment's global batch of 8 clips of 6 frames, LR 64x64
-VRT_TRAIN_STEPS, VRT_TRAIN_WARMUP = 3, 1
+VRT_TRAIN_STEPS, VRT_TRAIN_WARMUP = 1, 0  # timed after the two main-path steps, which warm it
 DP_RANKS = 2
 DP_STEPS = 2
 DP_TOL = (1e-5, 1e-4)  # the all-reduced gradient against one process's: atol + rtol*|b|
@@ -3845,8 +3901,8 @@ def dp_phase(device, card, ranks: int = DP_RANKS, per_card: bool = False) -> dic
     state = create_train_state(model, build_tx(model.parameters(), ("adam", {"lr": 1e-4}), None,
                                                1.0))
     step = make_supervised_train_step(model)
-    single_ms = statistics.median(time_steps(model, lambda: step(state, batch), "taps", n=5,
-                                             warmup=3)) * 1e3
+    single_ms = statistics.median(time_steps(model, lambda: step(state, batch), "taps", n=3,
+                                             warmup=1)) * 1e3
     del state, step, model
     torch.cuda.empty_cache()
 
@@ -4889,7 +4945,7 @@ def sp_cards(cards: int, card: str) -> None:
 
 # phase 13: sequence-parallel training of the paper VRT over the time axis
 VRT_SP_AXES = {"data": 1, "time": 2}  # +experiment=vrt's 6 frames, 3 a rank
-VRT_SP_STEPS, VRT_SP_WARMUP = 3, 1
+VRT_SP_STEPS, VRT_SP_WARMUP = 1, 0  # timed after the gated fp32, bf16 and take steps
 VRT_SP_TIMEOUT = 600
 
 
@@ -5261,6 +5317,337 @@ def vrt_sp_cards(cards: int, card: str) -> None:
     vrt_sp_ranks(ref, axes, "cuda", True, card)
 
 
+# phase 14: reference vsrlab checkpoints through the port's importers and acceptance command
+IMPORT_FRAMES = 10
+IMPORT_HR_ODD = (722, 1283)  # an HR-only clip: the command crops it and derives its LR
+STREAM_WINDOW = 5  # --stream: two windows a clip, the state carried from one to the next
+ACCEPT_BAR, ACCEPT_SSIM = 0.001, 1e-4  # the command against the same model evaluated directly
+# port name -> the reference vsrlab's, applied in order (RealBasicVSR / BasicVSR / SpyNet)
+RBVSR_REFERENCE_NAMES = (
+    (r"\.head\.conv\.", ".conv.0."),
+    (r"\.res_blocks\.", ".res_block."),
+    (r"^basicvsr\.point_conv\.", "basicvsr.point_conv.0."),
+    (r"^basicvsr\.upsample\.(\d+)\.conv\.", r"basicvsr.upsample.\1.upconv."),
+    (r"^basicvsr\.conv_last\.", "basicvsr.conv_last.2."),
+    (r"^basicvsr\.conv_hr\.", "basicvsr.conv_last.0."),
+    (r"\.convs\.(\d)\.", lambda m: f".basic_module.{2 * int(m.group(1))}."),
+)
+# the paper VRT's (src/vsr/models/VRT/vrt.py: seven scale stages, trunk stage8)
+VRT_REFERENCE_NAMES = (
+    (r"^(stage\d)\.reshape_norm\.", r"\1.reshape.1."),
+    (r"^(stage\d)\.reshape_linear\.", r"\1.reshape.2."),
+    (r"\.block_(\d+)\.", r".blocks.\1."),
+    (r"\.conv_offset_(\d)\.", lambda m: f".conv_offset.{2 * int(m.group(1))}."),
+    (r"^trunk_norm_in\.", "stage8.0.1."),
+    (r"^trunk_linear_in\.", "stage8.0.2."),
+    (r"^trunk_rtmsa_(\d+)\.", lambda m: f"stage8.{int(m.group(1)) - 6}."),
+    (r"^conv_before_upsample\.", "conv_before_upsample.0."),
+    (r"^up_conv_(\d)\.", lambda m: f"upsample.{5 * int(m.group(1))}."),
+    (r"^up_conv_out\.", "upsample.10."),
+    (r"\.convs\.(\d)\.", lambda m: f".basic_module.{2 * int(m.group(1))}."),
+)
+# the reference's (1, 3, 3) Conv3d layers, stored (O, I, 1, 3, 3)
+VRT_CONV3D = ("conv_first.weight", "conv_before_upsample.0.weight", "upsample.0.weight",
+              "upsample.5.weight", "upsample.10.weight", "conv_last.weight")
+
+
+def reference_names(state: dict, rules) -> dict:
+    """``state`` with each name rewritten by ``rules`` (``(pattern,
+    replacement)`` pairs, in order); the tensors on the CPU."""
+    out = {}
+    for name, t in state.items():
+        for pattern, rep in rules:
+            name = re.sub(pattern, rep, name)
+        out[name] = t.detach().cpu().clone()
+    return out
+
+
+def spynet_buffers(prefix: str) -> dict:
+    """The reference SpyNet's ``mean`` / ``std`` buffers, which its
+    checkpoints carry and the port computes itself."""
+    import torch
+
+    from vsrlab_tpu_torch.models.spynet import IMAGENET_MEAN, IMAGENET_STD
+
+    return {f"{prefix}mean": torch.tensor(IMAGENET_MEAN).view(1, 3, 1, 1),
+            f"{prefix}std": torch.tensor(IMAGENET_STD).view(1, 3, 1, 1)}
+
+
+def reference_realbasicvsr(model) -> dict:
+    """A port RealBasicVSR's weights as the reference's ``model_state_dict``."""
+    sd = reference_names(model.state_dict(), RBVSR_REFERENCE_NAMES)
+    sd.update(spynet_buffers("basicvsr.spynet."))
+    return sd
+
+
+def reference_vrt(model) -> dict:
+    """A port VRT's weights as the reference's state dict: Conv3d kernels,
+    the deformable conv's OIHW weight, every attention's
+    ``relative_position_index``, SpyNet's ``mean`` / ``std``."""
+    sd = reference_names(model.state_dict(), VRT_REFERENCE_NAMES)
+    for name in VRT_CONV3D:
+        sd[name] = sd[name].unsqueeze(2)
+    for name in [k for k in sd if k.endswith(".pa_deform.weight")]:
+        sd[name] = sd[name].permute(3, 2, 0, 1).contiguous()  # HWIO -> OIHW
+    for name, m in model.named_modules():
+        if hasattr(m, "rpi"):  # WindowAttention's index, kept by the reference as a buffer
+            sd.update(reference_names({f"{name}.relative_position_index": m.rpi},
+                                      VRT_REFERENCE_NAMES))
+    sd.update(spynet_buffers("optical_flow."))
+    return sd
+
+
+def write_png_frames(folder: str, frames) -> None:
+    """``(T, H, W, 3)`` in [0, 1] as 8-bit PNGs (OpenCV)."""
+    import cv2
+    import numpy as np
+
+    os.makedirs(folder)
+    for i, f in enumerate(frames):
+        bgr = np.round(np.clip(f, 0, 1)[..., ::-1] * 255).astype(np.uint8)
+        if not cv2.imwrite(os.path.join(folder, f"{i:03d}.png"), bgr):
+            raise AssertionError(f"cannot write {folder}")
+
+
+def run_acceptance(label, argv, device) -> tuple:
+    """``acceptance.main(argv)`` in this process: ``(rc, its JSON line,
+    wall seconds)``; its output is logged."""
+    import io
+
+    import torch
+
+    from vsrlab_tpu_torch.evaluation import acceptance
+
+    out = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        rc = acceptance.main(list(argv) + ["--device", device.type])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    line = out.getvalue().strip().splitlines()[-1]
+    log(f"  acceptance {label}: rc {rc}, {line}")
+    return rc, json.loads(line), wall
+
+
+def gate_acceptance(label, rc, res) -> None:
+    """Exit 0, and PSNR and SSIM within the bars of the direct evaluation's."""
+    if (rc != 0 or res.get("pass") is not True or abs(res["delta_db"]) > ACCEPT_BAR
+            or abs(res["delta_ssim"]) > ACCEPT_SSIM):
+        raise AssertionError(f"{label}: rc {rc}, {res}")
+
+
+def direct_metrics(model, clips, window, device, stream=False) -> tuple:
+    """Mean PSNR and SSIM over ``clips`` (``(lr, hr)`` pairs) of ``model``
+    evaluated without the acceptance command (``evaluate_video``; with
+    ``stream`` a ``make_stream_forward`` chain of ``window``-frame
+    windows), and the frames/s of its requests (host clock, frames loaded,
+    metrics included)."""
+    import numpy as np
+    import torch
+
+    from vsrlab_tpu_torch.core.metrics import psnr, ssim
+    from vsrlab_tpu_torch.evaluation.harness import (
+        evaluate_video, make_forward, make_stream_forward)
+
+    forward = make_forward(model, device=device)
+    first, rest = make_stream_forward(model, device)
+    vals, frames = [], 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for lr, hr in clips:
+        if stream:
+            lr_d = torch.as_tensor(lr).to(device)
+            srs, state = [], None
+            for i in range(0, lr_d.shape[1], window):
+                sr, state = (first(lr_d[:, i:i + window]) if state is None
+                             else rest(lr_d[:, i:i + window], state))
+                srs.append(sr)
+            sr = torch.cat(srs, 1).float().clamp(0.0, 1.0)
+            hr_d = torch.as_tensor(hr).to(device)
+            vals.append((float(psnr(sr, hr_d)), float(ssim(sr, hr_d))))
+        else:
+            got = evaluate_video(forward, lr, hr, window, ("PSNR", "SSIM"))[1]
+            vals.append((got["PSNR"], got["SSIM"]))
+        frames += lr.shape[1]
+    torch.cuda.synchronize()
+    fps = frames / (time.perf_counter() - t0)
+    return float(np.mean([v[0] for v in vals])), float(np.mean([v[1] for v in vals])), fps
+
+
+def reference_checkpoint_phase(device, card) -> dict:
+    """Phase 14. Returns the residual pair's launches by shape (bf16 and
+    fp32) and the fused sampler's, over the phase's main path: the
+    imported models' requests and the acceptance runs."""
+    import collections
+    import shutil
+
+    import numpy as np
+    import torch
+
+    from vsrlab_tpu_torch.core.torch_import import (
+        load_reference_checkpoint, load_torch_realbasicvsr, load_torch_vrt)
+    from vsrlab_tpu_torch.data import SyntheticVSR
+    from vsrlab_tpu_torch.evaluation.harness import (
+        evaluate_video, get_video, make_forward)
+    from vsrlab_tpu_torch.evaluation.tiled import _tile_starts
+    from vsrlab_tpu_torch.models import VRT, RealBasicVSR
+    from vsrlab_tpu_torch.nn.blocks import refresh_pair_caches
+    from vsrlab_tpu_torch.ops import residual_pair as rp
+    from vsrlab_tpu_torch.ops.resize import resize_bicubic
+
+    t_start = time.perf_counter()
+    root = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "chip_smoke_import")
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    bf16 = collections.Counter()
+    fp32 = collections.Counter()
+    samplers = collections.Counter()
+    h, w = SERVE_LR
+
+    log("  (a) the headline RealBasicVSR from a reference-layout checkpoint")
+    model3 = build_model(torch.bfloat16)  # phase 3's seeded weights
+    ckpt = os.path.join(root, "realbasicvsr_x4.pth")
+    torch.save({"epoch": 0, "model_state_dict": reference_realbasicvsr(model3)}, ckpt)
+    model = RealBasicVSR(**HEADLINE, dtype=torch.bfloat16)
+    model.load_state_dict(load_torch_realbasicvsr(load_reference_checkpoint(ckpt)), strict=True)
+    refresh_pair_caches(model)
+    clip = torch.rand((1, 20, h, w, 3), generator=torch.Generator().manual_seed(1))[:, :10]
+    want = make_forward(model3, device=device)(clip)
+    rp.reset_launch_counts()
+    got = make_forward(model, device=device)(clip)
+    torch.cuda.synchronize()
+    counts = pair_counts()
+    gate_counts("imported RealBasicVSR, a 10-frame request", counts,
+                {"taps": window_launches(1, h, w)})
+    bf16 += counts["taps"]
+    if not torch.equal(got, want):
+        raise AssertionError("the imported RealBasicVSR differs from phase 3's model")
+    log(f"  {os.path.getsize(ckpt) / 1e6:.1f} MB checkpoint ({{'epoch', 'model_state_dict'}}), "
+        f"strict load; the request {tuple(got.shape)} bitwise equal to phase 3's model")
+    del model, got, want
+
+    stamps = [time.perf_counter()]
+    log(f"  (b) the acceptance command on a REDS4-layout folder: two {IMPORT_FRAMES}-frame "
+        f"clips, one paired ({4 * h}x{4 * w} HR with its LR), one HR-only at "
+        f"{IMPORT_HR_ODD[0]}x{IMPORT_HR_ODD[1]}")
+    data = os.path.join(root, "reds4")
+    lr_a, hr_a = SyntheticVSR(num_videos=1, seq=IMPORT_FRAMES, height=4 * h, width=4 * w,
+                              scale=4, seed=6)[0]
+    hr_b = SyntheticVSR(num_videos=1, seq=IMPORT_FRAMES, height=IMPORT_HR_ODD[0],
+                        width=IMPORT_HR_ODD[1], scale=4, seed=7)[0][1]
+    write_png_frames(os.path.join(data, "clip_000", "hr"), hr_a)
+    write_png_frames(os.path.join(data, "clip_000", "lr"), lr_a)
+    write_png_frames(os.path.join(data, "clip_001", "hr"), hr_b)
+    # the same clips as the command reads them, LR derived here for the HR-only one
+    hr_a, lr_a = (get_video(os.path.join(data, "clip_000", d)) for d in ("hr", "lr"))
+    hr_b = np.ascontiguousarray(get_video(os.path.join(data, "clip_001", "hr"))[:, :, :4 * h,
+                                                                               :4 * w])
+    lr_b = resize_bicubic(torch.from_numpy(hr_b[0]).to(device), (h, w))[None]
+    clips = [(lr_a, hr_a), (lr_b, hr_b)]
+    model32 = build_model(None)
+    base = ["--model", "realbasicvsr", "--checkpoint", ckpt, "--data", data, "--bar",
+            str(ACCEPT_BAR), "--mid-channels", str(HEADLINE["mid_channels"]), "--res-blocks",
+            str(HEADLINE["res_blocks"]), "--cleaning-blocks", str(HEADLINE["cleaning_blocks"])]
+    runs = (  # label, extra flags, the directly evaluated model, stream, window, launches
+        ("fp32", [], model32, False, IMPORT_FRAMES, fp32,
+         window_launches(1, h, w, 2)),
+        ("bf16", ["--bf16"], model3, False, IMPORT_FRAMES, bf16,
+         window_launches(1, h, w, 2)),
+        ("bf16 streamed", ["--bf16", "--stream"], model3, True, STREAM_WINDOW, bf16,
+         collections.Counter({(1, h, w, 64): 2 * 2 * 60 * STREAM_WINDOW,
+                              (STREAM_WINDOW, h, w, 64): 2 * 2 * 60})),
+    )
+    fps = {}
+    for label, flags, direct_model, stream, window, seen, want in runs:
+        before = tf32(False)
+        direct, direct_ssim, direct_fps = direct_metrics(direct_model, clips, window, device,
+                                                         stream)
+        tf32(before)
+        rp.reset_launch_counts()
+        rc, res, wall = run_acceptance(label, base + flags + [
+            "--window", str(window), "--published-psnr", str(direct), "--published-ssim",
+            str(direct_ssim)], device)
+        counts = pair_counts()
+        gate_counts(f"acceptance {label}", counts, {"taps": want})
+        seen += counts["taps"]
+        gate_acceptance(f"acceptance {label}", rc, res)
+        fps[label] = {"acceptance": 2 * IMPORT_FRAMES / wall, "make_forward": direct_fps,
+                      "psnr": res["psnr"], "delta_db": res["delta_db"]}
+        log(f"  {label}: PSNR {res['psnr']:.4f} dB against {direct:.4f} evaluated directly "
+            f"(delta {res['delta_db']:+.4f}, bar {ACCEPT_BAR}); {fps[label]['acceptance']:.2f} "
+            f"frames/s for the whole command (checkpoint, PNG decoding, LR derivation "
+            f"included) against {direct_fps:.2f} for make_forward's requests on {card}")
+    del model3, model32
+    torch.cuda.empty_cache()
+
+    stamps.append(time.perf_counter())
+    log("  (c) the paper VRT from a reference-layout checkpoint ({'params': ...})")
+    model4 = build_vrt(torch.bfloat16, img_size=VRT_CLIP[1:4])  # phase 4's seeded weights
+    vckpt = os.path.join(root, "vrt_x4.pth")
+    torch.save({"params": reference_vrt(model4)}, vckpt)
+    vrt = VRT(upscale=4, img_size=VRT_CLIP[1:4], dtype=torch.bfloat16)
+    vrt.load_state_dict(load_torch_vrt(load_reference_checkpoint(vckpt), n_scale_stages=7),
+                        strict=True)
+    vclip = torch.rand(VRT_CLIP, generator=torch.Generator().manual_seed(2))
+    want = make_forward(model4, device=device)(vclip)
+    reset_vrt_counts()
+    got = make_forward(vrt, device=device)(vclip)
+    torch.cuda.synchronize()
+    counts = {name: fn.launches_by_shape.copy() for name, fn in vrt_wrappers().items()}
+    gate_counts("imported VRT, the 16x256x256 request (fused)", counts,
+                {"bilinear_sample": expected_vrt_launches(VRT_CLIP, "bilinear_sample")})
+    samplers += counts["bilinear_sample"]
+    if not torch.equal(got, want):
+        raise AssertionError("the imported VRT differs from phase 4's model")
+    log(f"  {os.path.getsize(vckpt) / 1e6:.1f} MB checkpoint, n_scale_stages=7, strict load; "
+        f"the request {tuple(got.shape)} bitwise equal to phase 4's model")
+    del vrt, got, want, vclip
+    torch.cuda.empty_cache()
+
+    tile, t = SERVE_TILE, VRT_CLIP[1]
+    vdata = os.path.join(root, "vrt_data")
+    vlr, vhr = SyntheticVSR(num_videos=1, seq=t, height=4 * VRT_CLIP[2], width=4 * VRT_CLIP[3],
+                            scale=4, seed=8)[0]
+    write_png_frames(os.path.join(vdata, "clip_000", "hr"), vhr)
+    write_png_frames(os.path.join(vdata, "clip_000", "lr"), vlr)
+    vclips = [tuple(get_video(os.path.join(vdata, "clip_000", d)) for d in ("lr", "hr"))]
+    forward = make_forward(model4, tile=tile, device=device)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    direct = evaluate_video(forward, *vclips[0], t, ("PSNR", "SSIM"))[1]
+    torch.cuda.synchronize()
+    direct_fps = t / (time.perf_counter() - t0)
+    direct, direct_ssim = direct["PSNR"], direct["SSIM"]
+    reset_vrt_counts()
+    rc, res, wall = run_acceptance(
+        "vrt bf16 tiled",
+        ["--model", "vrt", "--checkpoint", vckpt, "--data", vdata, "--bar", str(ACCEPT_BAR),
+         "--bf16", "--tile", str(tile), "--window", str(t), "--align-chunks", "0",
+         "--published-psnr", str(direct), "--published-ssim", str(direct_ssim)], device)
+    counts = {name: fn.launches_by_shape.copy() for name, fn in vrt_wrappers().items()}
+    n_tiles = (len(_tile_starts(VRT_CLIP[2], tile, tile - 16))
+               * len(_tile_starts(VRT_CLIP[3], tile, tile - 16)))
+    per_tile = expected_vrt_launches((1, t, tile, tile, 3), "bilinear_sample")
+    gate_counts(f"acceptance vrt tiled ({n_tiles} tiles)", counts, {
+        "bilinear_sample": collections.Counter({k: v * n_tiles for k, v in per_tile.items()})})
+    samplers += counts["bilinear_sample"]
+    gate_acceptance("acceptance vrt tiled", rc, res)
+    fps["vrt bf16 tiled"] = {"acceptance": t / wall, "make_forward": direct_fps,
+                             "psnr": res["psnr"], "delta_db": res["delta_db"]}
+    log(f"  vrt bf16 tiled: PSNR {res['psnr']:.4f} dB against {direct:.4f} evaluated directly "
+        f"(delta {res['delta_db']:+.4f}), {sum(per_tile.values())} fused launches a tile; "
+        f"{t / wall:.3f} frames/s for the whole command against {direct_fps:.3f} for "
+        f"make_forward's tiled request on {card}")
+    del model4, forward
+    torch.cuda.empty_cache()
+    stamps.append(time.perf_counter())
+    seconds = stamps[-1] - t_start
+    log(f"  phase 14 took {seconds:.1f} s: (a) {stamps[0] - t_start:.1f}, (b) "
+        f"{stamps[1] - stamps[0]:.1f}, (c) {stamps[2] - stamps[1]:.1f}")
+    log(json.dumps({"phase14": {"card": card, "seconds": seconds, "fps": fps}}))
+    return {"bf16": bf16, "fp32": fp32, "samplers": samplers}
+
+
 def split_rounding_main() -> int:
     """``--split-rounding``: where a split step's bf16 gradient error comes
     from, in one process on card 0 with no exchange: the paper VRT's bf16
@@ -5423,6 +5810,15 @@ def main() -> int:
     for name, by_shape in p13["bf16"].items():
         vrt_launches[name] += by_shape
     fp32_samplers += p13["fp32"]
+    torch.backends.cudnn.allow_tf32 = False
+    torch.cuda.empty_cache()
+
+    phase("phase 14: reference checkpoints (the headline RealBasicVSR and the paper VRT imported "
+          "from reference-layout checkpoints, the acceptance command)")
+    p14 = reference_checkpoint_phase(device, card)
+    pair_launches["taps"] += p14["bf16"]
+    fp32_pairs["taps"] += p14["fp32"]
+    vrt_launches["bilinear_sample"] += p14["samplers"]
     torch.backends.cudnn.allow_tf32 = False
     torch.cuda.empty_cache()
 

@@ -575,3 +575,81 @@ def test_windowed_inference_on_a_one_rank_time_axis(cuda):
     got, m = windowed_inference(forward, video, 2, parallel.create_mesh({"time": 1}))
     assert (n, m) == (3, 3) and residual_conv_pair.launches > before
     assert got.device.type == "cuda" and torch.equal(got, want)
+
+
+SPYNET_CHANNELS = ((8, 32), (32, 64), (64, 32), (32, 16), (16, 2))
+
+
+def _reference_realbasicvsr(mid=64, blocks=30, cleaning=20, seed=0):
+    """A ``model_state_dict`` in the reference vsrlab's RealBasicVSR layout,
+    every conv drawn from a seeded generator at torch's default scale, with
+    SpyNet's ``mean`` / ``std`` buffers."""
+    g = torch.Generator().manual_seed(seed)
+    sd = {}
+
+    def conv(key, cin, cout, k=3):
+        bound = 1.0 / (cin * k * k) ** 0.5
+        sd[f"{key}.weight"] = (torch.rand((cout, cin, k, k), generator=g) * 2 - 1) * bound
+        sd[f"{key}.bias"] = (torch.rand((cout,), generator=g) * 2 - 1) * bound
+
+    def resblock(prefix, cin, n):
+        conv(f"{prefix}.conv.0", cin, mid)
+        for i in range(n):
+            conv(f"{prefix}.res_block.{i}.conv1", mid, mid)
+            conv(f"{prefix}.res_block.{i}.conv2", mid, mid)
+
+    resblock("cleaner.resblock", 3, cleaning)
+    conv("cleaner.conv", mid, 3)
+    for d in ("backward", "forward"):
+        resblock(f"basicvsr.{d}_resblocks", mid + 3, blocks)
+    conv("basicvsr.point_conv.0", 2 * mid, mid, 1)
+    for i in range(2):
+        conv(f"basicvsr.upsample.{i}.upconv", mid, 4 * mid)
+    conv("basicvsr.conv_last.0", mid, 64)
+    conv("basicvsr.conv_last.2", 64, 3)
+    for i in range(6):
+        for j, (ci, co) in enumerate(SPYNET_CHANNELS):
+            conv(f"basicvsr.spynet.basic_module.{i}.basic_module.{2 * j}", ci, co, 7)
+    sd["basicvsr.spynet.mean"] = torch.tensor([0.485, 0.456, 0.406]).view(1, 3, 1, 1)
+    sd["basicvsr.spynet.std"] = torch.tensor([0.229, 0.224, 0.225]).view(1, 3, 1, 1)
+    return sd
+
+
+def test_imported_headline_realbasicvsr_serves_within_the_bf16_gate(cuda, tmp_path):
+    """The headline RealBasicVSR (mid 64, 30 + 20 blocks) from a reference
+    checkpoint serves through the taps kernel (60 launches a frame and 60
+    for the cleaner) within twice the plain route's bf16 deviation from
+    fp32, in max and in rms."""
+    from vsrlab_tpu_torch.core.torch_import import (
+        load_reference_checkpoint, load_torch_realbasicvsr)
+    from vsrlab_tpu_torch.evaluation.harness import make_forward
+    from vsrlab_tpu_torch.models import RealBasicVSR
+    from vsrlab_tpu_torch.nn.blocks import set_pair_impl
+
+    path = tmp_path / "checkpoint.pth"
+    torch.save({"epoch": 0, "model_state_dict": _reference_realbasicvsr()}, path)
+    state = load_torch_realbasicvsr(load_reference_checkpoint(path))
+    model, model32 = RealBasicVSR(dtype=torch.bfloat16), RealBasicVSR()
+    model.load_state_dict(state, strict=True)
+    model32.load_state_dict(state, strict=True)
+    t = 4
+    clip = torch.rand((1, t, 32, 48, 3), generator=torch.Generator().manual_seed(1))
+    forward = make_forward(model, device=cuda)
+    before = residual_conv_pair.launches
+    got = forward(clip).float()
+    torch.cuda.synchronize()
+    assert residual_conv_pair.launches - before == 60 * t + 60
+    set_pair_impl(model, "plain")
+    plain = forward(clip).float()
+    set_pair_impl(model32, "plain")
+    ref = make_forward(model32, device=cuda)(clip).float()
+    assert got.shape == (1, t, 128, 192, 3) and bool(torch.isfinite(got).all())
+
+    def dev(a, b):
+        d = (a - b).abs()
+        return float(d.max()), float(d.pow(2).mean().sqrt())
+
+    b_max, b_rms = dev(plain, ref)
+    for other in (plain, ref):
+        d_max, d_rms = dev(got, other)
+        assert d_max <= 2 * b_max and d_rms <= 2 * b_rms, (d_max, d_rms, b_max, b_rms)

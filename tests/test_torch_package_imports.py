@@ -45,7 +45,10 @@ def test_sources_exist():
                    # the time / model axes and the host data core
                    "evaluation/harness.py", "models/vrt/window_attention.py",
                    "models/vrt/tmsa.py", "models/vrt/stage.py", "models/vrt/vrt.py",
-                   "data/native.py", "build.py"):
+                   "data/native.py", "build.py",
+                   # reference checkpoints and the last building blocks
+                   "core/torch_import.py", "evaluation/acceptance.py", "nn/__init__.py",
+                   "nn/dct.py", "nn/mlp.py"):
         assert ROOT / "vsrlab_tpu_torch" / module in SOURCES, module
 
 

@@ -104,21 +104,24 @@ def realbasicvsr_state_dict(p: Tree) -> dict:
 
 
 def module_state_dict(p: Tree, prefix: str = "") -> dict:
-    """A subtree of the VRT family, whose port modules keep flax's names:
-    ``X/Conv_0`` and a bare 4-D ``kernel`` are convs (HWIO -> OIHW), a 2-D
-    ``kernel`` is a ``Dense`` (transposed), ``scale`` a LayerNorm weight;
-    every other leaf keeps its name and layout."""
+    """A subtree whose port modules keep flax's names (the VRT family, the
+    blocks of ``nn/``): a 4-D ``kernel`` is a 2-D conv (HWIO -> OIHW), a
+    5-D one a 3-D conv (DHWIO -> OIDHW), a 2-D one a ``Dense``
+    (transposed), ``scale`` a LayerNorm weight; every other leaf keeps its
+    name and layout. A ``Conv_0`` that is its parent's only child (flax's
+    ``Conv2d`` wrapper) is that parent's conv; beside siblings it keeps
+    its name."""
     out = {}
     for name, sub in p.items():
-        if name == "Conv_0":
-            out.update(conv_state_dict(sub, prefix))
-        elif isinstance(sub, Mapping):
-            out.update(module_state_dict(sub, f"{prefix}{name}."))
+        if isinstance(sub, Mapping):
+            lone_conv = name == "Conv_0" and len(p) == 1
+            out.update(module_state_dict(sub, prefix if lone_conv else f"{prefix}{name}."))
         else:
             leaf = np.array(sub, np.float32)
             if name == "kernel":
                 name = "weight"
-                leaf = leaf.transpose(3, 2, 0, 1) if leaf.ndim == 4 else leaf.T
+                axes = {4: (3, 2, 0, 1), 5: (4, 3, 0, 1, 2)}.get(leaf.ndim)
+                leaf = leaf.transpose(axes) if axes else leaf.T
             elif name == "scale":
                 name = "weight"
             out[f"{prefix}{name}"] = torch.from_numpy(np.ascontiguousarray(leaf))

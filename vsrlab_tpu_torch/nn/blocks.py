@@ -1,9 +1,10 @@
 """Conv building blocks on channels-last tensors (port of ``vsrlab_tpu/nn/blocks.py``).
 
-Every block takes and returns ``(N, H, W, C)`` tensors; a conv views its
-input as a ``channels_last`` NCHW tensor for ``F.conv2d`` and views the
-result back, so no copy is made. Parameters are fp32 in torch's OIHW
-layout; ``dtype`` (for example ``torch.bfloat16``) is the compute type,
+Every block takes and returns ``(N, H, W, C)`` tensors, the 3-D ones
+(``ConvST``, ``ConvSTBlock``, ``PixelShufflePack3D``) ``(B, T, H, W, C)``;
+a conv views its input as a ``channels_last`` NCHW (NCDHW) tensor for
+``F.conv2d`` (``F.conv3d``) and views the result back, so no copy is made.
+Parameters are fp32 in torch's OIHW (OIDHW) layout; ``dtype`` (for example ``torch.bfloat16``) is the compute type,
 as the JAX package threads it through its modules.
 
 Initialisation is torch's ``nn.Conv2d`` / ``nn.Linear`` default
@@ -76,6 +77,35 @@ class Conv2d(nn.Module):
         return y.permute(0, 2, 3, 1)
 
 
+class Conv3d(nn.Module):
+    """3-D conv with torch-default init, on ``(B, T, H, W, C)``: the input is
+    viewed as a ``channels_last_3d`` NCDHW tensor for ``F.conv3d``, so no copy
+    is made. ``kernel_size``, ``stride`` and ``padding`` are ``(t, h, w)``
+    triples, the padding symmetric as flax's ``[(p, p)] * 3``."""
+
+    def __init__(self, in_channels: int, out_channels: int, kernel_size=(3, 3, 3),
+                 stride=(1, 1, 1), padding=(1, 1, 1), bias: bool = True, dtype=None):
+        super().__init__()
+        self.stride, self.padding, self.dtype = tuple(stride), tuple(padding), dtype
+        self.weight = nn.Parameter(torch.empty(out_channels, in_channels, *kernel_size))
+        self.bias = nn.Parameter(torch.empty(out_channels)) if bias else None
+        self.reset_parameters()
+
+    def reset_parameters(self, generator: torch.Generator | None = None) -> None:
+        bound = 1.0 / math.sqrt(self.weight[0].numel())
+        with torch.no_grad():
+            self.weight.uniform_(-bound, bound, generator=generator)
+            if self.bias is not None:
+                self.bias.uniform_(-bound, bound, generator=generator)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        dt = self.dtype or torch.promote_types(x.dtype, self.weight.dtype)
+        bias = None if self.bias is None else self.bias.to(dt)
+        y = F.conv3d(x.to(dt).permute(0, 4, 1, 2, 3), self.weight.to(dt), bias, self.stride,
+                     self.padding)
+        return y.permute(0, 2, 3, 4, 1)
+
+
 class Linear(nn.Module):
     """Dense layer over the last axis with torch-default init; ``weight`` is
     ``(out, in)`` in fp32, ``dtype`` the compute type."""
@@ -115,6 +145,18 @@ class LayerNorm(nn.Module):
         y = F.layer_norm(x.float(), x.shape[-1:], self.weight.float(), self.bias.float(),
                          self.eps)
         return y.to(dt)
+
+
+class ConvReLU(nn.Module):
+    """conv -> ReLU on ``(N, H, W, C)``; the conv is ``Conv2d_0`` (flax's name)."""
+
+    def __init__(self, in_channels: int, features: int, kernel_size: int = 3, stride: int = 1,
+                 padding: int = 1, dtype=None):
+        super().__init__()
+        self.Conv2d_0 = Conv2d(in_channels, features, kernel_size, stride, padding, dtype=dtype)
+
+    def forward(self, x):
+        return torch.relu(self.Conv2d_0(x))
 
 
 class ConvLeaky(nn.Module):
@@ -322,6 +364,43 @@ class ResidualBlock(nn.Module):
         return x
 
 
+class ConvST(nn.Module):
+    """Factorised spatio-temporal 3-D conv on ``(B, T, H, W, C)``: a bias-free
+    ``(1, kh, kw)`` conv over space (``Conv_0``), then a bias-free
+    ``(kt, 1, 1)`` conv over time (``Conv_1``), each with its axes' share of
+    ``strides`` and ``padding``."""
+
+    def __init__(self, in_channels: int, features: int, kernel_size=(3, 3, 3),
+                 strides=(1, 1, 1), padding=(1, 1, 1), dtype=None):
+        super().__init__()
+        (kt, kh, kw), (st, sh, sw), (pt, ph, pw) = kernel_size, strides, padding
+        self.Conv_0 = Conv3d(in_channels, features, (1, kh, kw), (1, sh, sw), (0, ph, pw),
+                             bias=False, dtype=dtype)
+        self.Conv_1 = Conv3d(features, features, (kt, 1, 1), (st, 1, 1), (pt, 0, 0),
+                             bias=False, dtype=dtype)
+
+    def forward(self, x):
+        return self.Conv_1(self.Conv_0(x))
+
+
+class ConvSTBlock(nn.Module):
+    """A 3x3x3 conv head with bias (``Conv_0``), then ``blocks`` x
+    :class:`ConvST` (``st_{i}``), on ``(B, T, H, W, C)``."""
+
+    def __init__(self, in_channels: int, features: int, blocks: int, dtype=None):
+        super().__init__()
+        self.blocks = blocks
+        self.Conv_0 = Conv3d(in_channels, features, dtype=dtype)
+        for i in range(blocks):
+            self.add_module(f"st_{i}", ConvST(features, features, dtype=dtype))
+
+    def forward(self, x):
+        x = self.Conv_0(x)
+        for i in range(self.blocks):
+            x = getattr(self, f"st_{i}")(x)
+        return x
+
+
 class PixelShufflePack(nn.Module):
     """conv to ``features * r^2`` channels, then depth-to-space x r."""
 
@@ -332,6 +411,22 @@ class PixelShufflePack(nn.Module):
 
     def forward(self, x):
         return pixel_shuffle(self.conv(x), self.r)
+
+
+class PixelShufflePack3D(nn.Module):
+    """:class:`ConvST` to ``features * r^2`` channels (``ConvST_0``), then
+    depth-to-space x r on each frame of ``(B, T, H, W, C)``."""
+
+    def __init__(self, in_channels: int, features: int, upscale_factor: int = 2, dtype=None):
+        super().__init__()
+        self.r = upscale_factor
+        self.ConvST_0 = ConvST(in_channels, features * upscale_factor**2, dtype=dtype)
+
+    def forward(self, x):
+        x = self.ConvST_0(x)
+        b, t, h, w, c = x.shape
+        return pixel_shuffle(x.reshape(b * t, h, w, c), self.r).reshape(b, t, h * self.r,
+                                                                        w * self.r, -1)
 
 
 class IterativeRefinement(nn.Module):
