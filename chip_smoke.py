@@ -14,11 +14,12 @@
                                                   # train.train under torchrun, phase
                                                   # 11 (a), (b) over the cards, the
                                                   # VRT train step data-parallel and
-                                                  # phase 12's and 13's split steps
+                                                  # phase 12's, 13's and 15's split
+                                                  # steps
     (``--dp-rank DIR``, ``--p11-rank DIR``, ``--vrt-dp-rank DIR``,
     ``--sp-rank DIR`` and ``--vrt-sp-rank DIR`` are one rank of phase 10
     (c), of phase 11 (a), (b), of ``--dp-cards``' VRT step, of phase 12 and
-    of phase 13; the script starts them)
+    of phases 13 and 15; the script starts them)
 
 Phases, in order; any failure exits non-zero:
 
@@ -110,8 +111,9 @@ Phases, in order; any failure exits non-zero:
    loss falling over 20 steps on the batch, SpyNet unmoved; the trained
    weights served (no grad) with ``taps`` within the same gate of fp32. Then
    the step's ms and train frames/s (median of 5 after 2, host clock with
-   synchronize), its peak memory and a torch.profiler breakdown by part, each
-   with ``taps`` and with ``plain`` (the library yardstick). Last,
+   synchronize), its peak memory and a torch.profiler breakdown by part
+   (tracing the card alone), with ``taps`` (the ``plain`` yardstick's step
+   is no longer timed: PERF.md holds its figures). Last,
    ``train.run`` on SyntheticVSR (8 clips of 6x256x256, batch 4, one epoch
    with eval) writes a checkpoint and a JSONL log under
    ``build/chip_smoke_train/``, and a second run restored from it with
@@ -151,9 +153,13 @@ Phases, in order; any failure exits non-zero:
    ``tiled_forward`` called directly; (d) the upscale loop with
    ``stream=True`` over three windows from memory (im2col), bitwise equal to
    a ``first`` / ``rest`` chain, with its frames/s; (e) ``export_model`` at
-   ``(1,10,180,320,3)`` and ``load_exported``: 660 taps launches a call
-   through the custom op, bitwise equal to ``make_forward``, export
-   seconds, MB and frames/s beside ``make_forward``'s; (f) ``speed_bench``
+   ``(1,4,180,320,3)`` and ``load_exported`` of the headline cut to
+   ``EXPORT_DEPTH`` (6 residual and 4 cleaning blocks, 64 channels) from a
+   run directory of its own (the export's trace and load grow with the
+   blocks and with the frames the recurrences unroll; PERF.md gives their
+   seconds): 60 taps launches a call through the custom op (48 and
+   12 by shape), bitwise equal to ``make_forward``, export seconds, MB and
+   frames/s beside ``make_forward``'s; (f) ``speed_bench``
    and ``param_count``; (g) a paper-configuration VRT run directory served
    by ``make_forward(tile=128)`` on ``(1,16,256,256,3)``: 126 fused-sampler
    launches a tile, finite, timed once. Beside them a torch.profiler
@@ -173,8 +179,9 @@ Phases, in order; any failure exits non-zero:
    step (60 at ``(24,64,64,64)``, 360 at ``(4,64,64,64)``), in an updating
    and in a frozen step; the frozen step leaves G bitwise unchanged and
    moves D and every ``u``; 20 steps with every loss finite. (b) The step's
-   ms and frames/s (median of 5 after 2) with ``taps`` and ``plain``, peak
-   memory, device ms and busy share (torch.profiler), and the device ms of
+   ms and frames/s (median of 5 after 2) with ``taps`` (``plain`` as in
+   phase 5), peak memory, device ms and busy share (torch.profiler
+   tracing the card alone), and the device ms of
    each part run alone: G's forward and backward, the VGG19 loss, D in the G
    half, the D half, the optimizers. (c) ``train.gan.run`` restored from
    phase 5's checkpoint (``finetune``) on SyntheticVSR at HR 256x256,
@@ -218,7 +225,11 @@ Phases, in order; any failure exits non-zero:
    and the pair at the cleaner's shape in fp32.
 10. VRT training and data parallelism (run after phase 9, before phase 6):
    (a) ``+experiment=vrt`` through the port's config: the paper VRT of
-   ``conf/train/model/vrt.yaml`` (30.68 M parameters, ``remat: true``),
+   ``conf/train/model/vrt.yaml`` (``remat: true``) with its 80 blocks cut
+   to ``VRT_TRAIN_DEPTHS`` (3 a Stage: two window-2 blocks, the second
+   shifted, and one window-6 block; 2 a trunk RTMSA, the second shifted;
+   widths, heads and offset groups kept; 30.68 M parameters at full
+   depth), as in phases 11 (b), 13 and 15,
    bf16, seeded weights with the offset heads drawn, a batch of 8 clips of
    6 frames at 64x64 -> 256x256 in 4 microbatches of 2, Adam 1e-4 (0.9,
    0.99), the cosine schedule, clip 1.0, through
@@ -230,9 +241,8 @@ Phases, in order; any failure exits non-zero:
    ``expected_vrt_launches``); the main path, one step with ``fused`` and
    one with ``take``, each exactly 4 microbatches' launches by shape; the
    losses finite, SpyNet bitwise unchanged. Then the step's ms and train
-   frames/s (one step, after the two main-path steps), one step's
-   device ms and busy share (torch.profiler tracing the card alone), one
-   microbatch's device ms by
+   frames/s (one step, after the two main-path steps; the whole step is
+   not profiled), one microbatch's device ms by
    part (attention, MLP, LayerNorm and SpyNet, forward with the recompute
    and backward; the sampler kernel; ``sample_grads``; the rest), and a
    microbatch's peak memory with and without remat. (b) At every shape (a)
@@ -273,12 +283,13 @@ Phases, in order; any failure exits non-zero:
    twice plain bf16's deviation of this process's windowed20 as one batch
    of 2, 660 pair launches on each rank by shape; a rank's ms beside one
    process's. (b) ``create_mesh({"model": 2})`` inside ``use_mesh``: the
-   paper VRT of ``conf/train/model/vrt.yaml`` with ``head_shard_axis=
+   paper VRT of ``conf/train/model/vrt.yaml`` at phase 10's depth with ``head_shard_axis=
    "model"`` (3 of its 6 heads a rank) on a ``(1,6,64,64,3)`` request in
    bf16 with the fused sampler and with the row gather: within twice plain
    bf16's deviation from the fp32 plain route, the samplers' launches by
    shape those of one unsharded request, and one fp32 backward's gradients
-   (remat, made whole by ``all_reduce_head_grads``) bitwise equal on the
+   (remat, made whole by ``parallel.all_reduce_sharded_grads``, the train
+   step's own reduction) bitwise equal on the
    two ranks and within ``1e-5 + 1e-4|b|`` of the unsharded ones; a rank's
    ms beside one
    process's. (c) ``libvsrio`` built with g++ on the card's host (a failed
@@ -310,7 +321,7 @@ Phases, in order; any failure exits non-zero:
    (``time = 2`` on two), against card 0's one-process step.
 13. Sequence-parallel VRT training over the ``time`` axis (run after phase
    12, before phase 6): this process's runs of the paper VRT
-   (``+experiment=vrt``, ``remat``) on one microbatch of 2 clips x 6
+   (``+experiment=vrt`` at phase 10's depth, ``remat``) on one microbatch of 2 clips x 6
    frames of 64x64 (one fp32 forward and backward with TF32 off, the plain
    route's bf16 gradients, the bf16 step's ms, device ms, busy share and
    peak memory, and the peak of one step without ``remat``), then two gloo
@@ -329,6 +340,27 @@ Phases, in order; any failure exits non-zero:
    bf16 step ms, device ms, busy share and peak memory with and without
    ``remat`` beside this process's. ``--dp-cards`` runs it with one NCCL
    rank a card, ``data = 2 x time = 2`` on four cards.
+15. VRT over ``time`` and ``model`` at once (run after phase 13, before
+   phase 14): phase 13's ranks on ``create_mesh({"time": 2, "model":
+   2})``, four gloo ranks sharing the card, the model built with
+   ``time_shard_axis="time"`` and ``head_shard_axis="model"``: 3 frames
+   of each clip and 3 of the 6 heads a rank; each model line fetches its
+   windows' frames on its own time line, then splits the heads (one
+   all-reduce an attention on the model line); the step
+   ``make_supervised_train_step(model, group=mesh.mesh_group)`` sums the
+   heads' gradients over the model line, then the updater averages over
+   the mesh. Gates, against phase 13's one-process runs: phase 13's (fp32
+   loss, fp32 and bf16 gradients, SpyNet's zero, parameters bitwise equal
+   after each step, each step's sampler launches by shape on each rank,
+   the row gather's in one ``take`` step) and each rank's heads; then one
+   bf16 request through ``windowed_inference`` of a ``(1,12,64,64,3)``
+   clip in windows of 6 over the same mesh (one window a time rank, its
+   heads split): one window's sampler launches by shape a rank, every
+   rank's result bitwise equal, within twice plain bf16's deviation from
+   this process's fp32 run of the clip and of its bf16 request. A rank's
+   bf16 step ms, device ms, busy share and peak memory beside phase 13's
+   rank and this process. ``--dp-cards`` runs it with one NCCL rank a card
+   on four cards.
 14. Reference checkpoints (run after phase 13, before phase 6), at the
    headline width under ``build/chip_smoke_import/``: (a) phase 3's seeded
    weights written as a reference vsrlab RealBasicVSR checkpoint
@@ -355,9 +387,10 @@ Phases, in order; any failure exits non-zero:
    one batch, as phase 4 runs it; the default 30 runs it one frame a chunk,
    15x the launches and ~4x the time), 126 fused launches a tile. The
    phase's wall seconds. The launches count into the ``kernels`` line.
-15. One JSON line ``{"kernels": [...]}``: per kernel its main-path launches
+16. One JSON line ``{"kernels": [...]}``: per kernel its main-path launches
    (inference, training, serving, GAN fine-tuning, the flow paths, VRT
-   training, the ranks of phases 11 to 13 and phase 14's imported models) and,
+   training, the ranks of phases 11 to 13 and 15 and phase 14's imported
+   models) and,
    summed over those launches (per-launch time at each shape times that
    shape's count), ``ms``, ``plain_ms``,
    ``library_ms`` and ``bound_ms``; ``max_abs_err`` is the largest bf16
@@ -409,6 +442,11 @@ HEADLINE = {"mid_channels": 64, "res_blocks": 30, "cleaning_blocks": 20, "cleani
 # its pair launches: the cleaner 3 x 20 at 24 frames, the recurrences 2 x 6 x 30
 TRAIN_CLIP = (4, 6, 64, 64)
 TRAIN_LAUNCHES = {(24, 64, 64, 64): 60, (4, 64, 64, 64): 360}
+# phase 7 (e) exports the headline at this depth (its width kept) on this many frames:
+# torch.export's trace and the artifact's load grow with the blocks and with the frames the
+# recurrences unroll (their seconds at each size: PERF.md)
+EXPORT_DEPTH = {"res_blocks": 6, "cleaning_blocks": 4}
+EXPORT_FRAMES = 4
 PEAK_BF16_FLOPS = 989e12  # H100 SXM dense bf16 (NVIDIA data sheet)
 PEAK_BYTES = 3.35e12  # H100 SXM HBM3
 KERNELS = {
@@ -444,6 +482,22 @@ VRT_GROUPS, VRT_CG, VRT_GP = 12, 10, 2
 
 def log(msg: str) -> None:
     print(msg, flush=True)
+
+
+class Laps:
+    """Host seconds between marks: ``laps(label)`` closes the part since the
+    previous mark; :meth:`log` prints them on one line."""
+
+    def __init__(self):
+        self.t, self.parts = time.perf_counter(), []
+
+    def __call__(self, label: str) -> None:
+        now = time.perf_counter()
+        self.parts.append((label, round(now - self.t, 1)))
+        self.t = now
+
+    def log(self, what: str) -> None:
+        log(f"  {what} took " + ", ".join(f"{k} {v:.1f}" for k, v in self.parts) + " s")
 
 
 def card_line() -> str:
@@ -1496,7 +1550,7 @@ def build_model(dtype, **kw):
     from vsrlab_tpu_torch.models import RealBasicVSR
     from vsrlab_tpu_torch.nn.blocks import init_weights
 
-    model = RealBasicVSR(**HEADLINE, **kw, dtype=dtype)
+    model = RealBasicVSR(**{**HEADLINE, **kw}, dtype=dtype)
     return init_weights(model, torch.Generator().manual_seed(0))
 
 
@@ -1985,12 +2039,14 @@ def training_phase(device, card):
     for shape in TRAIN_SHAPES:
         for form in KERNELS:
             log(f"  pair_launch_plan {form:6s} {shape}: {pair_launch_plan(form, shape, device)}")
+    laps = Laps()
     grad_checks = {form: {str(shape): check_pair_grad(form, shape, device)
                           for shape in TRAIN_SHAPES} for form in KERNELS}
-
+    laps("the pair's gradient")
     model = build_model(torch.bfloat16).to(device).train()
     batch = train_batch(device)
     gates = gate_step_grads(model, batch, device)
+    laps("the step's gradients")
     before = tf32(True)
     state = create_train_state(model, build_tx(model.parameters(), ("adam", {"lr": 1e-4}), None,
                                                1.0))
@@ -1998,6 +2054,7 @@ def training_phase(device, card):
     spynet0 = {n: p.detach().clone() for n, p in model.named_parameters() if ".spynet." in n}
 
     calls, launches = run_train_path(state, step, batch)
+    laps("the main path")
     for form, by_shape in calls.items():
         log(f"  train step ({form}) launches by input shape: "
             + ", ".join(f"{f} {dict(c)}" for f, c in by_shape.items()))
@@ -2016,6 +2073,7 @@ def training_phase(device, card):
         raise AssertionError(f"the loss did not fall: {losses}")
     if not all(torch.equal(p, spynet0[n]) for n, p in model.named_parameters() if n in spynet0):
         raise AssertionError("SpyNet's parameters moved under train_flow: false")
+    laps("20 steps")
 
     # the trained weights served through each pair and an fp32 run: the
     # kernel's cached weight order followed the 22 updates
@@ -2037,27 +2095,24 @@ def training_phase(device, card):
     log(f"  trained weights, no grad: taps vs fp32 at {ratio[0]:.2f}x / {ratio[1]:.2f}x (max / "
         "rms) of plain bf16's deviation")
     del sr, ref
+    laps("served")
 
+    # the plain route's step (the library yardstick) is timed no more: PERF.md holds its
+    # figures, and its timing and profile were a large share of the phase
     frames = TRAIN_CLIP[0] * TRAIN_CLIP[1]
-    timing = {}
-    for impl in ("taps", "plain"):
-        torch.cuda.reset_peak_memory_stats()
-        times = time_steps(model, lambda: step(state, batch), impl, n=5, warmup=2)
-        med = statistics.median(times)
-        timing[impl] = {"train_step_ms": med * 1e3, "train_fps": frames / med,
-                        "steps_ms": [t * 1e3 for t in times],
-                        "max_memory_allocated_gib": torch.cuda.max_memory_allocated() / 2**30}
+    torch.cuda.reset_peak_memory_stats()
+    times = time_steps(model, lambda: step(state, batch), "taps", n=5, warmup=2)
+    med = statistics.median(times)
+    timing = {"taps": {"train_step_ms": med * 1e3, "train_fps": frames / med,
+                       "steps_ms": [t * 1e3 for t in times],
+                       "max_memory_allocated_gib": torch.cuda.max_memory_allocated() / 2**30}}
     log(f"  train step on {card}: taps {timing['taps']['train_step_ms']:.2f} ms "
-        f"({timing['taps']['train_fps']:.2f} frames/s), plain {timing['plain']['train_step_ms']:.2f} "
-        f"ms ({timing['plain']['train_fps']:.2f} frames/s) (median of 5 after 2, host clock "
-        f"with synchronize; peak memory {timing['taps']['max_memory_allocated_gib']:.2f} / "
-        f"{timing['plain']['max_memory_allocated_gib']:.2f} GiB)")
-    for impl, ours in (("taps", ("pair_taps",)), ("plain", ())):
-        set_pair_impl(model, impl)
-        timing[impl]["profile"] = profile_request(
-            lambda: step(state, batch), timing[impl]["train_step_ms"] / 1e3, top=15, ours=ours,
-            groups=TRAIN_GROUPS)
-    set_pair_impl(model, "taps")
+        f"({timing['taps']['train_fps']:.2f} frames/s) (median of 5 after 2, host clock with "
+        f"synchronize; peak memory {timing['taps']['max_memory_allocated_gib']:.2f} GiB)")
+    timing["taps"]["profile"] = profile_request(
+        lambda: step(state, batch), med, top=15, ours=("pair_taps",), groups=TRAIN_GROUPS,
+        host=False)
+    laps("timings and profiles")
     prof = timing["taps"]["profile"]
     if "own_kernels_ms" in prof:
         log(f"  taps step: {prof['wall_ms']:.2f} ms on the host's clock, {prof['device_ms']:.2f} "
@@ -2070,6 +2125,8 @@ def training_phase(device, card):
     del state, step, model, batch
     torch.cuda.empty_cache()
     e2e_trainer(device, card)
+    laps("train.run")
+    laps.log("phase 5")
     return launches
 
 
@@ -2321,14 +2378,15 @@ def gan_phase(device, card):
 
     import torch
 
-    from vsrlab_tpu_torch.nn.blocks import set_pair_impl
     from vsrlab_tpu_torch.ops import residual_pair as rp
     from vsrlab_tpu_torch.train.gan import make_gan_train_step
 
     seen = {f: collections.Counter() for f in KERNELS}
+    laps = Laps()
     model, disc, perc = gan_modules(device, torch.bfloat16)
     batch = train_batch(device)
     gates = gate_gan_grads(model, disc, perc, batch, device)
+    laps("gates")
     before = tf32(True)
 
     g, d = gan_states(model, disc)
@@ -2363,32 +2421,31 @@ def gan_phase(device, card):
         losses.append({k: float(v) for k, v in m.items()})
     if not all(math.isfinite(v) for m in losses for v in m.values()):
         raise AssertionError(f"a GAN step's loss is not finite: {losses}")
+    laps("the main path and the steps")
     log(f"  {GAN_STEPS} GAN steps on one batch (taps): every loss finite; Loss "
         f"{losses[0]['Loss']:.5f} -> {losses[-1]['Loss']:.5f}, LossDiscriminator "
         f"{losses[0]['LossDiscriminator']:.5f} -> {losses[-1]['LossDiscriminator']:.5f}")
 
+    # the plain route's step is timed no more (phase 5's reason); the profiles trace the
+    # card alone
     frames = TRAIN_CLIP[0] * TRAIN_CLIP[1]
-    timing = {}
-    for impl in ("taps", "plain"):
-        torch.cuda.reset_peak_memory_stats()
-        times = time_steps(model, lambda: step(g, d, batch), impl, n=5, warmup=2)
-        med = statistics.median(times)
-        timing[impl] = {"gan_step_ms": med * 1e3, "gan_fps": frames / med,
-                        "steps_ms": [x * 1e3 for x in times],
-                        "max_memory_allocated_gib": torch.cuda.max_memory_allocated() / 2**30}
-        set_pair_impl(model, impl)
-        timing[impl]["profile"] = profile_request(
-            lambda: step(g, d, batch), med, top=15,
-            ours=("pair_taps",) if impl == "taps" else (), groups=TRAIN_GROUPS)
-    set_pair_impl(model, "taps")
-    parts = {name: profile_request(fn, 1.0)["device_ms"]
+    torch.cuda.reset_peak_memory_stats()
+    times = time_steps(model, lambda: step(g, d, batch), "taps", n=5, warmup=2)
+    med = statistics.median(times)
+    timing = {"taps": {"gan_step_ms": med * 1e3, "gan_fps": frames / med,
+                       "steps_ms": [x * 1e3 for x in times],
+                       "max_memory_allocated_gib": torch.cuda.max_memory_allocated() / 2**30}}
+    timing["taps"]["profile"] = profile_request(
+        lambda: step(g, d, batch), med, top=15, ours=("pair_taps",), groups=TRAIN_GROUPS,
+        host=False)
+    laps("timings and profiles")
+    parts = {name: profile_request(fn, 1.0, host=False)["device_ms"]
              for name, fn in gan_parts(model, disc, perc, g, d, batch).items()}
+    laps("the parts")
     prof = timing["taps"]["profile"]
     log(f"  GAN step on {card}: taps {timing['taps']['gan_step_ms']:.2f} ms "
-        f"({timing['taps']['gan_fps']:.2f} frames/s), plain {timing['plain']['gan_step_ms']:.2f} "
-        f"ms ({timing['plain']['gan_fps']:.2f} frames/s) (median of 5 after 2, host clock with "
-        f"synchronize; peak memory {timing['taps']['max_memory_allocated_gib']:.2f} / "
-        f"{timing['plain']['max_memory_allocated_gib']:.2f} GiB)")
+        f"({timing['taps']['gan_fps']:.2f} frames/s) (median of 5 after 2, host clock with "
+        f"synchronize; peak memory {timing['taps']['max_memory_allocated_gib']:.2f} GiB)")
     if "own_kernels_ms" in prof:
         log(f"  taps GAN step: {prof['device_ms']:.2f} ms on the device (busy "
             f"{100 * prof['device_busy_share']:.1f} %) in {prof['device_ops']} kernels and "
@@ -2405,8 +2462,11 @@ def gan_phase(device, card):
                             "cudnn_tf32": True}}))
     del g, d, step, frozen, model, disc, perc, batch
     torch.cuda.empty_cache()
+    laps("the degradation")
     for form, by_shape in gan_e2e(device, card).items():
         seen[form] += by_shape
+    laps("train.gan.run")
+    laps.log("phase 8")
     return seen
 
 
@@ -3028,14 +3088,19 @@ def gate_counts(label, got, want) -> None:
         raise AssertionError(f"{label}: launches {got} != {want}")
 
 
-def window_launches(batch: int, h: int, w: int, windows: int = 1) -> dict:
+def window_launches(batch: int, h: int, w: int, windows: int = 1, blocks=None,
+                    frames: int = 10) -> dict:
     """One RealBasicVSR forward's pair launches by shape for ``batch`` clips
-    of 10 frames of ``h x w``: the recurrences at ``batch``, the cleaner at
-    ``10 * batch`` frames."""
+    of ``frames`` frames of ``h x w``: the recurrences at ``batch`` (each
+    direction's residual blocks a frame), the cleaner at ``frames * batch``
+    frames (its blocks each step); ``blocks`` overrides ``HEADLINE``'s
+    depths."""
     import collections
 
-    return collections.Counter({(batch, h, w, 64): 600 * windows,
-                                (10 * batch, h, w, 64): 60 * windows})
+    depth = {**HEADLINE, **(blocks or {})}
+    return collections.Counter({
+        (batch, h, w, 64): 2 * frames * depth["res_blocks"] * windows,
+        (frames * batch, h, w, 64): depth["cleaning_blocks"] * depth["cleaning_steps"] * windows})
 
 
 def write_serving_runs(model, root):
@@ -3090,6 +3155,7 @@ def serving_phase(device, card):
 
     import torch
 
+    from vsrlab_tpu_torch import convert
     from vsrlab_tpu_torch.core.checkpoint import CheckpointManager
     from vsrlab_tpu_torch.data import SyntheticVSR
     from vsrlab_tpu_torch.evaluation import export, upscale
@@ -3114,6 +3180,7 @@ def serving_phase(device, card):
     h, w = SERVE_LR
     clip10 = torch.rand((1, 10, h, w, 3), generator=torch.Generator().manual_seed(4))
 
+    laps = Laps()
     log("  (a) load_test_model from run directories written by convert.write_run_dir")
     model, cfg = load_test_model(dirs["ema"], device=device)
     if not same_weights(model, ema):
@@ -3143,6 +3210,7 @@ def serving_phase(device, card):
     log(f"  use_ema=False: raw weights; stale sidecar: raw weights, with: {out.getvalue().strip()}")
     del raw_model, stale_model
 
+    laps("(a)")
     log(f"  (b) evaluate_video: a 20-frame {h}x{w} LR clip (bicubic_down of a seeded "
         f"{4 * h}x{4 * w} SyntheticVSR clip), two windows of 10 as one batch")
     hr = SyntheticVSR(num_videos=1, seq=20, height=4 * h, width=4 * w, scale=4, seed=5)[0][1][None]
@@ -3168,6 +3236,7 @@ def serving_phase(device, card):
     del sr, hr, lr
 
     tile = SERVE_TILE
+    laps("(b)")
     log(f"  (c) make_forward(tile={tile}, tile_overlap=16) on a 10-frame {h}x{w} clip")
     rp.reset_launch_counts()
     tiled = make_forward(model, tile=tile, tile_overlap=16, device=device)(clip10)
@@ -3182,6 +3251,7 @@ def serving_phase(device, card):
     log(f"  tiled: {tuple(tiled.shape)} bitwise equal to tiled_forward called directly")
     del tiled, direct
 
+    laps("(c)")
     log(f"  (d) the upscale loop with stream=True: three windows of 10 frames of {h}x{w} from "
         "memory, im2col pairs")
     frames = torch.rand((30, h, w, 3), generator=torch.Generator().manual_seed(6)).numpy()
@@ -3213,42 +3283,56 @@ def serving_phase(device, card):
                                        stream=stream), stream_s, top=8, ours=("pair_im2col",))
     set_pair_impl(model, "taps")
 
-    log(f"  (e) export_model at (1, 10, {h}, {w}, 3), then load_exported")
+    laps("(d)")
+    log(f"  (e) export_model at (1, {EXPORT_FRAMES}, {h}, {w}, 3) of the headline at "
+        f"{EXPORT_DEPTH} (the width kept), then load_exported")
+    clip = clip10[:, :EXPORT_FRAMES]
+    small = build_model(torch.bfloat16, **EXPORT_DEPTH)
+    dirs["export"] = os.path.join(root, "run_export")
+    convert.write_run_dir(dirs["export"], convert.realbasicvsr_params(small.state_dict()), {
+        "train": {"model": {"_target_": "RealBasicVSR", **HEADLINE, **EXPORT_DEPTH},
+                  "precision": "bf16"}})
+    small_eager = make_forward(load_test_model(dirs["export"], device=device)[0], device=device)
+    want = small_eager(clip)
     art = os.path.join(root, "headline.pt2")
     t0 = time.perf_counter()
-    nbytes = export.export_model(dirs["ema"], art, 10, h, w, device=device)
+    nbytes = export.export_model(dirs["export"], art, EXPORT_FRAMES, h, w, device=device)
     export_s = time.perf_counter() - t0
     t0 = time.perf_counter()
     exported = export.load_exported(art)
     load_s = time.perf_counter() - t0
     rp.reset_launch_counts()
-    got = exported(clip10)
+    got = exported(clip)
     counts = pair_counts()
-    gate_counts("exported forward", counts, {"taps": window_launches(1, h, w)})
+    gate_counts("exported forward", counts,
+                {"taps": window_launches(1, h, w, blocks=EXPORT_DEPTH, frames=EXPORT_FRAMES)})
     add_pairs(counts)
-    if not torch.equal(got, served):
+    if not torch.equal(got, want):
         raise AssertionError("the exported forward differs from make_forward's output")
-    eager = make_forward(model, device=device)
-    fps = {"exported": 10 / median_s(lambda: exported(clip10)),
-           "make_forward": 10 / median_s(lambda: eager(clip10))}
+    fps = {"exported": EXPORT_FRAMES / median_s(lambda: exported(clip)),
+           "make_forward": EXPORT_FRAMES / median_s(lambda: small_eager(clip))}
     log(f"  exported in {export_s:.1f} s, loaded in {load_s:.1f} s, {nbytes / 1e6:.1f} MB; "
         "bitwise equal to make_forward; frames/s on "
         f"{card}: exported {fps['exported']:.2f}, make_forward {fps['make_forward']:.2f} "
         "(median of 5, host clock, input upload included)")
     log(json.dumps({"export": {"seconds": export_s, "load_seconds": load_s, "bytes": nbytes,
-                               "fps": fps, "stream_fps": 30 / stream_s, "card": card}}))
+                               "depth": EXPORT_DEPTH, "frames": EXPORT_FRAMES, "fps": fps,
+                               "stream_fps": 30 / stream_s, "card": card}}))
+    eager = make_forward(model, device=device)
     profiles = {"stream_loop_30_frames": prof_stream,
-                "exported": profile_request(lambda: exported(clip10), 10 / fps["exported"], top=8),
-                "make_forward": profile_request(lambda: eager(clip10), 10 / fps["make_forward"],
-                                                top=8)}
+                "exported": profile_request(lambda: exported(clip), EXPORT_FRAMES / fps["exported"],
+                                            top=8),
+                "make_forward": profile_request(lambda: small_eager(clip),
+                                                EXPORT_FRAMES / fps["make_forward"], top=8)}
     for name, prof in profiles.items():
         if "wall_ms" in prof:
             log(f"  {name}: wall {prof['wall_ms']:.2f} ms, device {prof['device_ms']:.2f} ms "
                 f"(busy {100 * prof['device_busy_share']:.1f} %), the pair kernels "
                 f"{prof['own_kernels_ms']:.2f} ms, {prof['device_ops']} kernels and copies")
     log(json.dumps({"profile_serving": profiles, "card": card}))
-    del exported, got
+    del exported, got, want, small, small_eager, clip
 
+    laps("(e)")
     log("  (f) params bench of the headline model, and one request under utils.profiler.trace")
     stats = speed_bench(model, (1, 10, h, w, 3), n_iters=5, device=device)
     log(f"  {param_count(model)} parameters; speed_bench: {json.dumps(stats)} on {card}")
@@ -3269,6 +3353,7 @@ def serving_phase(device, card):
     del model, served
     torch.cuda.empty_cache()
 
+    laps("(f)")
     log("  (g) paper-configuration VRT served tiled from a run directory")
     vrt_dir = os.path.join(root, "vrt")
     CheckpointManager(vrt_dir).save(0, build_vrt(torch.bfloat16).state_dict(), config={
@@ -3294,6 +3379,8 @@ def serving_phase(device, card):
         f"tile, {VRT_CLIP[1] / vrt_s:.3f} frames/s once (first use included) on {card}")
     del vrt, vout
     torch.cuda.empty_cache()
+    laps("(g)")
+    laps.log("phase 7")
     return pair_seen, sampler_seen
 
 
@@ -3301,7 +3388,12 @@ def serving_phase(device, card):
 # data parallelism on one card
 # +experiment=vrt through the port's config: the paper VRT of conf/train/model/vrt.yaml
 # (remat on), Adam 1e-4 (0.9, 0.99), the cosine schedule, clip 1.0, 4 microbatches
-VRT_TRAIN_OVERRIDES = ("+experiment=vrt", "train.precision=bf16")
+# the paper's 8 x 7 Stage blocks and 4 x 6 trunk blocks (80) cut to 3 and 2 (33) on the
+# training and sharded paths, the widths, heads and offset groups kept: a Stage's
+# residual_group1 keeps its shifted window-2 block, an RTMSA its shifted one
+VRT_TRAIN_DEPTHS = (3,) * 7 + (2,) * 6
+VRT_TRAIN_OVERRIDES = ("+experiment=vrt", "train.precision=bf16",
+                       f"train.model.depths=[{','.join(map(str, VRT_TRAIN_DEPTHS))}]")
 VRT_TRAIN_CLIP = (8, 6, 64, 64)  # the experiment's global batch of 8 clips of 6 frames, LR 64x64
 VRT_TRAIN_STEPS, VRT_TRAIN_WARMUP = 1, 0  # timed after the two main-path steps, which warm it
 DP_RANKS = 2
@@ -3311,12 +3403,12 @@ DP_TIMEOUT = 600
 
 
 def check_paper_config(tcfg) -> None:
-    """Raise unless the experiment is the paper VRT at the batch this phase
-    reckons with."""
+    """Raise unless the experiment is the paper VRT (its blocks cut to
+    ``VRT_TRAIN_DEPTHS``) at the batch this phase reckons with."""
     got = (tuple(tcfg.model.depths), tuple(tcfg.model.embed_dims),
-           int(tcfg.model.deformable_groups), bool(tcfg.model.remat), int(tcfg.data.batch_size),
-           int(tcfg.num_grad_acc))
-    if got != ((8,) * 7 + (4,) * 6, (120,) * 7 + (180,) * 6, VRT_GROUPS, True,
+           tuple(tcfg.model.num_heads), int(tcfg.model.deformable_groups),
+           bool(tcfg.model.remat), int(tcfg.data.batch_size), int(tcfg.num_grad_acc))
+    if got != (VRT_TRAIN_DEPTHS, (120,) * 7 + (180,) * 6, (6,) * 13, VRT_GROUPS, True,
                VRT_TRAIN_CLIP[0], 4):
         raise AssertionError(f"+experiment=vrt is not the paper configuration: {got}")
 
@@ -3563,7 +3655,9 @@ def vrt_train_phase(device, card) -> dict:
         f"{tuple(batch['lr'].shape)} -> {tuple(batch['hr'].shape)} in {acc} microbatches, "
         f"{tcfg.optimizer.to_dict()}, {tcfg.scheduler.to_dict()}, clip {tcfg.gradient_clip_val}")
     tf32_before = tf32(True)
+    laps = Laps()
     gates = gate_vrt_grads(cfg, model, batch, device)
+    laps("gates")
 
     state = create_train_state(model, build_tx(model.parameters(), tcfg.optimizer,
                                                tcfg.scheduler, tcfg.gradient_clip_val))
@@ -3592,6 +3686,7 @@ def vrt_train_phase(device, card) -> dict:
         raise AssertionError("VRT's SpyNet moved: the flow net must stay frozen")
     log(f"  two steps (fused, take): losses {losses[0]:.6f}, {losses[1]:.6f}; SpyNet's "
         f"{len(spynet0)} tensors bitwise unchanged")
+    laps("the main path")
 
     frames = VRT_TRAIN_CLIP[0] * VRT_TRAIN_CLIP[1]
     torch.cuda.synchronize()
@@ -3604,13 +3699,9 @@ def vrt_train_phase(device, card) -> dict:
     log(f"  VRT train step on {card}: {timing['step_ms']:.2f} ms, {timing['train_fps']:.3f} train "
         f"frames/s (median of {VRT_TRAIN_STEPS} after {VRT_TRAIN_WARMUP}, host clock with "
         f"synchronize), peak memory {timing['peak_gib_remat']:.2f} GiB with remat")
-    prof = profile_request(lambda: step(state, batch), med, top=15, ours=("bilinear_sample",),
-                           host=False)
-    timing["profile"] = prof
-    if "device_busy_share" in prof:
-        log(f"  one step: device {prof['device_ms']:.2f} ms (busy "
-            f"{100 * prof['device_busy_share']:.1f} %) in {prof['device_ops']} kernels and "
-            f"copies; the sampler kernel {prof['own_kernels_ms']:.2f} ms")
+    laps("the timed step")
+    # the whole step is not profiled (its trace's kernels take longer to read than the
+    # step runs); one microbatch's breakdown by part stands in for it
     mb = {k: v[: v.shape[0] // acc] for k, v in batch.items()}
 
     def microbatch():
@@ -3618,6 +3709,7 @@ def vrt_train_phase(device, card) -> dict:
 
     parts = part_breakdown(model, microbatch, *vrt_parts(model))
     model.zero_grad(set_to_none=True)
+    laps("the breakdown")
     timing["parts_a_microbatch"] = parts
     log(f"  one microbatch's forward and backward: device {parts['device_ms']:.2f} ms in "
         f"{parts['kernels']} kernels, by part (forwards with their recompute): " + ", ".join(
@@ -3644,6 +3736,8 @@ def vrt_train_phase(device, card) -> dict:
     log(f"  one microbatch's forward and backward: peak memory "
         f"{timing['peak_gib_remat_microbatch']:.2f} GiB with remat, "
         f"{timing['peak_gib_no_remat_microbatch']} GiB without")
+    laps("peak memory")
+    laps.log("phase 10 (a)")
     log(json.dumps({"vrt_train": {**timing, "card": card, "gates": gates, "losses": losses,
                                   "parameters": n_params}}, default=str))
     tf32(tf32_before)
@@ -4053,12 +4147,15 @@ def dp_cards_main() -> int:
     sp_cards(ranks, card)
     t.append(time.perf_counter())
     log("  sequence-parallel VRT training over the cards (phase 13's split step)")
-    vrt_sp_cards(ranks, card)
+    ref = vrt_sp_cards(ranks, card)
+    t.append(time.perf_counter())
+    log("  VRT over time and model at once over the cards (phase 15)")
+    p15_cards(ranks, card, ref)
     t.append(time.perf_counter())
     log(f"  took {t[-1] - t[0]:.1f} s: the ranks' steps {t[1] - t[0]:.1f}, the trainer "
         f"{t[2] - t[1]:.1f}, the time and model axes {t[3] - t[2]:.1f}, the VRT step "
         f"{t[4] - t[3]:.1f}, the split step {t[5] - t[4]:.1f}, the split VRT step "
-        f"{t[6] - t[5]:.1f}")
+        f"{t[6] - t[5]:.1f}, phase 15 {t[7] - t[6]:.1f}")
     log(json.dumps({"ok": True, "device": {"platform": "gpu",
                                            "kind": torch.cuda.get_device_name(0),
                                            "count": ranks}}))
@@ -4114,9 +4211,10 @@ def tp_inputs():
     return torch.rand(TP_CLIP, generator=g), torch.rand((b, t, 4 * h, 4 * w, c), generator=g)
 
 
-def build_tp_vrt(dtype_name: str, head_shard_axis=None):
-    """The paper VRT of ``conf/train/model/vrt.yaml`` (6 heads, ``remat``)
-    with seeded weights, the offset heads drawn, in ``dtype_name``."""
+def build_tp_vrt(dtype_name: str, head_shard_axis=None, **kw):
+    """The paper VRT of ``conf/train/model/vrt.yaml`` (6 heads, ``remat``) at
+    the training paths' depth with seeded weights, the offset heads drawn,
+    in ``dtype_name``; ``kw`` joins the model's config."""
     import torch
 
     import vsrlab_tpu_torch.components  # noqa: F401  (fills the registry)
@@ -4125,7 +4223,7 @@ def build_tp_vrt(dtype_name: str, head_shard_axis=None):
     from vsrlab_tpu_torch.train import builders
 
     cfg = load_config(overrides=list(VRT_TRAIN_OVERRIDES))
-    spec = {**cfg.train.model.to_dict(), "head_shard_axis": head_shard_axis}
+    spec = {**cfg.train.model.to_dict(), "head_shard_axis": head_shard_axis, **kw}
     g = torch.Generator().manual_seed(0)
     return seed_offset_heads(init_weights(builders.build_model(spec, dtype_name), g), g)
 
@@ -4134,15 +4232,17 @@ def tp_grads(model, lr, hr, device) -> dict:
     """One fp32 forward and backward of ``model`` (fused sampler, remat) on
     ``lr``, loss the mean square error to ``hr``: the gradient by parameter
     name on ``device``, made whole and equal on the ranks of the active
-    mesh's head-sharding group by ``all_reduce_head_grads``."""
-    from vsrlab_tpu_torch.models.vrt.window_attention import all_reduce_head_grads
+    mesh's head-sharding group by ``parallel.all_reduce_sharded_grads``:
+    the reduction ``make_supervised_train_step`` runs after its
+    backward."""
+    from vsrlab_tpu_torch.parallel import all_reduce_sharded_grads
     from vsrlab_tpu_torch.nn.blocks import set_sampler_impl
 
     set_sampler_impl(model.to(device).train(), "fused")
     model.zero_grad(set_to_none=True)
     sr = model(lr.to(device))[0]
     (sr - hr.to(device)).square().mean().backward()
-    all_reduce_head_grads(model)
+    all_reduce_sharded_grads(model)
     grads = {n: p.grad.detach() for n, p in model.named_parameters() if p.grad is not None}
     model.zero_grad(set_to_none=True)
     return grads
@@ -4171,7 +4271,7 @@ def p11_rank_main(outdir: str) -> int:
     its launches, its result, its ms; (b) the paper VRT with
     ``head_shard_axis="model"`` inside ``use_mesh(create_mesh({"data": -1,
     "model": 2}))``: a bf16 request with each sampler kernel (launches,
-    outputs), one fp32 backward (its gradients, after ``all_reduce_head_grads``,
+    outputs), one fp32 backward (its gradients, after ``all_reduce_sharded_grads``,
     bitwise equal on the ranks of the model group, or the rank fails).
     Writes ``outdir/rank{RANK}.json`` and its tensors beside it."""
     import torch
@@ -4991,12 +5091,18 @@ def vrt_sp_rank_main(outdir: str) -> int:
     equal after it; one bf16 step with the row gather (its launches);
     then the bf16 step's ms (median of ``VRT_SP_STEPS`` after
     ``VRT_SP_WARMUP``), its device ms and busy share (torch.profiler), this
-    rank's peak memory with ``remat`` and, in one more step, without it.
-    Writes ``outdir/rank{RANK}.json``."""
+    rank's peak memory with ``remat`` and, in one more step, without it
+    (phase 13). With ``spec["heads"]`` (phase 15) the model also splits its
+    heads over that axis (``head_shard_axis``), and with ``spec["serve"]``
+    the rank then serves :func:`p15_serve_clip`
+    through ``windowed_inference`` over the mesh in bf16 (its sampler
+    launches, the gathered result). Writes ``outdir/rank{RANK}.json``."""
     import torch
 
     from vsrlab_tpu_torch import parallel
     from vsrlab_tpu_torch.core.config import load_config
+    from vsrlab_tpu_torch.evaluation.harness import make_forward, windowed_inference
+    from vsrlab_tpu_torch.models.vrt import WindowAttention
     from vsrlab_tpu_torch.nn.blocks import set_sampler_impl
     from vsrlab_tpu_torch.train import builders
     from vsrlab_tpu_torch.train.state import create_train_state
@@ -5023,7 +5129,8 @@ def vrt_sp_rank_main(outdir: str) -> int:
         return torch.cuda.max_memory_allocated() / 2**30
 
     mesh = parallel.create_mesh(spec["axes"])
-    group, rank = mesh.mesh_group, mesh.rank
+    group, rank, heads = mesh.mesh_group, mesh.rank, spec.get("heads")
+    laps = Laps()
     cfg = load_config(overrides=list(VRT_TRAIN_OVERRIDES))
     tcfg = cfg.train
     record = {"rank": rank, "backend": torch.distributed.get_backend(), "device": str(device),
@@ -5038,7 +5145,8 @@ def vrt_sp_rank_main(outdir: str) -> int:
         return out
 
     def new_step(dtype_name):
-        model = build_train_vrt(cfg, dtype_name, device, time_shard_axis="time")
+        model = build_train_vrt(cfg, dtype_name, device, time_shard_axis="time",
+                                head_shard_axis=heads)
         state = create_train_state(model, builders.build_tx(
             model.parameters(), tcfg.optimizer, tcfg.scheduler, tcfg.gradient_clip_val,
             group=group))
@@ -5048,6 +5156,10 @@ def vrt_sp_rank_main(outdir: str) -> int:
     for label in ("fp32", "bf16"):
         tf32(label == "bf16")
         model, state, step = new_step(label)
+        if heads and label == "fp32":
+            with parallel.use_mesh(mesh):
+                record["heads"] = sorted({m.head_shard()[1:] for m in model.modules()
+                                          if isinstance(m, WindowAttention)})
         if label == "bf16":  # the plain route's gradients, split alike: the bf16 gate's yardstick
             with parallel.use_mesh(mesh):
                 set_sampler_impl(model, "plain")
@@ -5068,6 +5180,7 @@ def vrt_sp_rank_main(outdir: str) -> int:
             _, m = step(state, batch)
             sync()
         record[label] = {"loss": float(m["Loss"]), "launches": listed(vrt_counts())}
+        laps(label)
         parallel.assert_replicated(model, group, f"the {label} step's parameters")
         if rank == 0:
             names = [n for n, _ in model.named_parameters()]
@@ -5083,6 +5196,7 @@ def vrt_sp_rank_main(outdir: str) -> int:
         _, m = step(state, batch)
         sync()
         record["take"] = {"loss": float(m["Loss"]), "launches": listed(vrt_counts())}
+        laps("take")
         set_sampler_impl(model, "fused")
         parallel.assert_replicated(model, group, "the take step's parameters")
         free()
@@ -5098,16 +5212,32 @@ def vrt_sp_rank_main(outdir: str) -> int:
         record["step_ms"] = statistics.median(times) * 1e3
         record["steps_ms"] = [t * 1e3 for t in times]
         record["peak_gib_remat"] = peak()
+        laps("timed")
         record["profile"] = profile_request(
             lambda: step(state, batch), record["step_ms"] / 1e3, top=8,
             ours=("bilinear_sample",), host=False) if cuda else {}
-        model.remat = False
-        free()
-        peak(reset=True)
-        step(state, batch)
-        sync()
-        record["peak_gib_no_remat"] = peak()
+        laps("profile")
+        if not heads:  # phase 13 (phase 15 skips it: phase 13's rank holds the figure)
+            model.remat = False
+            free()
+            peak(reset=True)
+            step(state, batch)
+            sync()
+            record["peak_gib_no_remat"] = peak()
     parallel.assert_replicated(model, group, "the timed steps' parameters")
+    if spec.get("serve"):
+        del state, step, model
+        free()
+        served = build_tp_vrt("bf16", heads, time_shard_axis="time")
+        forward = make_forward(served, device=device)
+        reset_vrt_counts()
+        sr, n = windowed_inference(forward, p15_serve_clip(), P15_SERVE_WINDOW, mesh)
+        sync()
+        record["serve"] = {"windows": n, "shape": list(sr.shape),
+                           "launches": listed(vrt_counts())}
+        torch.save(sr.float().cpu(), os.path.join(outdir, f"served{rank}.pt"))
+    laps("the rest")
+    record["laps"] = laps.parts
     with open(os.path.join(outdir, f"rank{rank}.json"), "w") as f:
         json.dump(record, f)
     if created:
@@ -5165,7 +5295,8 @@ def vrt_sp_reference(device) -> dict:
     return ref
 
 
-def vrt_sp_ranks(ref, axes: dict, device_spec: str, per_card: bool, card: str) -> dict:
+def vrt_sp_ranks(ref, axes: dict, device_spec: str, per_card: bool, card: str,
+                 serve=None, beside=None) -> dict:
     """Start ``axes``' ranks of :func:`vrt_sp_rank_main` and gate their
     records against ``ref``: each rank's fp32 loss within rtol 1e-5 of one
     process's (the rank's share of the mesh's mean), the fp32 gradients the
@@ -5173,17 +5304,26 @@ def vrt_sp_ranks(ref, axes: dict, device_spec: str, per_card: bool, card: str) -
     the bf16 ones within twice plain bf16's deviation from fp32 (phase 5's
     rule), SpyNet's zero, and each step's sampler launches by shape on
     each rank; the ranks checked their parameters bitwise equal after each
-    step. Returns the ranks' sampler launches by kernel and shape: the bf16
-    steps' (fused and take) and the fp32 step's."""
+    step. Where ``axes`` has a ``model`` axis (phase 15) the heads split
+    over it too (each rank's range gated), and ``serve`` (from
+    :func:`p15_serve_reference`) gates the ranks' served clip: its sampler
+    launches by shape, every rank's result bitwise equal (the model line's
+    all-reduce gives its ranks the same sums, the time line's gather the
+    same windows), within the bf16 gate of this process's request.
+    ``beside`` (phase 13's records) is printed beside the ranks' times.
+    Returns the ranks' sampler launches by kernel and shape (the bf16
+    steps' (fused and take) and the served clip's under ``bf16``, the fp32
+    step's under ``fp32``) and their records."""
     import collections
 
     import torch
 
     n = math.prod(axes.values())
-    outdir = rank_outdir("chip_smoke_vrt_sp")
+    heads = "model" if axes.get("model", 1) > 1 else None
+    outdir = rank_outdir("chip_smoke_vrt_tm" if heads else "chip_smoke_vrt_sp")
     with open(os.path.join(outdir, "spec.json"), "w") as f:
         json.dump({"device": device_spec, "axes": axes, "overrides": VRT_TRAIN_OVERRIDES,
-                   "clip": VRT_TRAIN_CLIP}, f)
+                   "clip": VRT_TRAIN_CLIP, "heads": heads, "serve": serve is not None}, f)
     t0 = time.perf_counter()
     records = run_ranks("--vrt-sp-rank", outdir, n, VRT_SP_TIMEOUT)
     seconds = time.perf_counter() - t0
@@ -5199,6 +5339,11 @@ def vrt_sp_ranks(ref, axes: dict, device_spec: str, per_card: bool, card: str) -
             raise AssertionError(f"rank {k}: {r['backend']} on {r['device']}, not {expect}")
         if r["block"] != [b, t, *clip[2:4], 3]:
             raise AssertionError(f"rank {k}: block {r['block']}")
+        if heads:
+            m, nh = coords["model"], 6 // axes["model"]
+            if [tuple(h) for h in r["heads"]] != [(m * nh, (m + 1) * nh)]:
+                raise AssertionError(f"rank {k}: heads {r['heads']}, not [{m * nh}, "
+                                     f"{(m + 1) * nh})")
         if not math.isclose(r["fp32"]["loss"], ref["loss32"], rel_tol=1e-5):
             raise AssertionError(f"rank {k}: fp32 loss {r['fp32']['loss']} against one "
                                  f"process's {ref['loss32']}")
@@ -5274,47 +5419,173 @@ def vrt_sp_ranks(ref, axes: dict, device_spec: str, per_card: bool, card: str) -
         return (f"device {num(p.get('device_ms'))} ms, busy "
                 f"{num(p.get('device_busy_share'), '{:.3f}')}")
 
-    log(f"  bf16 step on {card}: a rank "
-        + " / ".join(f"{r['step_ms']:.2f}" for r in records) + " ms ("
-        + " / ".join(prof(r["profile"]) for r in records) + "), peak "
-        + " / ".join(num(r["peak_gib_remat"]) for r in records) + " GiB with remat, "
-        + " / ".join(num(r["peak_gib_no_remat"]) for r in records)
-        + f" without; one process on the {clip[0]} clips: {ref['step_ms']:.2f} ms "
+    if serve is not None:
+        gate_served(records, serve, outdir, axes)
+        for r in records:
+            launches["bf16"]["bilinear_sample"] += unlisted(r["serve"]["launches"])[
+                "bilinear_sample"]
+
+    def ranks_line(recs):
+        return (" / ".join(f"{r['step_ms']:.2f}" for r in recs) + " ms ("
+                + " / ".join(prof(r["profile"]) for r in recs) + "), peak "
+                + " / ".join(num(r["peak_gib_remat"]) for r in recs) + " GiB with remat")
+
+    log(f"  bf16 step on {card}: a rank {ranks_line(records)}"
+        + ("" if heads else ", " + " / ".join(num(r["peak_gib_no_remat"]) for r in records)
+           + " without")
+        + (f"; phase 13's time = {VRT_SP_AXES['time']} rank {ranks_line(beside)}"
+           if beside else "")
+        + f"; one process on the {clip[0]} clips: {ref['step_ms']:.2f} ms "
         f"({prof(ref['profile'])}), peak {num(ref['peak_gib_remat'])} GiB with remat, "
         f"{num(ref['peak_gib_no_remat'])} without (median of {VRT_SP_STEPS} after "
         f"{VRT_SP_WARMUP}, host clock with synchronize); the ranks took {seconds:.1f} s")
-    log(json.dumps({"vrt_sp_train": {
+    log(json.dumps({"vrt_tm_train" if heads else "vrt_sp_train": {
         "card": card, "axes": axes, "per_card": per_card, "ranks": records,
         "one_process": {k: ref[k] for k in ("step_ms", "steps_ms", "peak_gib_remat",
                                             "peak_gib_no_remat", "profile", "loss32")},
         "fp32_grad_max_abs_diff": worst, "bf16_grad_ratio": ratio}}, default=str))
-    return launches
+    return {**launches, "records": records}
 
 
 def phase13(device, card) -> dict:
     """Phase 13: sequence-parallel training of the paper VRT over ``time =
     2`` on two gloo ranks sharing the card, against this process's step on
-    the same microbatch. Returns the ranks' sampler launches by shape."""
+    the same microbatch. Returns the ranks' sampler launches by shape and
+    records, and this process's runs (``ref``, which phase 15 reuses)."""
     t = [time.perf_counter()]
     ref = vrt_sp_reference(device)
     t.append(time.perf_counter())
     one_card = f"cuda:{device.index or 0}" if device.type == "cuda" else "cpu"
-    launches = vrt_sp_ranks(ref, VRT_SP_AXES, one_card, False, card)
+    out = vrt_sp_ranks(ref, VRT_SP_AXES, one_card, False, card)
     t.append(time.perf_counter())
     log(f"  phase 13 took {t[2] - t[0]:.1f} s: this process's runs {t[1] - t[0]:.1f}, the ranks "
         f"and their gates {t[2] - t[1]:.1f}")
-    return launches
+    return {**out, "ref": ref}
 
 
-def vrt_sp_cards(cards: int, card: str) -> None:
+# phase 15: the paper VRT split over time and model at once
+P15_AXES = {"data": 1, "time": 2, "model": 2}  # 3 of a clip's 6 frames and 3 of 6 heads a rank
+P15_SERVE_CLIP = (1, 12, 64, 64, 3)  # two windows of 6 frames, one a time rank
+P15_SERVE_WINDOW = 6
+
+
+def p15_serve_clip():
+    """Phase 15's served clip, from a seeded generator."""
+    import torch
+
+    return torch.rand(P15_SERVE_CLIP, generator=torch.Generator().manual_seed(15))
+
+
+def p15_serve_reference(device) -> dict:
+    """This process's side of phase 15's request: the same seeded paper VRT
+    (the training paths' depth, 6 heads) unsharded through
+    ``windowed_inference`` of :func:`p15_serve_clip` (its two windows as one
+    batch) in bf16 with the fused sampler and the plain one, and in fp32 on
+    the plain route (TF32 off)."""
+    import torch
+
+    from vsrlab_tpu_torch.evaluation.harness import make_forward, windowed_inference
+    from vsrlab_tpu_torch.nn.blocks import set_sampler_impl
+
+    clip = p15_serve_clip()
+    before = tf32(False)
+    model = build_tp_vrt("bf16")
+    forward = make_forward(model, device=device)
+    ref = {"bf16": windowed_inference(forward, clip, P15_SERVE_WINDOW)[0].float().cpu()}
+    set_sampler_impl(model, "plain")
+    ref["plain"] = windowed_inference(forward, clip, P15_SERVE_WINDOW)[0].float().cpu()
+    del model, forward
+    model32 = build_tp_vrt("fp32")
+    set_sampler_impl(model32, "plain")
+    ref["fp32"] = windowed_inference(make_forward(model32, device=device), clip,
+                                     P15_SERVE_WINDOW)[0].float().cpu()
+    tf32(before)
+    del model32
+    torch.cuda.empty_cache()
+    return ref
+
+
+def gate_served(records, serve, outdir, axes) -> None:
+    """Phase 15's request on the ranks: every rank served
+    :func:`p15_serve_clip`'s two windows (one a time rank) with one window's
+    fused-sampler launches by shape, and returns the whole clip bitwise
+    equal to every other rank's (its model line first) and within twice
+    plain bf16's deviation from fp32 of this process's fp32 run and of its
+    bf16 request."""
+    import torch
+
+    b, t, h, w, _ = P15_SERVE_CLIP
+    windows = t // P15_SERVE_WINDOW
+    want = {"bilinear_sample": expected_vrt_launches(
+        (b * windows // axes["time"], P15_SERVE_WINDOW, h, w, 3), "bilinear_sample",
+        groups=VRT_GROUPS, cg=VRT_CG, gp=VRT_GP), "packed_row_gather": {}}
+    outs = {r["rank"]: torch.load(os.path.join(outdir, f"served{r['rank']}.pt")) for r in records}
+    by_time = {}
+    for r in records:
+        k, sr = r["rank"], outs[r["rank"]]
+        if r["serve"]["windows"] != windows or r["serve"]["shape"] != [b, t, 4 * h, 4 * w, 3]:
+            raise AssertionError(f"rank {k}: served {r['serve']}")
+        if not bool(torch.isfinite(sr).all()):
+            raise AssertionError(f"rank {k}: the served clip is not finite")
+        gate_counts(f"rank {k} ({r['coords']}): its window of the served clip",
+                    unlisted(r["serve"]["launches"]), want)
+        first = by_time.setdefault(r["coords"]["time"], sr)
+        if not torch.equal(sr, first) or not torch.equal(sr, outs[0]):
+            raise AssertionError(f"rank {k}: the served clip differs from its model line's or "
+                                 "rank 0's")
+    base = dev(serve["plain"], serve["fp32"])
+    ratio = within_twice("the ranks' served clip vs this process's bf16 request", outs[0],
+                         serve["bf16"], base)
+    gate_samplers({"the ranks' served clip": outs[0]}, serve["plain"], serve["fp32"])
+    log(f"  windowed_inference of {P15_SERVE_CLIP} in windows of {P15_SERVE_WINDOW} over {axes}: "
+        f"one window a time rank, 3 of 6 heads a model rank; every rank's clip bitwise equal, "
+        f"{ratio[0]:.2f}x / {ratio[1]:.2f}x plain bf16's deviation from fp32 (max / rms) off "
+        "this process's bf16 request")
+
+
+def phase15(device, card, ref, beside) -> dict:
+    """Phase 15: the paper VRT split over ``time = 2`` and ``model = 2`` at
+    once on four gloo ranks sharing the card (3 frames of each clip and 3 of
+    the 6 heads a rank), trained on phase 13's microbatch against phase
+    13's one-process runs ``ref`` (phase 13's gates), then serving a clip
+    over the same mesh. ``beside``: phase 13's ranks' records. Returns the
+    ranks' sampler launches by shape."""
+    t = [time.perf_counter()]
+    serve = p15_serve_reference(device)
+    t.append(time.perf_counter())
+    one_card = f"cuda:{device.index or 0}" if device.type == "cuda" else "cpu"
+    out = vrt_sp_ranks(ref, P15_AXES, one_card, False, card, serve=serve, beside=beside)
+    t.append(time.perf_counter())
+    log(f"  phase 15 took {t[2] - t[0]:.1f} s: this process's request {t[1] - t[0]:.1f}, the "
+        f"ranks and their gates {t[2] - t[1]:.1f}")
+    return out
+
+
+def vrt_sp_cards(cards: int, card: str) -> dict:
     """``--dp-cards``: the split VRT step with one NCCL rank a card, ``data =
     2 x time = 2`` on four cards or more, ``time = 2`` on two or three,
-    under phase 13's gates against card 0's one-process step."""
+    under phase 13's gates against card 0's one-process step. Returns that
+    step's runs."""
     import torch
 
     axes = {"data": 2, "time": 2} if cards >= 4 else dict(VRT_SP_AXES)
     ref = vrt_sp_reference(torch.device("cuda", 0))
     vrt_sp_ranks(ref, axes, "cuda", True, card)
+    return ref
+
+
+def p15_cards(cards: int, card: str, ref=None) -> None:
+    """``--dp-cards``: phase 15 with one NCCL rank a card, ``time = 2 x model
+    = 2`` on four cards, under its gates against card 0's one-process runs
+    (``ref``: phase 13's, computed here where not given)."""
+    import torch
+
+    if cards < 4:
+        log(f"  phase 15 over the cards needs four, not {cards}: skipped")
+        return
+    device = torch.device("cuda", 0)
+    ref = ref or vrt_sp_reference(device)
+    vrt_sp_ranks(ref, P15_AXES, "cuda", True, card, serve=p15_serve_reference(device))
 
 
 # phase 14: reference vsrlab checkpoints through the port's importers and acceptance command
@@ -5810,6 +6081,17 @@ def main() -> int:
     for name, by_shape in p13["bf16"].items():
         vrt_launches[name] += by_shape
     fp32_samplers += p13["fp32"]
+    torch.backends.cudnn.allow_tf32 = False
+    torch.cuda.empty_cache()
+
+    phase("phase 15: the paper VRT over time and model at once (one microbatch of "
+          "+experiment=vrt, 3 frames of each clip and 3 of the 6 heads a rank, four gloo ranks "
+          "on the card, remat; a clip served over the same mesh)")
+    p15 = phase15(device, card, p13["ref"], p13["records"])
+    for name, by_shape in p15["bf16"].items():
+        vrt_launches[name] += by_shape
+    fp32_samplers += p15["fp32"]
+    del p13, p15
     torch.backends.cudnn.allow_tf32 = False
     torch.cuda.empty_cache()
 

@@ -12,7 +12,7 @@ parameters and run, inside ``parallel.use_mesh(create_mesh({"model": 2}))``:
   ``tests/test_torch_vrt.py`` holds the unsharded port against JAX), the
   same model outside ``use_mesh`` within 1e-6 of it (one rank's heads are
   all its heads there), and one backward's gradients, summed over the
-  ranks by ``all_reduce_head_grads``, within ``1e-5 + 1e-4|b|`` of the
+  ranks by ``parallel.all_reduce_sharded_grads``, within ``1e-5 + 1e-4|b|`` of the
   unsharded gradients;
 * one ``WindowAttention`` with 3 heads (2 on rank 0, 1 on rank 1), one
   without mutual attention and one with a single head (rank 1 holds
@@ -20,6 +20,14 @@ parameters and run, inside ``parallel.use_mesh(create_mesh({"model": 2}))``:
   ``1e-5 + 1e-4|b|`` of one process's.
 
 Both ranks end with the same output and gradients bit for bit.
+
+In the test process alone, ``WindowAttention.forward_rows`` (the rows of
+some frames of each window: the time axis's split attention) under a head
+shard: each rank's part emulated in turn under ``use_mesh`` of a rank of a
+``model`` axis, with the group's sum taken by the test; the parts' rows,
+input gradients and parameter gradients summed against the unsharded
+``forward_rows`` (3 heads over 2 ranks, 2 over 2 without mutual
+attention, 1 over 2).
 """
 
 import subprocess
@@ -31,6 +39,7 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from vsrlab_tpu_torch.models.vrt import TinyVRT  # noqa: E402
+from vsrlab_tpu_torch.models.vrt import window_attention  # noqa: E402
 from vsrlab_tpu_torch.models.vrt.window_attention import (  # noqa: E402
     WindowAttention,
     compute_mask_factored,
@@ -47,12 +56,23 @@ GRAD_TOL = (1e-5, 1e-4)  # |a - b| <= atol + rtol * |b|
 ATTN = [dict(dim=12, num_heads=3, mut_attn=True), dict(dim=12, num_heads=2, mut_attn=False),
         dict(dim=8, num_heads=1, mut_attn=True)]
 
+# forward_rows cases: the module, its declared window, the frames a window
+# holds (slots), the frames whose rows are computed, the mask's clip and shift
+ROWS = [dict(kw=dict(dim=12, num_heads=3, mut_attn=True), window=(2, 4, 4), positions=(1,),
+             clip=(2, 8, 4), shift=(1, 2, 2)),
+        dict(kw=dict(dim=12, num_heads=3, mut_attn=True), window=(2, 4, 4), positions=(0, 1),
+             clip=(2, 8, 4), shift=(1, 2, 2)),
+        dict(kw=dict(dim=12, num_heads=2, mut_attn=False), window=(4, 2, 2), positions=(1, 3),
+             clip=(4, 4, 2), shift=(2, 1, 1)),
+        dict(kw=dict(dim=8, num_heads=1, mut_attn=True), window=(2, 4, 4), positions=(0,),
+             clip=(2, 8, 4), shift=None)]
+
 WORKER = r"""
 import sys
 import torch
 from vsrlab_tpu_torch import parallel
 from vsrlab_tpu_torch.models.vrt import TinyVRT
-from vsrlab_tpu_torch.models.vrt.window_attention import WindowAttention, all_reduce_head_grads
+from vsrlab_tpu_torch.models.vrt.window_attention import WindowAttention
 
 root = sys.argv[1]
 assert parallel.initialize_distributed("cpu")
@@ -71,7 +91,7 @@ with torch.no_grad():
                                if isinstance(m, WindowAttention)})
 with parallel.use_mesh(mesh):
     (model(x)[0] * spec["w"]).sum().backward()
-    all_reduce_head_grads(model)
+    parallel.all_reduce_sharded_grads(model)
 out["vrt_grads"] = {n: p.grad for n, p in model.named_parameters() if p.grad is not None}
 for i, case in enumerate(spec["attn"]):
     attn = WindowAttention(**case["kw"], window_size=(2, 4, 4), head_shard_axis="model")
@@ -80,7 +100,7 @@ for i, case in enumerate(spec["attn"]):
     with parallel.use_mesh(mesh):
         y = attn(xi, case["mask"])
         (y * case["w"]).sum().backward()
-        all_reduce_head_grads(attn)
+        parallel.all_reduce_sharded_grads(attn)
         heads = attn.head_shard()[1:]
     out[f"attn{i}"] = {"y": y.detach(), "dx": xi.grad, "heads": heads,
                        "grads": {n: p.grad for n, p in attn.named_parameters()}}
@@ -217,3 +237,58 @@ def test_unsharded_outside_a_mesh_with_the_axis():
             with parallel.use_mesh(parallel.create_mesh(axes)):
                 assert sharded.head_shard() is None and torch.equal(sharded(x, mask), want)
     assert parallel.active_mesh() is None
+
+
+def _rows_case(i, case):
+    g = torch.Generator().manual_seed(20 + i)
+    attn = init_weights(WindowAttention(**case["kw"], window_size=case["window"],
+                                        head_shard_axis="model"), g)
+    n, slots = int(np.prod(case["window"])), case["window"][0]
+    x = torch.randn((4, n, case["kw"]["dim"]), generator=g)
+    rows = len(case["positions"]) * n // slots
+    w = torch.randn((4, rows, case["kw"]["dim"]), generator=g)
+    mask = tid = None
+    if case["shift"] is not None:  # two windows a clip, the batch two clips
+        mask = compute_mask_factored(*case["clip"], case["window"], case["shift"])
+        tid = torch.from_numpy(mask.type_ids).long().repeat(4 // len(mask.type_ids))
+    return attn, x, w, mask, tid
+
+
+def _rows_run(attn, x, w, case, mask, tid):
+    x = x.clone().requires_grad_(True)
+    y = attn.forward_rows(x, case["window"][0], case["positions"], mask, tid)
+    (y * w).sum().backward()
+    return y.detach(), x.grad
+
+
+@pytest.mark.parametrize("case", range(len(ROWS)),
+                         ids=[f"{c['kw']['num_heads']}heads-rows{c['positions']}"
+                              f"{'' if c['kw']['mut_attn'] else '-self'}" for c in ROWS])
+def test_forward_rows_sharded_matches_unsharded(monkeypatch, case):
+    """``forward_rows`` with the heads split over 2 ranks of a ``model`` axis
+    (``head_range``'s cut: 2 + 1 of 3 heads, 1 + 0 of 1): each rank's rows
+    are its heads' part of the projection (the bias on the first rank), so
+    the parts sum to the unsharded rows within atol 1e-5; the input's and
+    every parameter's gradients, summed over the ranks as the group's
+    all-reduce and ``all_reduce_sharded_grads`` sum them, within
+    ``1e-5 + 1e-4|b|`` of the unsharded ones. The group's sum is the
+    test's own (``_group_sum``), each rank run in turn."""
+    from vsrlab_tpu_torch import parallel
+
+    spec = ROWS[case]
+    attn, x, w, mask, tid = _rows_case(case, spec)
+    want, want_dx = _rows_run(attn, x, w, spec, mask, tid)
+    want_grads = {n: p.grad.clone() for n, p in attn.named_parameters()}
+    attn.zero_grad(set_to_none=True)
+    monkeypatch.setattr(window_attention, "_group_sum", lambda t, group: t.clone())
+    nh, parts = spec["kw"]["num_heads"], 2
+    rows, dx = 0, 0
+    for k in range(parts):
+        with parallel.use_mesh(parallel.Mesh(("model",), (parts,), k, {"model": "line"})):
+            assert attn.head_shard() == ("line", *head_range(nh, parts, k))
+            y, g = _rows_run(attn, x, w, spec, mask, tid)
+        rows, dx = rows + y, dx + g
+    np.testing.assert_allclose(rows.numpy(), want.numpy(), atol=ATOL, rtol=0)
+    _close(dx, want_dx, "input gradient")
+    for n, p in attn.named_parameters():
+        _close(p.grad, want_grads[n], n)

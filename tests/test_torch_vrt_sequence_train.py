@@ -39,9 +39,8 @@ A step against the JAX package's is not taken here: its compile alone
 takes longer than this file may (``test_torch_vrt_train.py`` holds the
 port's one-process step against it). In the ranks and in the test process:
 ranks that hold different numbers of frames, generators that differ
-under stochastic depth, heads split on the same mesh and tiled serving
-raise; outside a mesh, or with a ``time`` axis of one rank, the model is
-the unsplit one bit for bit.
+under stochastic depth and tiled serving raise; outside a mesh, or with a
+``time`` axis of one rank, the model is the unsplit one bit for bit.
 """
 
 import json
@@ -465,19 +464,18 @@ def test_window_plans():
 
 
 def test_unsupported_combinations_raise(setup):
-    """Heads split over the same mesh and tiled serving raise before any
-    message: neither gives one process's numbers yet."""
+    """Tiled serving of frames split over ``time`` raises before any
+    message: its tiles would each need the other ranks' tiles at once.
+    (Heads split over ``model`` on the same mesh run:
+    ``test_torch_vrt_time_model.py``.)"""
     _, params, lr, _ = setup
 
-    class Links:  # never reached: the checks come first
+    class Links:  # never reached: the check comes first
         def __getattr__(self, name):
             raise AssertionError(f"links.{name} used")
 
     mesh = parallel.Mesh(("time", "model"), (2, 2), 0, {}, {"time": Links()})
-    model = _port(params, "w4", time_shard_axis="time", head_shard_axis="model")
     with parallel.use_mesh(mesh), torch.no_grad():
-        with pytest.raises(ValueError, match="do not combine with heads split over 'model'"):
-            model(torch.from_numpy(lr))
         forward = harness.make_forward(_port(params, "w4", time_shard_axis="time"), tile=8,
                                        tile_overlap=2, device="cpu")
         with pytest.raises(ValueError, match="tiled serving"):

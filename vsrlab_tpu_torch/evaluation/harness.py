@@ -25,8 +25,10 @@ Over a mesh with a ``time`` axis (``parallel.create_mesh({"time": n})``
 under torchrun, one card a rank), every rank of the axis is handed the
 same clip, runs its contiguous share of the windows on its own device and
 ends with the whole result: the shares are gathered by one broadcast from
-each rank in turn, which NCCL and gloo both carry. Only rank 0 dumps
-frames and writes the CSV of :func:`run_test_matrix`.
+each rank in turn, which NCCL and gloo both carry. With a ``model`` axis
+too (``{"time": n, "model": m}``) a head-sharded VRT serves each time
+rank's windows with its heads split over the rank's model line. Only
+rank 0 dumps frames and writes the CSV of :func:`run_test_matrix`.
 """
 
 from __future__ import annotations
@@ -45,7 +47,7 @@ from vsrlab_tpu_torch.core.metrics import MetricCollection, resolve_metric_names
 from vsrlab_tpu_torch.data.datasets import load_frame
 from vsrlab_tpu_torch.evaluation.tiled import tiled_forward
 from vsrlab_tpu_torch.nn.blocks import refresh_pair_caches
-from vsrlab_tpu_torch.parallel import Mesh, active_links, process_index
+from vsrlab_tpu_torch.parallel import Mesh, active_links, process_index, use_mesh
 
 
 def resolve_device(device: str | torch.device = "cuda") -> torch.device:
@@ -198,7 +200,11 @@ def windowed_inference(forward: Callable, video_lr, window_size: int,
     With a ``mesh`` that has a ``time`` axis of ``n`` ranks, the window
     batch is padded to a multiple of ``n`` by repeating the last window,
     rank ``k`` of the axis runs windows ``[k*per, (k+1)*per)`` and every
-    rank of the axis returns the whole result."""
+    rank of the axis returns the whole result. ``forward`` runs inside
+    ``use_mesh(mesh.whole_clips())``: each window is a whole clip (a model
+    built with ``time_shard_axis`` does not split its frames), and a model
+    built with ``head_shard_axis="model"`` splits its heads over the
+    rank's line of a ``model`` axis."""
     video = torch.as_tensor(video_lr, dtype=torch.float32)
     _, t, h, w, c = video.shape
     n_windows = -(-t // window_size)
@@ -213,7 +219,11 @@ def windowed_inference(forward: Callable, video_lr, window_size: int,
             windows = torch.cat([windows, windows[-1:].expand(bpad, -1, -1, -1, -1)])
         per, k = windows.shape[0] // nt, mesh.axis_index("time")
         windows = windows[k * per:(k + 1) * per]
-    sr = forward(windows)
+    if mesh is None:
+        sr = forward(windows)
+    else:  # each rank's windows whole; a head-sharded model splits its heads
+        with use_mesh(mesh.whole_clips()):
+            sr = forward(windows)
     if isinstance(sr, tuple):
         sr = sr[0]
     if nt > 1:

@@ -19,6 +19,21 @@ each rank fetches the frames of the windows that hold its own
 (:meth:`TimeLinks.window_frames`, the block's ``norm1`` output: cheaper
 than keys and values, which the rank's own linear layers then compute)
 and computes attention rows for its own frames only.
+
+Where ``head_shard_axis`` also splits the heads over a ``model`` axis of
+the same mesh, each model rank's time line fetches the window frames on
+its own line (the same frames cross each line once, at full channels) and
+:meth:`WindowAttention.forward_rows` then splits the heads: the rank's
+heads' q, k, v and rows, its part of the projection, one all-reduce over
+the model group. Every rank issues the two groups' collectives in one
+order: in the forward a block's window frames (the time line's two-rank
+groups) come before its attention's all-reduces (the model group); in the
+backward each attention's input gradient is summed over the model group
+before the frames' gradients return on the time line, since those
+gradients are made of them. The ranks of a model group run the same
+graph (the same time index, the same plans), so autograd's engine runs
+their nodes, and their all-reduces, in the same order, and each time
+line's messages travel in groups of their own, posted without blocking.
 """
 
 from __future__ import annotations
@@ -110,7 +125,9 @@ class TMSA(nn.Module):
         over ``links``: the windows that hold them, assembled from its own
         frames, the frames fetched from their owners and zeros for padding
         (:meth:`TimeLinks.window_frames`), attend with queries of its own
-        frames only; the rows go back to their frames."""
+        frames only; the rows go back to their frames. Under a head shard
+        ``forward_rows`` computes this rank's heads and sums the group's
+        parts (the module docstring gives the collectives' order)."""
         b, l, h, w, c = x.shape
         frames = l * links.size
         (wd, wh, ww), shift = get_window_size((frames, h, w), self.window_size, self.shift_size)

@@ -37,10 +37,24 @@ windows, fetching the frames of its windows from their owners
 the clip's ends only, so the outputs and, through the exchanges'
 backward, the gradients are one process's. Outside such a mesh, or where
 the axis has one rank, the forward is the unsplit one. It raises where
-the ranks hold different numbers of frames, where ``head_shard_axis``
-splits the heads on the same mesh, and where stochastic depth's
-generators differ over a time line (every rank of the line must drop the
-same paths of a clip).
+the ranks hold different numbers of frames, and where stochastic depth's
+generators differ over a time line or a model group (every rank of
+either must drop the same paths of a clip).
+
+Both axes at once (``create_mesh({"time": n, "model": m})``, a ``data``
+axis too if wanted): each model line shares one block of frames, and each
+time line splits a clip's frames. On the ``time`` line's groups go the
+LR halo, every Stage's halo features and the window frames of each TMSA
+block (fetched at full channels, once a line); on the ``model`` group
+each attention's all-reduce of its heads' parts (forward) and of its
+input's gradient (backward). The LR halo, the flows, the Stages' parallel
+warping, the convolutions and the reconstruction are not split over the
+heads: every model rank of a time line computes them alike. A block
+issues its time-line messages before its model all-reduce in the forward
+and after it in the backward (``tmsa.py``). The train step then sums the
+heads' gradients over the model group and averages the rest there
+(``parallel.all_reduce_sharded_grads``), and its updater averages over
+the whole mesh (``group=mesh.mesh_group``): one process's update.
 """
 
 from __future__ import annotations
@@ -215,18 +229,20 @@ class _VRTBase(nn.Module):
         """This rank's links where ``time_shard_axis`` splits the frames,
         after the checks that the split gives one process's numbers."""
         links = active_links(self.time_shard_axis)
-        if links is None:
-            return None
-        mesh = active_mesh()
-        if self.head_shard_axis is not None and mesh.shape.get(self.head_shard_axis, 1) > 1:
-            raise ValueError(f"frames split over {self.time_shard_axis!r} do not combine with "
-                             f"heads split over {self.head_shard_axis!r} yet")
-        links.wait()
-        links.check_frames(x.shape[1])
+        heads = None
+        if self.head_shard_axis is not None:
+            mesh = active_mesh()
+            if mesh is not None and mesh.shape.get(self.head_shard_axis, 1) > 1:
+                heads = mesh.axis_group(self.head_shard_axis)
+        if links is not None:
+            links.wait()
+            links.check_frames(x.shape[1])
         if not deterministic and generator is not None:
-            # every rank of the line must drop the same paths of a clip
-            assert_replicated([generator.get_state().to(x.device)], links.line_group,
-                              "stochastic-depth generators")
+            # every rank of a time line and of a model group must drop the
+            # same paths of a clip
+            state = [generator.get_state().to(x.device)]
+            for group in (None if links is None else links.line_group, heads):
+                assert_replicated(state, group, "stochastic-depth generators")
         return links
 
     def forward(self, x, deterministic: bool = True,

@@ -35,7 +35,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from vsrlab_tpu_torch.nn.blocks import Linear
-from vsrlab_tpu_torch.parallel import active_mesh, all_reduce_mean, all_reduce_sum
+from vsrlab_tpu_torch.parallel import active_mesh
 
 # fp32 logits of one chunk of windows: above this the windows are processed
 # in chunks. Unchunked, full VRT at 16x256x256 has (3072, 6, 384, 384) fp32
@@ -306,8 +306,9 @@ class WindowAttention(nn.Module):
     ``head_shard_axis`` names the mesh axis that splits the heads (tensor
     parallelism) inside ``parallel.use_mesh`` of a mesh with that axis;
     elsewhere it has no effect. A sharded backward leaves each rank the
-    gradient of its own heads' parameters: :func:`all_reduce_head_grads`
-    sums them into the whole gradient and makes the ranks' other gradients
+    gradient of its own heads' parameters:
+    ``parallel.all_reduce_sharded_grads`` (which the train step runs) sums
+    them into the whole gradient and makes the ranks' other gradients
     agree.
     """
 
@@ -438,12 +439,24 @@ class WindowAttention(nn.Module):
         for those rows. Mutual attention (``slots`` 2) reads the partner
         frame's query for the rows at a frame's positions, as
         :meth:`forward` does. Sequence-parallel attention: a rank computes
-        the rows of its own frames."""
+        the rows of its own frames. Under :meth:`head_shard` the rank
+        computes its heads only, as :meth:`forward` does: their q, k and v
+        rows and bias-table columns, their logits and rows, their part of
+        the projection, and one all-reduce over the group sums the parts
+        (the input's gradient is summed over it in the backward)."""
         b_, n, c = x.shape
-        nh, hd = self.num_heads, c // self.num_heads
+        hd = c // self.num_heads
+        shard = self.head_shard()
+        lo, hi = (0, self.num_heads) if shard is None else shard[1:]
+        nh = hi - lo
         s = n // slots
         dev = x.device
         x = x.to(self.qkv_self.dtype or torch.promote_types(x.dtype, self.qkv_self.weight.dtype))
+        if shard is not None:
+            x = _CopyToGroup.apply(x, shard[0])
+
+        def qkv(lin, t):
+            return lin(t) if shard is None else _qkv_heads(lin, t, lo, hi, hd)
 
         def span(ps):
             return torch.cat([torch.arange(p * s, (p + 1) * s, device=dev) for p in ps])
@@ -453,10 +466,11 @@ class WindowAttention(nn.Module):
 
         rows = span(positions)
         nq = rows.numel()
-        q, k, v = self.qkv_self(x).chunk(3, -1)
+        q, k, v = qkv(self.qkv_self, x).chunk(3, -1)
         q, k, v = heads(q[:, rows]), heads(k), heads(v)
         rpi = self.rpi[:n, :n][rows].reshape(-1)
-        bias = self.relative_position_bias_table[rpi].reshape(nq, n, nh).permute(2, 0, 1)[None]
+        table = self.relative_position_bias_table[:, lo:hi]
+        bias = table[rpi].reshape(nq, n, nh).permute(2, 0, 1)[None]
         masks = mut_masks = None
         if mask is not None:
             full = torch.from_numpy(mask.masks).to(dev)
@@ -464,11 +478,11 @@ class WindowAttention(nn.Module):
         if self.mut_attn:
             if slots != 2:
                 raise ValueError(f"mutual attention pairs 2 frames a window, not {slots}")
-            qm, km, vm = self.qkv_mut(x + self.pos2.to(x.dtype)).chunk(3, -1)
+            qm, km, vm = qkv(self.qkv_mut, x + self.pos2.to(x.dtype)).chunk(3, -1)
             qm = heads(qm[:, span([1 - p for p in positions])])
             km, vm = heads(km[:, rows]), heads(vm[:, rows])
 
-        chunk = max(1, LOGITS_BUDGET // (nh * nq * n * 4))
+        chunk = max(1, LOGITS_BUDGET // (max(nh, 1) * nq * n * 4))
         outs = []
         for at in range(0, b_, chunk):
             sl = slice(at, at + chunk)
@@ -480,28 +494,8 @@ class WindowAttention(nn.Module):
                        for i in range(len(positions))]
                 out = torch.cat([torch.cat(mut, 1), out], -1)
             outs.append(out)
-        return self.proj(outs[0] if len(outs) == 1 else torch.cat(outs, 0))
-
-
-def all_reduce_head_grads(model: nn.Module) -> None:
-    """Make every rank of each head-sharding group hold the same, unsharded
-    gradient (inside the ``use_mesh`` of the backward). The head-sharded
-    attention modules' parameters are summed over the group: each rank's
-    backward gave only its heads' part of them (a gradient it did not
-    reach is taken as zeros). Every other parameter's gradient is averaged
-    over the group: each rank computed the whole of it, but on the card
-    the ranks' sums differ by rounding (cuDNN's and the sampler's
-    backwards add in no fixed order), and replicas stepped on them would
-    drift apart."""
-    by_group, sharded = {}, set()
-    for m in model.modules():
-        if isinstance(m, WindowAttention) and (shard := m.head_shard()) is not None:
-            for p in m.parameters():
-                if p.grad is None:  # the projection's bias, on the ranks that skip it
-                    p.grad = torch.zeros_like(p)
-                by_group.setdefault(shard[0], []).append(p.grad)
-                sharded.add(p)
-    rest = [p.grad for p in model.parameters() if p not in sharded and p.grad is not None]
-    for group, grads in by_group.items():
-        all_reduce_sum(grads, group)
-        all_reduce_mean(rest, group)
+        out = outs[0] if len(outs) == 1 else torch.cat(outs, 0)
+        if shard is None:
+            return self.proj(out)
+        part = _proj_heads(self.proj, out, lo, hi, hd, 2 if self.mut_attn else 1, lo == 0)
+        return _ReduceFromGroup.apply(part, shard[0])

@@ -17,6 +17,7 @@ from vsrlab_tpu_torch.parallel.mesh import (
     active_links,
     active_mesh,
     all_reduce_mean,
+    all_reduce_sharded_grads,
     all_reduce_sum,
     assert_replicated,
     batch_sharding,
@@ -51,6 +52,7 @@ __all__ = [
     "active_links",
     "active_mesh",
     "all_reduce_mean",
+    "all_reduce_sharded_grads",
     "all_reduce_sum",
     "assert_replicated",
     "batch_sharding",

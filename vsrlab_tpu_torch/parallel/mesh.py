@@ -17,7 +17,20 @@ devices out with ``np.asarray(devices).reshape(sizes)``:
   recurrences' carries and the frames of attention windows that straddle
   them through :class:`~vsrlab_tpu_torch.parallel.sequence.TimeLinks`.
 * ``model``: the attention heads of a VRT-family model are split over the
-  ranks (``head_shard_axis="model"``) inside :func:`use_mesh`.
+  ranks (``head_shard_axis="model"``) inside :func:`use_mesh`: each
+  attention all-reduces its heads' parts of its output over the model
+  line's group, and its input's gradient in the backward;
+  :func:`all_reduce_sharded_grads` then makes the parameters' gradients
+  whole on the line.
+* ``time`` and ``model`` at once: each model line holds one block of
+  frames and each time line splits a clip. A TMSA block first fetches its
+  windows' frames on the rank's time line (two-rank groups) and then
+  all-reduces its heads' parts on the model line; the backward runs the
+  other way round (the input gradient's all-reduce, then the frames'
+  gradients home). The ranks of a model line run the same graph, so they
+  issue their all-reduces in one order; the time line's messages go in
+  groups of their own without blocking the sender. The halos, the flows
+  and the parallel warping run alike on every model rank of a time line.
 
 * :func:`initialize_distributed`: the ``env://`` rendezvous from torchrun's
   ``RANK``, ``WORLD_SIZE``, ``LOCAL_RANK``, ``MASTER_ADDR``, ``MASTER_PORT``;
@@ -43,14 +56,20 @@ devices out with ``np.asarray(devices).reshape(sizes)``:
   :func:`shard_batch`, :func:`shard_batch_sp` and
   :func:`initialize_distributed` default to this rank's card.
 * The trainers run the data axis only: :func:`data_parallel` puts every
-  rank on it. A sequence-parallel step is the port's
+  rank on it. A sequence-parallel or head-sharded step is the port's
   ``make_supervised_train_step`` with ``group=mesh.mesh_group`` inside
-  :func:`use_mesh`, as the JAX package's is its step under ``with mesh:``.
+  :func:`use_mesh`, as the JAX package's is its step under ``with mesh:``:
+  after the backward the head-sharded gradients are summed over each
+  model line and the rest averaged there (:func:`all_reduce_sharded_grads`),
+  then the updater averages everything over the whole mesh (the frames'
+  and the batch's split): one process's gradient. :func:`check_step_group`
+  raises on a group that cannot give it.
 """
 
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import os
 from dataclasses import dataclass, field
 from typing import Dict, Iterable, List, Optional, Sequence, Tuple, Union
@@ -133,14 +152,25 @@ class Mesh:
     process's global rank (rank 0 alone logs and writes); ``groups`` holds
     its process group on each axis (None for an axis of size 1); ``links``
     its :class:`TimeLinks` on the ``time`` axis where that axis has more
-    than one rank. The trainers read the ``data`` axis through ``size``,
-    ``data_index``, ``group`` and :meth:`barrier`."""
+    than one rank; ``split_frames`` False where the ``time`` axis splits a
+    batch of whole clips (:meth:`whole_clips`). The trainers read the
+    ``data`` axis through ``size``, ``data_index``, ``group`` and
+    :meth:`barrier`."""
 
     names: Tuple[str, ...]
     sizes: Tuple[int, ...]
     rank: int = 0
     groups: Dict[str, Optional[object]] = field(default_factory=dict, compare=False)
     links: Dict[str, TimeLinks] = field(default_factory=dict, compare=False)
+    split_frames: bool = field(default=True, compare=False)
+
+    def whole_clips(self) -> "Mesh":
+        """This mesh with its ``time`` axis splitting a batch of whole clips,
+        as serving splits a long clip's windows
+        (``evaluation.harness.windowed_inference``): under it no module
+        splits a clip's frames (:func:`active_links` gives None), and the
+        other axes split as before (``model``: the heads)."""
+        return dataclasses.replace(self, split_frames=False)
 
     @property
     def shape(self) -> Dict[str, int]:
@@ -279,10 +309,11 @@ def active_mesh() -> Optional[Mesh]:
 
 def active_links(axis: Optional[str]) -> Optional[TimeLinks]:
     """This rank's :class:`TimeLinks` on ``axis`` of the active mesh, or None
-    where nothing is split over it (no ``axis``, no active mesh, or one
-    without that axis or with it of size 1)."""
+    where nothing is split over it (no ``axis``, no active mesh, one
+    without that axis or with it of size 1, or one that splits whole
+    clips: :meth:`Mesh.whole_clips`)."""
     mesh = active_mesh()
-    if axis is None or mesh is None or mesh.shape.get(axis, 1) == 1:
+    if axis is None or mesh is None or mesh.shape.get(axis, 1) == 1 or not mesh.split_frames:
         return None
     if axis not in mesh.links:
         raise ValueError(f"mesh {mesh.shape} has no neighbour links on {axis!r} "
@@ -291,20 +322,64 @@ def active_links(axis: Optional[str]) -> Optional[TimeLinks]:
 
 
 def check_step_group(*groups) -> None:
-    """Raise unless each of ``groups`` holds every rank of the active mesh
-    where that mesh splits the frames over ``time``: a rank's gradients then
-    hold its part of every rank's loss, and only their mean over the whole
-    mesh is one process's gradient (the data line's is not)."""
+    """Raise unless averaging over each of ``groups`` gives one process's
+    numbers on the active mesh. Where the mesh splits the frames over
+    ``time``, each group must hold every rank of the mesh: a rank's
+    gradients then hold its part of every rank's loss, and only their mean
+    over the whole mesh is one process's gradient (the data line's is not).
+    Where it splits heads over ``model`` (and no frames), the ranks of a
+    model line hold the same batch: a group must hold the whole mesh or be
+    the data axis's group (None where that axis has one rank), so that it
+    averages over every rank that holds other clips."""
     mesh = active_mesh()
-    if mesh is None or mesh.shape.get("time", 1) == 1:
+    if mesh is None:
         return
     n = int(np.prod(mesh.sizes))
+    split = "time" if mesh.shape.get("time", 1) > 1 else "model" if mesh.shape.get(
+        "model", 1) > 1 else None
+    if split is None:
+        return
     for group in groups:
-        if group is None or dist.get_world_size(group) != n:
-            size = 1 if group is None else dist.get_world_size(group)
-            raise ValueError(f"the frames are split over 'time' of mesh {mesh.shape}: a step "
-                             f"averages over all {n} ranks (group=mesh.mesh_group), not over "
-                             f"a group of {size}")
+        size = 1 if group is None else dist.get_world_size(group)
+        if size == n or (split == "model" and group is mesh.group):
+            continue
+        what = "the frames" if split == "time" else "the heads"
+        raise ValueError(f"{what} are split over {split!r} of mesh {mesh.shape}: a step "
+                         f"averages over all {n} ranks (group=mesh.mesh_group), not over "
+                         f"a group of {size}")
+
+
+def all_reduce_sharded_grads(model: torch.nn.Module) -> None:
+    """Make the gradients of ``model`` whole and the same on every rank of
+    each group that splits a module's work, after a backward inside the
+    active mesh: a module with a ``head_shard()`` that gives ``(group,
+    start, stop)`` (VRT's ``WindowAttention`` under ``head_shard_axis``)
+    left each rank only its own heads' part of its parameters' gradients,
+    which are summed over the group (a gradient a rank did not reach is
+    taken as zeros); every other gradient is averaged over that group: each
+    rank computed the whole of it, but on the card the ranks' sums differ
+    by rounding (cuDNN's and the sampler's backwards add in no fixed
+    order), and replicas stepped on them would drift apart. A no-op where
+    nothing is sharded. ``make_supervised_train_step`` runs it after its
+    last microbatch's backward, before the updater's mean over its group."""
+    sharded, groups = set(), {}
+    for m in model.modules():
+        shard = m.head_shard() if callable(getattr(m, "head_shard", None)) else None
+        if shard is None:
+            continue
+        for p in m.parameters():
+            if p.grad is None:  # e.g. the projection's bias, on the ranks that skip it
+                p.grad = torch.zeros_like(p)
+            groups.setdefault(shard[0], []).append(p.grad)
+            sharded.add(p)
+    if not groups:
+        return
+    if len(groups) > 1:
+        raise ValueError(f"the model's modules are split over {len(groups)} groups, not one")
+    ((group, grads),) = groups.items()
+    all_reduce_sum(grads, group)
+    all_reduce_mean([p.grad for p in model.parameters()
+                     if p not in sharded and p.grad is not None], group)
 
 
 def data_parallel(ddp: bool, device: Union[str, torch.device]

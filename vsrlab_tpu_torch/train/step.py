@@ -18,7 +18,7 @@ from torch.func import functional_call
 from vsrlab_tpu_torch.core.losses import charbonnier_loss
 from vsrlab_tpu_torch.core.metrics import MetricCollection, resolve_metric_names
 from vsrlab_tpu_torch.ops.resize import resize_bilinear
-from vsrlab_tpu_torch.parallel import check_step_group, reduce_metrics
+from vsrlab_tpu_torch.parallel import all_reduce_sharded_grads, check_step_group, reduce_metrics
 from vsrlab_tpu_torch.train.state import TrainState
 
 Batch = Dict[str, torch.Tensor]
@@ -80,8 +80,12 @@ def make_supervised_train_step(model: torch.nn.Module, loss_fn: Callable = charb
     over the ranks (the state's updater averages the gradients). Inside
     ``parallel.use_mesh`` of a mesh whose ``time`` axis splits the frames
     (``shard_batch_sp``) both groups must hold the whole mesh
-    (``mesh.mesh_group``; ``parallel.check_step_group`` raises otherwise).
-    The state is updated in place and returned."""
+    (``mesh.mesh_group``); where its ``model`` axis splits a VRT's heads,
+    the whole mesh or the data axis's group (``parallel.check_step_group``
+    raises otherwise). After the last microbatch's backward,
+    ``parallel.all_reduce_sharded_grads`` makes the head-sharded gradients
+    whole on each model line, so that the update is one process's. The
+    state is updated in place and returned."""
     metrics = resolve_metric_names(metrics)
 
     def train_step(state: TrainState, batch: Batch):
@@ -101,6 +105,9 @@ def make_supervised_train_step(model: torch.nn.Module, loss_fn: Callable = charb
                 for k, v in default_metrics(aux["sr"], hr_i, metrics).items():
                     msums[k] += v
             del aux
+        # the head-sharded attention's parts summed over each model line, the
+        # rest averaged there: whole before the updater's mean over ``group``
+        all_reduce_sharded_grads(model)
         if n > 1:
             torch._foreach_div_(state.tx.grads(), float(n))
         norm = state.tx.step()
