@@ -1,0 +1,7 @@
+"""Percent of the traced steps' wall in which the device ran nothing."""
+
+from port_bench import readers
+
+
+def read(run):
+    return readers.idle_share(run, "train")

@@ -1,0 +1,7 @@
+"""Percent of the chips' bf16 peak: the reference's FLOPs of the window's requests over its seconds."""
+
+from port_bench import readers
+
+
+def read(run):
+    return readers.mfu(run, "serve")

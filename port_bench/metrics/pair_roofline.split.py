@@ -1,0 +1,9 @@
+"""The residual pair's share of its roofline on the ranks of a clip split over cards, percent."""
+
+from port_bench import readers
+
+HOOKS = ("ResidualConv",)  # the module classes whose calls the traced run hooks
+
+
+def read(run):
+    return readers.pair_roofline(run, "serve")
