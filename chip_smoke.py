@@ -3345,7 +3345,7 @@ def serving_phase(device, card):
     with open(trace_file) as fh:
         events = json.load(fh)["traceEvents"]
     n_kernels = sum(e.get("cat") == "kernel" for e in events)
-    n_spans = sum(e.get("name") == "request" for e in events)
+    n_spans = sum(e.get("name") == "vsr::request" for e in events)
     if not n_kernels or not n_spans:
         raise AssertionError(f"trace: {n_kernels} kernel events, {n_spans} 'request' spans")
     log(f"  trace: {os.path.getsize(trace_file) / 1e6:.1f} MB Chrome trace, {n_kernels} kernel "

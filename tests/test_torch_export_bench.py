@@ -177,15 +177,6 @@ def test_speed_bench_and_run(run, tmp_path):
 
 
 def test_timer_and_best_time():
-    timer = profiler.Timer()
-    for _ in range(3):
-        with timer("a"):
-            pass
-    with timer("b"):
-        sum(range(1000))
-    summary = timer.summary()
-    assert summary["a"]["count"] == 3 and summary["b"]["count"] == 1
-    assert summary["a"]["mean_s"] == pytest.approx(summary["a"]["total_s"] / 3)
     calls, seen = [], []
     best = profiler.best_time(lambda n: calls.append(n), n_iters=4, repeats=2, on_best=seen.append)
     assert calls == [1, 4, 4] and len(seen) == 3 and best >= 0
@@ -198,4 +189,4 @@ def test_trace_writes_a_chrome_trace(tmp_path):
     assert prof is not None
     files = list(tmp_path.glob("trace_*.json"))
     assert len(files) == 1
-    assert "vsr_span" in json.dumps(json.loads(files[0].read_text()))
+    assert "vsr::vsr_span" in json.dumps(json.loads(files[0].read_text()))

@@ -29,6 +29,13 @@ each rank in turn, which NCCL and gloo both carry. With a ``model`` axis
 too (``{"time": n, "model": m}``) a head-sharded VRT serves each time
 rank's windows with its heads split over the rank's model line. Only
 rank 0 dumps frames and writes the CSV of :func:`run_test_matrix`.
+
+While a profiler collects, a request opens the spans
+``harness.windowed_inference`` (with ``harness.split``, ``harness.forward``
+and ``harness.gather``) or ``harness.forward`` alone, whose children are
+``harness.upload`` (the clip's copy to the device) and the model's own
+spans; the gather counts its broadcasts' bytes as ``comm_bytes``
+(:mod:`vsrlab_tpu_torch.utils.profiler`).
 """
 
 from __future__ import annotations
@@ -48,6 +55,7 @@ from vsrlab_tpu_torch.data.datasets import load_frame
 from vsrlab_tpu_torch.evaluation.tiled import tiled_forward
 from vsrlab_tpu_torch.nn.blocks import refresh_pair_caches
 from vsrlab_tpu_torch.parallel import Mesh, active_links, process_index, use_mesh
+from vsrlab_tpu_torch.utils.profiler import annotate, count
 
 
 def resolve_device(device: str | torch.device = "cuda") -> torch.device:
@@ -67,7 +75,8 @@ def _prepare(model: torch.nn.Module, device) -> torch.device:
 
 
 def _to(x, device) -> torch.Tensor:
-    return torch.as_tensor(x, dtype=torch.float32).to(device)
+    with annotate("harness.upload"):
+        return torch.as_tensor(x, dtype=torch.float32).to(device)
 
 
 def set_align_chunks(model: torch.nn.Module, chunks: int) -> None:
@@ -139,7 +148,8 @@ def make_forward(model: torch.nn.Module, tile: Optional[int] = None, tile_overla
 
     @torch.inference_mode()
     def forward(x):
-        out = model(_to(x, device))
+        with annotate("harness.forward"):
+            out = model(_to(x, device))
         return out[0] if isinstance(out, tuple) else out
 
     if not tile:
@@ -165,12 +175,14 @@ def make_stream_forward(model: torch.nn.Module, device: str | torch.device = "cu
 
     @torch.inference_mode()
     def first(x):
-        out = model(_to(x, device), return_state=True)
+        with annotate("harness.forward"):
+            out = model(_to(x, device), return_state=True)
         return out[0], out[-1]
 
     @torch.inference_mode()
     def rest(x, state):
-        out = model(_to(x, device), stream_state=state, return_state=True)
+        with annotate("harness.forward"):
+            out = model(_to(x, device), stream_state=state, return_state=True)
         return out[0], out[-1]
 
     return first, rest
@@ -181,12 +193,14 @@ def _gather_windows(local: torch.Tensor, mesh: Mesh) -> torch.Tensor:
     rank of the axis: one broadcast from each rank in turn into its block."""
     ranks = mesh.axis_ranks("time")
     per = local.shape[0]
-    full = local.new_empty((per * len(ranks), *local.shape[1:]))
-    for j, src in enumerate(ranks):
-        block = full[j * per:(j + 1) * per]
-        if src == mesh.rank:
-            block.copy_(local)
-        torch.distributed.broadcast(block, src, group=mesh.axis_group("time"))
+    with annotate("harness.gather"):
+        full = local.new_empty((per * len(ranks), *local.shape[1:]))
+        for j, src in enumerate(ranks):
+            block = full[j * per:(j + 1) * per]
+            if src == mesh.rank:
+                block.copy_(local)
+            torch.distributed.broadcast(block, src, group=mesh.axis_group("time"))
+            count("comm_bytes", block.numel() * block.element_size())
     return full
 
 
@@ -205,33 +219,35 @@ def windowed_inference(forward: Callable, video_lr, window_size: int,
     built with ``time_shard_axis`` does not split its frames), and a model
     built with ``head_shard_axis="model"`` splits its heads over the
     rank's line of a ``model`` axis."""
-    video = torch.as_tensor(video_lr, dtype=torch.float32)
-    _, t, h, w, c = video.shape
-    n_windows = -(-t // window_size)
-    pad = n_windows * window_size - t
-    if pad:
-        video = torch.cat([video, video[:, -1:].expand(-1, pad, -1, -1, -1)], 1)
-    windows = video.reshape(n_windows, window_size, h, w, c)
-    nt = mesh.shape.get("time", 1) if mesh is not None else 1
-    if nt > 1:
-        bpad = (-n_windows) % nt
-        if bpad:
-            windows = torch.cat([windows, windows[-1:].expand(bpad, -1, -1, -1, -1)])
-        per, k = windows.shape[0] // nt, mesh.axis_index("time")
-        windows = windows[k * per:(k + 1) * per]
-    if mesh is None:
-        sr = forward(windows)
-    else:  # each rank's windows whole; a head-sharded model splits its heads
-        with use_mesh(mesh.whole_clips()):
+    with annotate("harness.windowed_inference"):
+        with annotate("harness.split"):
+            video = torch.as_tensor(video_lr, dtype=torch.float32)
+            _, t, h, w, c = video.shape
+            n_windows = -(-t // window_size)
+            pad = n_windows * window_size - t
+            if pad:
+                video = torch.cat([video, video[:, -1:].expand(-1, pad, -1, -1, -1)], 1)
+            windows = video.reshape(n_windows, window_size, h, w, c)
+            nt = mesh.shape.get("time", 1) if mesh is not None else 1
+            if nt > 1:
+                bpad = (-n_windows) % nt
+                if bpad:
+                    windows = torch.cat([windows, windows[-1:].expand(bpad, -1, -1, -1, -1)])
+                per, k = windows.shape[0] // nt, mesh.axis_index("time")
+                windows = windows[k * per:(k + 1) * per]
+        if mesh is None:
             sr = forward(windows)
-    if isinstance(sr, tuple):
-        sr = sr[0]
-    if nt > 1:
-        with torch.no_grad():
-            sr = _gather_windows(sr, mesh)
-    sr = sr[:n_windows]
-    scale = sr.shape[2] // h
-    sr = sr.reshape(1, n_windows * window_size, h * scale, w * scale, -1)
+        else:  # each rank's windows whole; a head-sharded model splits its heads
+            with use_mesh(mesh.whole_clips()):
+                sr = forward(windows)
+        if isinstance(sr, tuple):
+            sr = sr[0]
+        if nt > 1:
+            with torch.no_grad():
+                sr = _gather_windows(sr, mesh)
+        sr = sr[:n_windows]
+        scale = sr.shape[2] // h
+        sr = sr.reshape(1, n_windows * window_size, h * scale, w * scale, -1)
     return sr[:, :t], n_windows
 
 

@@ -25,6 +25,8 @@
   process's.
 
 Clips are ``(B, T, H, W, 3)`` in [0, 1]; the output is ``(B, T, sH, sW, 3)``.
+While a profiler collects, the forward's stages are the spans ``model.flow``,
+``model.propagate`` and ``model.upsample`` (``utils.profiler.annotate``).
 """
 
 from __future__ import annotations
@@ -40,6 +42,7 @@ from vsrlab_tpu_torch.nn.blocks import Conv2d, PixelShufflePack, ResidualBlock
 from vsrlab_tpu_torch.ops.resize import resize_bilinear
 from vsrlab_tpu_torch.ops.warp import flow_warp
 from vsrlab_tpu_torch.parallel import active_links
+from vsrlab_tpu_torch.utils.profiler import annotate
 
 
 class BasicVSR(nn.Module):
@@ -106,6 +109,31 @@ class BasicVSR(nn.Module):
         warped = flow_warp(feat, flow_t)
         return block(torch.cat([lr_t, warped], -1))
 
+    def _propagate(self, lrs, bwd_flows, fwd_flows, stream_state, links):
+        """The backward, then the forward recurrence: ``(last forward
+        carry, [B, H, W, 2 * mid] features of each frame)``."""
+        b, t, h, w, _ = lrs.shape
+        feat0 = lrs.new_zeros((b, h, w, self.mid_channels), dtype=self.dtype or lrs.dtype)
+        feat = feat0 if links is None else links.receive("backward", feat0)
+        outputs_backward = [None] * t
+        for i in range(t - 1, -1, -1):
+            feat = self._step(self.backward_resblocks, feat, lrs[:, i], bwd_flows[:, i])
+            if i == 0 and links is not None:
+                feat = links.send("backward", feat)
+            outputs_backward[i] = feat
+
+        feat = feat0 if stream_state is None else stream_state[1].to(feat0.dtype)
+        if links is not None:
+            feat = links.receive("forward", feat0)
+        outputs = []
+        for i in range(t):
+            feat = self._step(self.forward_resblocks, feat, lrs[:, i], fwd_flows[:, i])
+            if i == t - 1 and links is not None:
+                feat = links.send("forward", feat)
+            outputs.append(torch.cat([outputs_backward[i], feat], -1))
+            outputs_backward[i] = None  # free as we go
+        return feat, outputs
+
     def forward(self, lrs, stream_state=None, return_state: bool = False):
         """Super-resolve a clip.
 
@@ -126,43 +154,28 @@ class BasicVSR(nn.Module):
             prev, next_frame = links.halo(lrs[:, 0], lrs[:, -1])
         elif stream_state is not None:
             prev = stream_state[0]
-        flows_forward, flows_backward = self.compute_flow(lrs, prev, next_frame)
+        with annotate("model.flow"):
+            flows_forward, flows_backward = self.compute_flow(lrs, prev, next_frame)
         zero_flow = flows_forward.new_zeros((b, 1, h, w, 2))
         # step i of each recurrence uses [:, i]
         bwd_flows = flows_backward if next_frame is not None else \
             torch.cat([flows_backward, zero_flow], 1)
         fwd_flows = flows_forward if prev is not None else torch.cat([zero_flow, flows_forward], 1)
 
-        feat0 = lrs.new_zeros((b, h, w, self.mid_channels), dtype=self.dtype or lrs.dtype)
-        feat = feat0 if links is None else links.receive("backward", feat0)
-        outputs_backward = [None] * t
-        for i in range(t - 1, -1, -1):
-            feat = self._step(self.backward_resblocks, feat, lrs[:, i], bwd_flows[:, i])
-            if i == 0 and links is not None:
-                feat = links.send("backward", feat)
-            outputs_backward[i] = feat
-
-        feat = feat0 if stream_state is None else stream_state[1].to(feat0.dtype)
-        if links is not None:
-            feat = links.receive("forward", feat0)
-        outputs = []
-        for i in range(t):
-            feat = self._step(self.forward_resblocks, feat, lrs[:, i], fwd_flows[:, i])
-            if i == t - 1 and links is not None:
-                feat = links.send("forward", feat)
-            outputs.append(torch.cat([outputs_backward[i], feat], -1))
-            outputs_backward[i] = None  # free as we go
-
-        out = torch.stack(outputs, 1).reshape(b * t, h, w, -1)
-        del outputs
-        out = F.leaky_relu(self.point_conv(out), 0.1)
-        for up in self.upsample:
-            out = up(out)
-        out = F.leaky_relu(self.conv_hr(out), 0.1)
-        out = self.conv_last(out)
-        s = self.upscale
-        base = resize_bilinear(lrs.reshape(b * t, h, w, c), (h * s, w * s), align_corners=False)
-        out = (out + base).reshape(b, t, h * s, w * s, 3)
+        with annotate("model.propagate"):
+            feat, outputs = self._propagate(lrs, bwd_flows, fwd_flows, stream_state, links)
+        with annotate("model.upsample"):
+            out = torch.stack(outputs, 1).reshape(b * t, h, w, -1)
+            del outputs
+            out = F.leaky_relu(self.point_conv(out), 0.1)
+            for up in self.upsample:
+                out = up(out)
+            out = F.leaky_relu(self.conv_hr(out), 0.1)
+            out = self.conv_last(out)
+            s = self.upscale
+            base = resize_bilinear(lrs.reshape(b * t, h, w, c), (h * s, w * s),
+                                   align_corners=False)
+            out = (out + base).reshape(b, t, h * s, w * s, 3)
         if links is not None:
             links.wait()
         if return_state:

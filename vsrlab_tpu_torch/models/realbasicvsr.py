@@ -3,7 +3,8 @@
 An :class:`~vsrlab_tpu_torch.nn.blocks.IterativeRefinement` cleaner
 removes compression artifacts from the low-res clip, then
 :class:`~vsrlab_tpu_torch.models.basicvsr.BasicVSR` super-resolves it.
-Returns ``(sr, lq)``, where ``lq`` is the cleaned input.
+Returns ``(sr, lq)``, where ``lq`` is the cleaned input. The cleaning
+passes are the span ``model.clean`` while a profiler collects.
 
 With ``time_shard_axis`` (sequence-parallel training) the cleaner stays
 per frame and local; BasicVSR's halo exchange hands the neighbours
@@ -18,6 +19,7 @@ from torch import nn
 
 from vsrlab_tpu_torch.models.basicvsr import BasicVSR
 from vsrlab_tpu_torch.nn.blocks import IterativeRefinement
+from vsrlab_tpu_torch.utils.profiler import annotate
 
 
 class RealBasicVSR(nn.Module):
@@ -40,7 +42,8 @@ class RealBasicVSR(nn.Module):
         """``(sr, lq)``; with ``return_state`` also the streaming state, whose
         frame is the CLEANED last frame (flows are computed on cleaned input)."""
         b, t, h, w, c = lr.shape
-        lq = self.cleaner(lr.reshape(b * t, h, w, c)).reshape(b, t, h, w, c)
+        with annotate("model.clean"):
+            lq = self.cleaner(lr.reshape(b * t, h, w, c)).reshape(b, t, h, w, c)
         out = self.basicvsr(lq, stream_state=stream_state, return_state=return_state)
         if return_state:
             sr, state = out

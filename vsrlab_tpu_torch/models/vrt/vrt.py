@@ -55,6 +55,11 @@ and after it in the backward (``tmsa.py``). The train step then sums the
 heads' gradients over the model group and averages the rest there
 (``parallel.all_reduce_sharded_grads``), and its updater averages over
 the whole mesh (``group=mesh.mesh_group``): one process's update.
+
+While a profiler collects, the forward's stages are the spans
+``model.flow`` (SpyNet), ``model.align`` (the nearest4 warps),
+``model.stages`` (the Stages and the trunk) and ``model.upsample``
+(``utils.profiler.annotate``).
 """
 
 from __future__ import annotations
@@ -77,6 +82,7 @@ from vsrlab_tpu_torch.ops.pixel_shuffle import pixel_shuffle
 from vsrlab_tpu_torch.ops.resize import resize_bilinear
 from vsrlab_tpu_torch.ops.warp import flow_warp
 from vsrlab_tpu_torch.parallel import active_links, active_mesh, assert_replicated
+from vsrlab_tpu_torch.utils.profiler import annotate
 
 NUM_FEAT = 64  # reconstruction width
 
@@ -253,26 +259,32 @@ class _VRTBase(nn.Module):
         prev = nxt = None
         if links is not None:
             prev, nxt = links.halo(x[:, 0], x[:, -1])
-        flows_backward, flows_forward = self._get_flows(x, prev, nxt)
-        x_b, x_f = self._aligned_image(x, flows_backward[0], flows_forward[0], prev, nxt)
+        with annotate("model.flow"):
+            flows_backward, flows_forward = self._get_flows(x, prev, nxt)
+        with annotate("model.align"):
+            x_b, x_f = self._aligned_image(x, flows_backward[0], flows_forward[0], prev, nxt)
         feat = self._frame_conv(self.conv_first, torch.cat([x, x_b, x_f], -1))
-        body = self._forward_features(feat, flows_backward, flows_forward, deterministic,
-                                      generator, links)
+        with annotate("model.stages"):
+            body = self._forward_features(feat, flows_backward, flows_forward, deterministic,
+                                          generator, links)
         feat = feat + self.conv_after_body(body)
 
-        y = F.leaky_relu(self._frame_conv(self.conv_before_upsample, feat), 0.01)
-        for i in range(self.n_ups):
-            y = self._frame_conv(getattr(self, f"up_conv_{i}"), y)
-            bt, tt, hh, ww, cc = y.shape
-            y = pixel_shuffle(y.reshape(bt * tt, hh, ww, cc), 2)
-            y = F.leaky_relu(y.reshape(bt, tt, hh * 2, ww * 2, NUM_FEAT), 0.1)
-        y = self._frame_conv(self.conv_last, self._frame_conv(self.up_conv_out, y))
+        with annotate("model.upsample"):
+            y = F.leaky_relu(self._frame_conv(self.conv_before_upsample, feat), 0.01)
+            for i in range(self.n_ups):
+                y = self._frame_conv(getattr(self, f"up_conv_{i}"), y)
+                bt, tt, hh, ww, cc = y.shape
+                y = pixel_shuffle(y.reshape(bt * tt, hh, ww, cc), 2)
+                y = F.leaky_relu(y.reshape(bt, tt, hh * 2, ww * 2, NUM_FEAT), 0.1)
+            y = self._frame_conv(self.conv_last, self._frame_conv(self.up_conv_out, y))
 
-        s = self.upscale
-        base = resize_bilinear(x_lq.reshape(b * t, h, w, c), (h * s, w * s), align_corners=False)
+            s = self.upscale
+            base = resize_bilinear(x_lq.reshape(b * t, h, w, c), (h * s, w * s),
+                                   align_corners=False)
+            y = y + base.reshape(b, t, h * s, w * s, c)
         if links is not None:
             links.wait()
-        return y + base.reshape(b, t, h * s, w * s, c), x_lq
+        return y, x_lq
 
 
 class VRT(_VRTBase):

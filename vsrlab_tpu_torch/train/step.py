@@ -5,7 +5,10 @@ backward, gradient accumulation over ``num_grad_accum`` microbatches (the
 gradients summed, then divided, as the JAX step scans them), the update
 (:class:`~vsrlab_tpu_torch.train.builders.Updater`), the EMA. Metrics are
 0-d tensors on the device: a loop sums them and reads them back once an
-epoch.
+epoch. While a profiler collects, the step is the span ``step`` with the
+children ``step.forward``, ``step.backward`` and ``step.metrics`` (each
+microbatch), ``step.grad_reduce``, ``step.update`` and ``step.ema``
+(:func:`vsrlab_tpu_torch.utils.profiler.annotate`).
 """
 
 from __future__ import annotations
@@ -20,6 +23,7 @@ from vsrlab_tpu_torch.core.metrics import MetricCollection, resolve_metric_names
 from vsrlab_tpu_torch.ops.resize import resize_bilinear
 from vsrlab_tpu_torch.parallel import all_reduce_sharded_grads, check_step_group, reduce_metrics
 from vsrlab_tpu_torch.train.state import TrainState
+from vsrlab_tpu_torch.utils.profiler import annotate
 
 Batch = Dict[str, torch.Tensor]
 DEFAULT_METRICS = ("PSNR", "SSIM")
@@ -94,30 +98,39 @@ def make_supervised_train_step(model: torch.nn.Module, loss_fn: Callable = charb
         n = num_grad_accum
         if lr.shape[0] % n:
             raise ValueError(f"batch {lr.shape[0]} does not split into {n} microbatches")
-        state.tx.optimizer.zero_grad(set_to_none=True)
-        loss_sum = torch.zeros((), device=lr.device)
-        msums = {k: torch.zeros((), device=lr.device) for k in metrics} if compute_metrics else {}
-        for lr_i, hr_i in zip(lr.chunk(n), hr.chunk(n)):
-            loss, aux = supervised_loss(model(lr_i), {"hr": hr_i}, loss_fn)
-            loss.backward()
-            loss_sum += loss.detach()
-            if compute_metrics:
-                for k, v in default_metrics(aux["sr"], hr_i, metrics).items():
-                    msums[k] += v
-            del aux
-        # the head-sharded attention's parts summed over each model line, the
-        # rest averaged there: whole before the updater's mean over ``group``
-        all_reduce_sharded_grads(model)
-        if n > 1:
-            torch._foreach_div_(state.tx.grads(), float(n))
-        norm = state.tx.step()
-        state.step += 1
-        ema_update(state, ema_decay)
-        out = {"Loss": loss_sum / n}
-        if log_grad_norm:
-            out["GradNorm"] = norm
-        out.update({k: v / n for k, v in msums.items()})
-        return state, reduce_metrics(out, group)
+        with annotate("step"):
+            state.tx.optimizer.zero_grad(set_to_none=True)
+            loss_sum = torch.zeros((), device=lr.device)
+            msums = ({k: torch.zeros((), device=lr.device) for k in metrics}
+                     if compute_metrics else {})
+            for lr_i, hr_i in zip(lr.chunk(n), hr.chunk(n)):
+                with annotate("step.forward"):
+                    loss, aux = supervised_loss(model(lr_i), {"hr": hr_i}, loss_fn)
+                with annotate("step.backward"):
+                    loss.backward()
+                loss_sum += loss.detach()
+                if compute_metrics:
+                    with annotate("step.metrics"):
+                        for k, v in default_metrics(aux["sr"], hr_i, metrics).items():
+                            msums[k] += v
+                del aux
+            with annotate("step.grad_reduce"):
+                # the head-sharded attention's parts summed over each model line,
+                # the rest averaged there: whole before the updater's mean over
+                # ``group``
+                all_reduce_sharded_grads(model)
+                if n > 1:
+                    torch._foreach_div_(state.tx.grads(), float(n))
+            with annotate("step.update"):
+                norm = state.tx.step()
+            state.step += 1
+            with annotate("step.ema"):
+                ema_update(state, ema_decay)
+            out = {"Loss": loss_sum / n}
+            if log_grad_norm:
+                out["GradNorm"] = norm
+            out.update({k: v / n for k, v in msums.items()})
+            return state, reduce_metrics(out, group)
 
     return train_step
 

@@ -1,5 +1,5 @@
-"""Utilities of the port: deterministic seeding, profiling and timing
-(:mod:`vsrlab_tpu_torch.utils.profiler`)."""
+"""Utilities of the port: deterministic seeding, and the program's spans,
+counters, profiler traces and timing (:mod:`vsrlab_tpu_torch.utils.profiler`)."""
 
 from vsrlab_tpu_torch.utils.seed import seed_everything, seed_index_everything
 

@@ -1,11 +1,19 @@
-"""Profiling and timing hooks (port of ``vsrlab_tpu/utils/profiler.py``).
+"""Profiling hooks (port of ``vsrlab_tpu/utils/profiler.py``).
 
 * :func:`trace`: a ``torch.profiler`` capture of the enclosed region (the
   card's kernels where one is present, the host's ops always), written as
   a Chrome trace (Perfetto, ``chrome://tracing``);
-* :func:`annotate`: a named range on that trace's timeline;
-* :class:`Timer`: an accumulating wall-clock timer of named phases;
+* :func:`annotate`: the program's span, ``vsr::<name>`` on that trace's
+  timeline while a profiler collects, nothing otherwise;
+* :func:`count` / :func:`counters`: the program's counters, counted only
+  while a profiler collects (tracing has one switch: a running profiler);
 * :func:`best_time`: best-of-repeats seconds a call, with one sync each.
+
+The spans sit at the layer boundaries of the entry points, the models and
+the train step (a few tens a request or a step, none inside a per-block
+loop), so each lies in the same capture, on the same clock, as the
+kernels launched inside it. One caller runs at a time, so the entry
+point's span is the root of each call's tree.
 """
 
 from __future__ import annotations
@@ -13,11 +21,21 @@ from __future__ import annotations
 import contextlib
 import os
 import time
-from collections import defaultdict
+from collections import Counter
 from pathlib import Path
 from typing import Dict, Iterator
 
 import torch
+
+SPAN_PREFIX = "vsr::"
+
+_OFF = contextlib.nullcontext()
+_counts: Counter = Counter()
+
+
+def _collecting() -> bool:
+    """Whether a profiler is collecting in this process."""
+    return torch._C._autograd._profiler_enabled()
 
 
 @contextlib.contextmanager
@@ -40,29 +58,22 @@ def trace(log_dir: str = "./profile") -> Iterator[torch.profiler.profile]:
 
 
 def annotate(name: str):
-    """A named range that shows on the trace's timeline."""
-    return torch.profiler.record_function(name)
+    """The span ``vsr::<name>`` while a profiler collects; otherwise one
+    shared no-op context (a flag read, no profiler call)."""
+    if _collecting():
+        return torch.profiler.record_function(SPAN_PREFIX + name)
+    return _OFF
 
 
-class Timer:
-    """Accumulating wall-clock timer: ``with timer("data"): ...``."""
+def count(name: str, n: int = 1) -> None:
+    """Add ``n`` to the counter ``name`` while a profiler collects."""
+    if _collecting():
+        _counts[name] += int(n)
 
-    def __init__(self):
-        self.totals: Dict[str, float] = defaultdict(float)
-        self.counts: Dict[str, int] = defaultdict(int)
 
-    @contextlib.contextmanager
-    def __call__(self, name: str) -> Iterator[None]:
-        t0 = time.perf_counter()
-        try:
-            yield
-        finally:
-            self.totals[name] += time.perf_counter() - t0
-            self.counts[name] += 1
-
-    def summary(self) -> Dict[str, Dict[str, float]]:
-        return {k: {"total_s": self.totals[k], "count": self.counts[k],
-                    "mean_s": self.totals[k] / max(self.counts[k], 1)} for k in self.totals}
+def counters() -> Dict[str, int]:
+    """A copy of every counter's total in this process."""
+    return dict(_counts)
 
 
 def best_time(call_and_sync, n_iters: int = 5, repeats: int = 3, on_best=None) -> float:
