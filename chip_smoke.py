@@ -26,8 +26,8 @@ Phases, in order; any failure exits non-zero:
 1. Device and build: the card's name and power limit (``nvidia-smi``),
    whether OpenCV and PIL import, then
    the kernel libraries (``residual_pair``, ``packed_gather``,
-   ``bilinear_sample``) built side by side from ``vsrlab_tpu_torch/csrc``
-   (nvcc, sm_90a) into ``build/kernels/``.
+   ``bilinear_sample``, ``window_attention``) built side by side from
+   ``vsrlab_tpu_torch/csrc`` (nvcc, sm_90a) into ``build/kernels/``.
 2. Kernels against their plain version, fp32 with TF32 off at 1e-4, bf16
    at 2e-2 (``|a-b| <= tol + tol*|b|``): both residual-pair kernels
    (``taps``, ``im2col``) against ``residual_conv_pair_plain`` at
@@ -53,7 +53,15 @@ Phases, in order; any failure exits non-zero:
    its plain version, exactly, at the alignment shape (table ``(180,
    8001, 80)``, 16384 pixels an image) with realistic and uniform
    coordinates, at a ragged ``(3, 9, 13, 5)``, and at images smaller than
-   one window (8x8x4 with 8 x-positions a row; one row; one column).
+   one window (8x8x4 with 8 x-positions a row; one row; one column); the
+   window attention (``window_attention``) against
+   ``window_attention_plain`` at ``ATTENTION_CHECKS`` (the main path's self
+   attentions at N 384 and 128, hd 20 and 30, a mutual direction's 64x64
+   halves, the trunk's N 64, ``forward_rows``' 128 rows against 384 keys,
+   ragged, small, hd 64) on q and k of std 2, bf16 within the card tests'
+   gate (each element within ``2^-7 |plain| + 2^-8 max|plain|`` and the rms
+   within ``2^-8`` of the output's, which bf16 logits fail), fp32 (TF32
+   off) within 2e-5 of the largest |v|, three launches bitwise equal.
 3. The RealBasicVSR path: RealBasicVSR 4x at the headline configuration (mid 64,
    30 residual blocks, 20 cleaning blocks, 3 steps, bf16), weights from a
    seeded ``torch.Generator``, serving 180x320 -> 720x1280 requests through
@@ -80,10 +88,14 @@ Phases, in order; any failure exits non-zero:
    gather kernel. The wrappers count their launches by shape: each request
    must make 126 (7 stages x 2 directions x 9 taps) at the four alignment
    scales (the sampler's keyed ``(180, h, w, 10, h*w)``): every sampler
-   call went through a kernel. Then shapes and finite values, both outputs
-   against the plain sampler's and an fp32 run (the same gate), the frames/s of the request
+   call went through a kernel; and 164 window-attention launches, by shape
+   those the request's WindowAttention calls imply (read from each call's
+   input by a hook, ``attention_plan``). Then shapes and finite values, both
+   outputs against the plain route's (the plain sampler and the plain
+   attention) and an fp32 run of it (the same gate), the frames/s of the request
    with each sampler, a torch.profiler breakdown of the fused one by
-   kernel, and its device time by module class (CUDA events around every
+   kernel (the program's counter ``window_attention.launches`` must read
+   164 over it), and its device time by module class (CUDA events around every
    forward of WindowAttention, MlpGEGLU, FlowGuidedDeformAlign and
    LayerNorm; SpyNet, the convs and the glue between them are the rest).
    Then the default TinyVRT (8 channels an offset group) on a 6-frame
@@ -124,7 +136,9 @@ Phases, in order; any failure exits non-zero:
    one library call's (the residual pair: two bf16 channels_last
    ``F.conv2d`` plus ReLU and the add; the sampler: one ``F.grid_sample``,
    NCHW, normalised grid, align_corners, zeros; the row gather: one
-   ``index_select`` of the flattened table; timed only), each by CUDA-graph
+   ``index_select`` of the flattened table; the window attention:
+   ``F.scaled_dot_product_attention`` with bias and mask summed into one
+   bf16 additive mask; timed only), each by CUDA-graph
    replay (calls captured in a graph, median of 20 replays: a launch from
    Python takes longer than many of these kernels run), and each kernel's
    share of its bound; at the training shapes also the unit's backward
@@ -162,7 +176,8 @@ Phases, in order; any failure exits non-zero:
    frames/s beside ``make_forward``'s; (f) ``speed_bench``
    and ``param_count``; (g) a paper-configuration VRT run directory served
    by ``make_forward(tile=128)`` on ``(1,16,256,256,3)``: 126 fused-sampler
-   launches a tile, finite, timed once. Beside them a torch.profiler
+   launches a tile and the window attention's its calls imply (164 a
+   tile), finite, timed once. Beside them a torch.profiler
    breakdown of the streamed loop, the exported forward and
    ``make_forward``, and one request under ``utils.profiler.trace`` (its
    Chrome trace holds kernel events and the request's span). The launches
@@ -236,10 +251,15 @@ Phases, in order; any failure exits non-zero:
    ``make_supervised_train_step``. Gates: on one microbatch the SR output
    and every parameter's gradient with the ``fused`` and the ``take``
    kernels each within twice plain bf16's deviation from the fp32 plain
-   route, SpyNet's gradients zero, each route's launches by shape those of
-   one forward and backward with every Stage recomputed (twice
-   ``expected_vrt_launches``); the main path, one step with ``fused`` and
-   one with ``take``, each exactly 4 microbatches' launches by shape; the
+   route (the plain sampler and the plain attention), SpyNet's gradients
+   zero, each route's launches by shape those of one forward and backward
+   with every Stage recomputed (twice ``expected_vrt_launches``; the window
+   attention's those its calls imply, the recompute's included); the
+   window attention on its own: the fused route with the kernel against it
+   with the plain version in the kernel's place, each against the fp32
+   plain route (``gate_attention_grads``); the main path, one step with
+   ``fused`` and one with ``take``, each exactly 4 microbatches' launches
+   by shape; the
    losses finite, SpyNet bitwise unchanged. Then the step's ms and train
    frames/s (one step, after the two main-path steps; the whole step is
    not profiled), one microbatch's device ms by
@@ -390,11 +410,14 @@ Phases, in order; any failure exits non-zero:
 16. One JSON line ``{"kernels": [...]}``: per kernel its main-path launches
    (inference, training, serving, GAN fine-tuning, the flow paths, VRT
    training, the ranks of phases 11 to 13 and 15 and phase 14's imported
-   models) and,
+   models; the window attention's: phase 4's requests, phase 7 (g)'s tiles
+   and phase 10 (a)'s steps) and,
    summed over those launches (per-launch time at each shape times that
    shape's count), ``ms``, ``plain_ms``,
    ``library_ms`` and ``bound_ms``; ``max_abs_err`` is the largest bf16
-   error, beside ``max_abs_err_fp32``; ``shapes`` holds the per-launch rows
+   error, beside ``max_abs_err_fp32`` (for the window attention
+   ``gate_share`` and ``gate_share_fp32``, the largest share of its gate);
+   ``shapes`` holds the per-launch rows
    (``dtype`` in each); for the two samplers ``backward`` holds phase 10
    (b)'s rows. Then the last line ``{"ok": true, "device": {...}}``.
 """
@@ -462,7 +485,25 @@ VRT_KERNELS = {
     # pallas_loop, pallas_blk and pallas_take compute one function
     "packed_row_gather": ("vsrlab_tpu_torch/csrc/packed_gather.cu", f"{PROBE}:149",
                           [f"{PROBE}:202", f"{PROBE}:237"]),
+    # no TPU kernel stands behind it: the JAX package leaves window attention to XLA
+    # (einsum, add, softmax, einsum)
+    "window_attention": ("vsrlab_tpu_torch/csrc/window_attention.cu", None, []),
 }
+SAMPLERS = ("bilinear_sample", "packed_row_gather")
+# window-attention launches of one paper-configuration VRT forward: 7 Stages of 6 mutual
+# blocks (self attention and two mutual directions) and 2 self-attention blocks, and
+# 6 trunk groups of 4 self-attention blocks
+VRT_ATTENTION_LAUNCHES = 7 * (6 * 3 + 2) + 6 * 4
+# (name, windows, heads, nq, nk, hd, bias, masks): the main path's attentions at a
+# few windows (Stages: self over (6,8,8) at hd 20, over (2,8,8) and the mutual halves;
+# the trunk's (6,8,8) and (1,8,8) at hd 30; forward_rows' rows), then ragged and
+# small sizes and the widest head the kernel takes
+ATTENTION_CHECKS = (
+    ("self384", 24, 6, 384, 384, 20, True, True), ("self384_hd30", 16, 6, 384, 384, 30, True, False),
+    ("self128", 32, 6, 128, 128, 20, True, True), ("mutual64", 32, 6, 64, 64, 20, False, True),
+    ("trunk64", 32, 6, 64, 64, 30, True, False), ("rows", 8, 6, 128, 384, 20, True, True),
+    ("ragged", 5, 3, 50, 77, 12, True, True), ("small", 9, 2, 12, 12, 6, True, True),
+    ("hd64", 4, 2, 384, 384, 64, True, True))
 # (images, H, W, channels a group, x-positions a row); the first is the probe's shape
 PACKED_CHECKS = ((180, 128, 128, 10, 2), (3, 9, 13, 5, 2), (24, 8, 8, 4, 8), (2, 1, 5, 3, 2),
                  (2, 4, 1, 4, 8))
@@ -1153,6 +1194,147 @@ def time_gather(launches_by_shape, device):
     return 0.0, rows
 
 
+def attention_operands(b, h, nq, nk, hd, with_bias, with_masks, dtype, seed, device,
+                       qk_std=2.0):
+    """q, k, v as head views of one fused projection's output (B, n, 3*H*hd),
+    as WindowAttention hands them over; q and k of std ``qk_std`` (logits of
+    std ~4: a trained model's attention is peaked), v of std 1; bias
+    uniform in +-0.5, masks of 8 window types with -100 at 30 % of the
+    logits, a type a window. Returns ``(q, k, v, scale, bias, masks, tid)``."""
+    import torch
+
+    g = torch.Generator().manual_seed(seed)
+    n = max(nq, nk)
+    qkv = torch.randn((b, n, 3 * h * hd), generator=g)
+    qkv[..., :2 * h * hd] *= qk_std
+    qkv = qkv.to(device, dtype)
+
+    def heads(t, rows):
+        return t[:, :rows].reshape(b, rows, h, hd).transpose(1, 2)
+
+    q, k, v = (heads(t, r) for t, r in zip(qkv.chunk(3, -1), (nq, nk, nk)))
+    bias = (torch.rand((h, nq, nk), generator=g) - 0.5).to(device) if with_bias else None
+    masks = tid = None
+    if with_masks:
+        masks = torch.where(torch.rand((8, nq, nk), generator=g) < 0.3, -100.0, 0.0).to(device)
+        tid = torch.randint(0, 8, (b,), generator=g).to(device)
+    return q, k, v, hd ** -0.5, bias, masks, tid
+
+
+def attention_gate(got, want, v) -> float:
+    """The share of its gate that ``|got - want|`` takes (at most 1 to pass):
+    bf16, the larger of each element against ``2^-7 |want| + 2^-8
+    max|want|`` and the rms against ``2^-8 rms(want)`` (the card tests'
+    gate, ``tests/_attention_gate.py``: the kernel's rounding reads about
+    half of it, bf16 logits 1.3-6 times it); fp32, the largest element
+    against ``2e-5 max|v|``."""
+    import torch
+
+    got, want = got.double(), want.double()
+    d = (got - want).abs()
+    if v.dtype == torch.float32:
+        return float(d.max() / (2e-5 * v.abs().max()))
+    elem = float((d / (2 ** -7 * want.abs() + 2 ** -8 * want.abs().max())).max())
+    return max(elem, float(d.pow(2).mean().sqrt() / (2 ** -8 * want.pow(2).mean().sqrt())))
+
+
+def check_attention(ops, label, repeats: int = 3) -> float:
+    """The kernel on ``ops`` against the plain version; raises beyond the
+    gate (:func:`attention_gate`), on a non-finite value, and when one of
+    ``repeats`` launches differs from the first in any bit. Returns the
+    share of the gate taken."""
+    import torch
+
+    from vsrlab_tpu_torch.ops import window_attention as owa
+
+    first = owa.window_attention(*ops)
+    same = all(torch.equal(owa.window_attention(*ops), first) for _ in range(repeats - 1))
+    share = attention_gate(first, owa.window_attention_plain(*ops), ops[2])
+    ok = bool(torch.isfinite(first).all()) and share <= 1
+    log(f"  {label}: {100 * share:.1f} % of the gate {'ok' if ok else 'FAIL'}, {repeats} launches "
+        f"bitwise {'equal' if same else 'DIFFERENT'}")
+    if not ok or not same:
+        raise AssertionError(f"{label} disagrees with the plain version or with itself")
+    return share
+
+
+def check_attention_kernel(device) -> dict:
+    """Phase 2 for ``window_attention``: the kernel against the plain version
+    at ``ATTENTION_CHECKS``, bf16 and fp32 (TF32 off). Returns the largest
+    share of the gate by type."""
+    import torch
+
+    out = {}
+    for dname, dtype in (("fp32", torch.float32), ("bf16", torch.bfloat16)):
+        out[dname] = 0.0
+        for i, (name, *shape) in enumerate(ATTENTION_CHECKS):
+            ops = attention_operands(*shape, dtype, i, device)
+            out[dname] = max(out[dname], check_attention(
+                ops, f"window_attention {dname} {name} {tuple(shape)}"))
+            del ops
+    return out
+
+
+def attention_bound(shape, itemsize=2) -> tuple[float, str]:
+    """Least time (ms) of one ``window_attention`` launch, shape ``(B, H, nq,
+    nk, hd, ...)``: q, k and v read and the output written once (bias and
+    masks, a few MB, stay in L2) over the HBM rate, against the products
+    ``4 B H nq nk hd`` FLOP (QK^T and P.V) at the bf16 tensor-core peak."""
+    b, h, nq, nk, hd = shape[:5]
+    nbytes = itemsize * b * h * hd * (2 * nq + 2 * nk)
+    flops = 4 * b * h * nq * nk * hd
+    t_ops, t_bytes = flops / PEAK_BF16_FLOPS * 1e3, nbytes / PEAK_BYTES * 1e3
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def time_attention(launches_by_shape, device):
+    """Phase 6 for ``window_attention``: at each shape the VRT paths gave it
+    (bf16; bias and masks as its key says), a check against the plain
+    version, then device times by CUDA-graph replay of the kernel (written
+    into a channel slice, as the module calls it), the plain version and
+    ``F.scaled_dot_product_attention`` with the bias and mask summed into
+    one bf16 additive mask (the sum not timed; the library is timed only,
+    the port never calls it), beside the bound. Returns the largest share
+    of the gate and one row per shape."""
+    import torch
+    import torch.nn.functional as F
+
+    from vsrlab_tpu_torch.ops import window_attention as owa
+
+    err, rows = 0.0, []
+    for shape, count in sorted(launches_by_shape.items(),
+                               key=lambda kv: -kv[0][0] * kv[0][2] * kv[0][3]):
+        b, h, nq, nk, hd, with_bias, with_masks = shape
+        ops = q, k, v, scale, bias, masks, tid = attention_operands(
+            *shape, torch.bfloat16, 11, device)
+        label = f"window_attention bf16 {shape}"
+        err = max(err, check_attention(ops, label, repeats=2))
+        out = torch.empty((b, nq, 2 * h * hd), dtype=q.dtype, device=device)[:, :, h * hd:]
+        add = None
+        if with_bias or with_masks:
+            add = torch.zeros((b, h, nq, nk), device=device)
+            if with_bias:
+                add += bias
+            if with_masks:
+                add += masks[tid][:, None]
+            add = add.to(q.dtype)
+        b_ms, b_by = attention_bound(shape)
+        row = {"shape": list(shape), "dtype": "bf16", "launches": count,
+               "ms": graph_ms(lambda: owa.window_attention(*ops, out=out)),
+               "plain_ms": graph_ms(lambda: owa.window_attention_plain(*ops), calls=2, samples=5),
+               "library_ms": graph_ms(lambda: F.scaled_dot_product_attention(
+                   q, k, v, attn_mask=add, scale=scale), calls=2, samples=5),
+               "bound_ms": b_ms, "bound_by": b_by}
+        row["share_of_bound"] = b_ms / row["ms"]
+        log(f"  {label} x{count}: kernel {row['ms']:.4f} ms ({100 * row['share_of_bound']:.1f} % "
+            f"of its bound, {b_ms:.4f} ms by {b_by}), plain {row['plain_ms']:.4f} ms, SDPA "
+            f"{row['library_ms']:.4f} ms (graph replay)")
+        rows.append(row)
+        del ops, q, k, v, bias, masks, tid, out, add
+        torch.cuda.empty_cache()
+    return err, rows
+
+
 def sampler_times(tree: str) -> int:
     """``--sampler-times [TREE]``: only the device time of the ``fused``
     sampler's whole route (``sample_pixel_coords(impl="fused")``, everything
@@ -1266,26 +1448,89 @@ def expected_vrt_launches(clip_shape, kernel, scales=VRT_SCALES, groups=VRT_GROU
 
 
 def vrt_wrappers() -> dict:
-    """The VRT path's kernel wrappers by name."""
+    """The VRT path's kernel wrappers by name: the two samplers and the
+    window attention."""
     from vsrlab_tpu_torch.ops import bilinear_sample as bs
     from vsrlab_tpu_torch.ops import packed_gather as pg
+    from vsrlab_tpu_torch.ops import window_attention as owa
 
-    return {"bilinear_sample": bs.bilinear_sample, "packed_row_gather": pg.packed_row_gather}
+    return {"bilinear_sample": bs.bilinear_sample, "packed_row_gather": pg.packed_row_gather,
+            "window_attention": owa.window_attention}
 
 
 def reset_vrt_counts() -> None:
     from vsrlab_tpu_torch.ops import bilinear_sample as bs
     from vsrlab_tpu_torch.ops import packed_gather as pg
+    from vsrlab_tpu_torch.ops import window_attention as owa
 
     bs.reset_launch_counts()
     pg.reset_launch_counts()
+    owa.reset_launch_counts()
+
+
+@contextlib.contextmanager
+def attention_plan(model):
+    """Yields a Counter that fills, while the region runs, with the
+    window-attention launches by shape that ``model``'s WindowAttention
+    calls imply, read from each call's input (``x`` (B_, N, C) and whether
+    a mask came) and the module (heads, mutual or not), not from the
+    kernel's counter: ``(B_, H, N, N, hd, True, masked)`` for the self
+    attention, and for a mutual one each direction's halves without bias.
+    A remat'd Stage's calls count again in the backward's recompute. Not
+    for head-sharded or row (``forward_rows``) calls."""
+    import collections
+
+    from vsrlab_tpu_torch.models.vrt import WindowAttention
+
+    plan = collections.Counter()
+
+    def pre(mod, args, kwargs):
+        x = args[0]
+        mask = args[1] if len(args) > 1 else kwargs.get("mask")
+        b, n, c = x.shape
+        h, hd, masked = mod.num_heads, c // mod.num_heads, mask is not None
+        plan[(b, h, n, n, hd, True, masked)] += 1
+        if mod.mut_attn:
+            half = n // 2
+            plan[(b, h, n - half, half, hd, False, masked)] += 1
+            plan[(b, h, half, n - half, hd, False, masked)] += 1
+
+    handles = [m.register_forward_pre_hook(pre, with_kwargs=True) for m in model.modules()
+               if isinstance(m, WindowAttention)]
+    try:
+        yield plan
+    finally:
+        for handle in handles:
+            handle.remove()
+
+
+@contextlib.contextmanager
+def plain_attention():
+    """The plain version in the attention kernel's place (for the yardstick
+    routes: plain bf16 and fp32): the wrapper's launch computes
+    ``window_attention_plain`` instead, and counts nothing."""
+    from vsrlab_tpu_torch.ops import window_attention as owa
+
+    launch = owa._launch
+
+    def plain(q, k, v, scale, bias, masks, tid, out=None):
+        y = owa.window_attention_plain(q, k, v, scale, bias, masks, tid)
+        return y if out is None else out.copy_(y)
+
+    owa._launch = plain
+    try:
+        yield
+    finally:
+        owa._launch = launch
 
 
 def run_vrt_path(model, clip, device):
     """Phase 4's served requests: one ``make_forward`` request over ``clip``
     with the fused sampler kernel, then one with the row gather kernel.
-    Returns both outputs and each sampler kernel's launches by shape, per
-    request; the residual pair's count is read too (it must stay 0)."""
+    Returns both outputs and each VRT kernel's launches by shape, per
+    request, with the window-attention launches each request's calls imply
+    (:func:`attention_plan`); the residual pair's count is read too (it
+    must stay 0)."""
     from vsrlab_tpu_torch.evaluation.harness import make_forward
     from vsrlab_tpu_torch.nn.blocks import set_sampler_impl
     from vsrlab_tpu_torch.ops import residual_pair as rp
@@ -1298,27 +1543,30 @@ def run_vrt_path(model, clip, device):
     forward = make_forward(model, device=device)
     reset_vrt_counts()
     rp.reset_launch_counts()
-    seen, calls, out = counts(), {}, {}
+    seen, calls, plans, out = counts(), {}, {}, {}
     for impl in ("fused", "take"):
         set_sampler_impl(model, impl)
-        out[impl] = forward(clip)
+        with attention_plan(model) as plans[impl]:
+            out[impl] = forward(clip)
         now = counts()
         calls[impl], seen = {name: now[name] - seen[name] for name in wrappers}, now
     set_sampler_impl(model, "fused")
     pair = rp.residual_conv_pair.launches + rp.residual_conv_pair_im2col.launches
-    return {**out, "calls": calls, "launches_by_shape": seen, "pair_launches": pair}
+    return {**out, "calls": calls, "attention_plans": plans, "launches_by_shape": seen,
+            "pair_launches": pair}
 
 
 def gate_samplers(outs, plain, ref32) -> None:
     """Each output of ``outs`` (by sampler formulation) against the plain
-    sampler's bf16 run and the fp32 run; raises beyond twice the deviation
-    of plain bf16 from fp32, in max or rms."""
+    route's bf16 run (the plain sampler; in phase 4 also the plain
+    attention) and the fp32 run; raises beyond twice the deviation of plain
+    bf16 from fp32, in max or rms."""
     def dev(a, b):
         d = (a.float() - b).abs()
         return float(d.max()), float(d.pow(2).mean().sqrt())
 
     b_max, b_rms = dev(plain, ref32)
-    log(f"  plain sampler bf16 vs fp32: max {b_max:.4e}, rms {b_rms:.4e}; gate: 2x that")
+    log(f"  plain route bf16 vs fp32: max {b_max:.4e}, rms {b_rms:.4e}; gate: 2x that")
     for impl, out in outs.items():
         for other, ref in (("plain (bf16)", plain), ("fp32", ref32)):
             d_max, d_rms = dev(out, ref)
@@ -1341,7 +1589,9 @@ def tiny_vrt_phase(device, card) -> None:
     from vsrlab_tpu_torch.nn.blocks import set_sampler_impl
     from vsrlab_tpu_torch.ops.warp import sample_pixel_coords
 
-    sampler, gather = vrt_wrappers().values()
+    wrappers = vrt_wrappers()
+    sampler, gather = wrappers["bilinear_sample"], wrappers["packed_row_gather"]
+    attention = wrappers["window_attention"]
 
     shape = (1, 6, 64, 64, 3)
     model = build_vrt(torch.bfloat16, tiny=True)
@@ -1349,22 +1599,29 @@ def tiny_vrt_phase(device, card) -> None:
     g = torch.Generator().manual_seed(3)
     clip = torch.rand(shape, generator=g)
     reset_vrt_counts()
-    fused = forward(clip)
+    with attention_plan(model) as plan:
+        fused = forward(clip)
     got = sampler.launches_by_shape.copy()
     want = expected_vrt_launches(shape, "bilinear_sample", scales=(1, 2, 4, 2, 1), groups=4,
                                  cg=8)
-    log(f"  TinyVRT {shape}: bilinear_sample launches by (N, H, W, C, P): {dict(got)}")
+    log(f"  TinyVRT {shape}: bilinear_sample launches by (N, H, W, C, P): {dict(got)}; "
+        f"window_attention launches {attention.launches} by shape as its calls imply")
     if got != want or gather.launches:
         raise AssertionError(f"TinyVRT: launches {dict(got)} != expected {dict(want)}")
+    if attention.launches_by_shape != plan or not plan:
+        raise AssertionError(f"TinyVRT: window_attention launches "
+                             f"{dict(attention.launches_by_shape)} != {dict(plan)}")
     if tuple(fused.shape) != (1, 6, 256, 256, 3) or not bool(torch.isfinite(fused).all()):
         raise AssertionError(f"TinyVRT: shape {tuple(fused.shape)} or non-finite")
     set_sampler_impl(model, "plain")
-    plain = forward(clip).float()
-    set_sampler_impl(model, "fused")
-    model32 = build_vrt(None, tiny=True)
-    model32.load_state_dict(model.state_dict())
-    set_sampler_impl(model32, "plain")
-    gate_samplers({"fused": fused}, plain, make_forward(model32, device=device)(clip).float())
+    with plain_attention():
+        plain = forward(clip).float()
+        set_sampler_impl(model, "fused")
+        model32 = build_vrt(None, tiny=True)
+        model32.load_state_dict(model.state_dict())
+        set_sampler_impl(model32, "plain")
+        ref32 = make_forward(model32, device=device)(clip).float()
+    gate_samplers({"fused": fused}, plain, ref32)
     times = []
     for _ in range(3):
         torch.cuda.synchronize()
@@ -1418,11 +1675,13 @@ def tiny_vrt_phase(device, card) -> None:
         if not ok or wrapper.launches_by_shape[key] != before + 1:
             raise AssertionError(f"{impl} sampler disagrees or launched no kernel at 8x8x4")
     set_sampler_impl(model, "plain")
-    plain = forward(clip).float()
-    model32 = build_vrt(None, **kw)
-    model32.load_state_dict(model.state_dict())
-    set_sampler_impl(model32, "plain")
-    gate_samplers({"fused": fused}, plain, make_forward(model32, device=device)(clip).float())
+    with plain_attention():
+        plain = forward(clip).float()
+        model32 = build_vrt(None, **kw)
+        model32.load_state_dict(model.state_dict())
+        set_sampler_impl(model32, "plain")
+        ref32 = make_forward(model32, device=device)(clip).float()
+    gate_samplers({"fused": fused}, plain, ref32)
 
 
 def vrt_phase(device, card):
@@ -1444,32 +1703,41 @@ def vrt_phase(device, card):
     want_shape = (VRT_CLIP[0], VRT_CLIP[1], 4 * VRT_CLIP[2], 4 * VRT_CLIP[3], 3)
     uses = {"fused": "bilinear_sample", "take": "packed_row_gather"}
     for impl, kernel in uses.items():
-        want = expected_vrt_launches(VRT_CLIP, kernel)
         out = res[impl]
         if tuple(out.shape) != want_shape or not bool(torch.isfinite(out).all()):
             raise AssertionError(f"{impl}: shape {tuple(out.shape)} (want {want_shape}) "
                                  "or non-finite")
         log(f"  {impl}: {tuple(out.shape)} finite, range [{float(out.min()):.3f}, "
             f"{float(out.max()):.3f}]")
+        # all 126 sampler calls at their expected shapes, the other sampler not
+        # launched, and one window-attention launch for each attention the
+        # request's calls imply, 164 in all
+        plan = res["attention_plans"][impl]
+        want = {name: {} for name in SAMPLERS} | {"window_attention": plan}
+        want[kernel] = expected_vrt_launches(VRT_CLIP, kernel)
         for name, by_shape in res["calls"][impl].items():
             log(f"  {impl} request, {name} launches by shape: {dict(by_shape)}")
-            # all 126 sampler calls at their expected shapes, and the other
-            # kernel was not launched
-            if by_shape != (want if name == kernel else {}):
+            if by_shape != want[name]:
                 raise AssertionError(f"{impl}: {name} launches {dict(by_shape)} != expected "
-                                     f"{dict(want) if name == kernel else {}}")
+                                     f"{dict(want[name])}")
+        if sum(plan.values()) != VRT_ATTENTION_LAUNCHES:
+            raise AssertionError(f"{impl}: {sum(plan.values())} window-attention launches, not "
+                                 f"{VRT_ATTENTION_LAUNCHES}")
     if res["pair_launches"] != 0:
         raise AssertionError("the VRT path launched the residual pair")
 
+    # the yardsticks: the plain sampler and the plain attention, in bf16 and in fp32
     forward = make_forward(model, device=device)
     set_sampler_impl(model, "plain")
-    plain = forward(clip).float()
-    model32 = build_vrt(None, img_size=VRT_CLIP[1:4])
-    model32.load_state_dict(model.state_dict())
-    set_sampler_impl(model32, "plain")
-    ref32 = make_forward(model32, device=device)(clip).float()
+    with plain_attention():
+        plain = forward(clip).float()
+        model32 = build_vrt(None, img_size=VRT_CLIP[1:4])
+        model32.load_state_dict(model.state_dict())
+        set_sampler_impl(model32, "plain")
+        ref32 = make_forward(model32, device=device)(clip).float()
     del model32
-    log(f"  comparison runs use the whole request {VRT_CLIP}")
+    log(f"  comparison runs use the whole request {VRT_CLIP}; the plain route's attention is "
+        "the plain version")
     gate_samplers({impl: res[impl] for impl in uses}, plain, ref32)
     del plain, ref32, res["fused"], res["take"]
 
@@ -1490,8 +1758,17 @@ def vrt_phase(device, card):
         f"{fps['take']:.3f}, plain {fps['plain']:.3f} (fused the median of 3, the others "
         "one request each, host clock, input upload included)")
     log(json.dumps({"vrt_fps": fps, "card": card}))
-    log(json.dumps({"profile_vrt_fused": profile_request(
-        lambda: forward(clip), seconds["fused"], ours=("bilinear_sample",))}))
+    from vsrlab_tpu_torch.utils.profiler import counters
+
+    before = counters().get("window_attention.launches", 0)
+    prof = profile_request(lambda: forward(clip), seconds["fused"],
+                           ours=("bilinear_sample", "window_attention"))
+    prof["window_attention_counter"] = counters().get("window_attention.launches", 0) - before
+    log(json.dumps({"profile_vrt_fused": prof}))
+    # the program's counter, read while the profiler collects: one launch an attention
+    if prof["window_attention_counter"] != VRT_ATTENTION_LAUNCHES:
+        raise AssertionError(f"the profiled request counted {prof['window_attention_counter']} "
+                             f"window-attention launches, not {VRT_ATTENTION_LAUNCHES}")
     from vsrlab_tpu_torch.models.vrt import FlowGuidedDeformAlign, MlpGEGLU, WindowAttention
     from vsrlab_tpu_torch.nn.blocks import LayerNorm
 
@@ -3362,7 +3639,8 @@ def serving_phase(device, card):
     vclip = torch.rand(VRT_CLIP, generator=torch.Generator().manual_seed(2))
     reset_vrt_counts()
     t0 = time.perf_counter()
-    vout = make_forward(vrt, tile=tile, tile_overlap=16, device=device)(vclip)
+    with attention_plan(vrt) as plan:
+        vout = make_forward(vrt, tile=tile, tile_overlap=16, device=device)(vclip)
     torch.cuda.synchronize()
     vrt_s = time.perf_counter() - t0
     n_tiles = (len(_tile_starts(VRT_CLIP[2], tile, tile - 16))
@@ -3370,8 +3648,13 @@ def serving_phase(device, card):
     per_tile = expected_vrt_launches((1, VRT_CLIP[1], tile, tile, 3), "bilinear_sample")
     counts = {name: fn.launches_by_shape.copy() for name, fn in vrt_wrappers().items()}
     gate_counts(f"VRT tiled ({n_tiles} tiles)", counts, {
-        "bilinear_sample": collections.Counter({k: v * n_tiles for k, v in per_tile.items()})})
+        "bilinear_sample": collections.Counter({k: v * n_tiles for k, v in per_tile.items()}),
+        "window_attention": plan})
+    if sum(plan.values()) != VRT_ATTENTION_LAUNCHES * n_tiles:
+        raise AssertionError(f"VRT tiled: {sum(plan.values())} window-attention launches, not "
+                             f"{VRT_ATTENTION_LAUNCHES} a tile")
     sampler_seen += counts["bilinear_sample"]
+    attention_seen = counts["window_attention"]
     want_shape = (1, VRT_CLIP[1], 4 * VRT_CLIP[2], 4 * VRT_CLIP[3], 3)
     if tuple(vout.shape) != want_shape or not bool(torch.isfinite(vout).all()):
         raise AssertionError(f"VRT tiled: shape {tuple(vout.shape)} or non-finite")
@@ -3381,7 +3664,7 @@ def serving_phase(device, card):
     torch.cuda.empty_cache()
     laps("(g)")
     laps.log("phase 7")
-    return pair_seen, sampler_seen
+    return pair_seen, sampler_seen, attention_seen
 
 
 # phase 10: VRT training at +experiment=vrt's shape (conf/experiment/vrt.yaml) and
@@ -3442,19 +3725,24 @@ def vrt_train_batch(device):
     return {"lr": lr, "hr": hr}
 
 
-def vrt_grads(model, batch, impl):
+def vrt_grads(model, batch, impl, plans=None):
     """One microbatch's loss, SR output and gradient by parameter name
     (zeros where a parameter gets none), with the sampler route ``impl``;
-    the sampler launches it made by kernel and shape."""
+    the VRT kernels' launches it made by kernel and shape. ``plans``, where
+    given, receives the window-attention launches its calls imply
+    (:func:`attention_plan`)."""
     from vsrlab_tpu_torch.nn.blocks import set_sampler_impl
     from vsrlab_tpu_torch.train.step import supervised_loss
 
     set_sampler_impl(model, impl)
     model.zero_grad(set_to_none=True)
     reset_vrt_counts()
-    out = model(batch["lr"])
-    loss, _ = supervised_loss(out, batch)
-    loss.backward()
+    with attention_plan(model) as plan:
+        out = model(batch["lr"])
+        loss, _ = supervised_loss(out, batch)
+        loss.backward()
+    if plans is not None:
+        plans.append(plan)
     launches = {k: fn.launches_by_shape.copy() for k, fn in vrt_wrappers().items()}
     grads = {n: (p.grad if p.grad is not None else p.new_zeros(p.shape)).detach().float().clone()
              for n, p in model.named_parameters()}
@@ -3473,30 +3761,80 @@ def remat_launches(clip, kernel, microbatches=1):
     return collections.Counter({k: 2 * microbatches * v for k, v in once.items()})
 
 
+def gate_attention_grads(kernel, plain, ref) -> dict:
+    """Phase 10 (a)'s gate of the window attention in training: one
+    microbatch with the fused sampler and the kernel (``kernel``, a
+    :func:`vrt_grads` result) and with the plain version in the kernel's
+    place (``plain``), each against the fp32 plain route ``ref`` (its SR
+    output and gradients): the SR output within twice plain bf16's
+    deviation in max and rms, every gradient finite with its rms within
+    twice, and the median over the gradients of the max's ratio at most
+    1.5. A gradient's largest element is not held to twice on its own: the
+    kernel rounds P before it normalises it, the plain version after, and
+    the plain version computed with the kernel's rounding point missed that
+    rule on 4, 0 and 12 of 721 gradients over three seeds (max ratios up to
+    4.0, rms up to 1.65); the kernel on 3, 0 and 4 (up to 3.05, rms up to
+    1.66), never on the same gradients twice (PERF.md). Returns the
+    ratios."""
+    import torch
+
+    ref_sr, ref = ref
+    ratios = {"sr": within_twice("attention kernel SR vs fp32", kernel[1], ref_sr,
+                                 dev(plain[1], ref_sr))}
+    rows = []
+    for name in ref:
+        if name.startswith("optical_flow."):
+            continue
+        g = kernel[2][name]
+        if not bool(torch.isfinite(g).all()):
+            raise AssertionError(f"attention kernel: {name} gradient not finite")
+        (d_max, d_rms), (b_max, b_rms) = dev(g, ref[name]), dev(plain[2][name], ref[name])
+        rows.append((d_max / b_max if b_max else 0.0, d_rms / b_rms if b_rms else 0.0, name))
+    worst_rms = max(rows, key=lambda r: r[1])
+    med_max = statistics.median(r[0] for r in rows)
+    ratios.update(rms_max=worst_rms[1], rms_max_at=worst_rms[2], max_median=med_max,
+                  max_max=max(r[0] for r in rows), over_twice_max=sum(r[0] > 2 for r in rows),
+                  gradients=len(rows))
+    log(f"  the window attention, one microbatch: kernel vs plain version, each against fp32: "
+        f"SR {ratios['sr'][0]:.2f} / {ratios['sr'][1]:.2f} (max / rms); over {len(rows)} "
+        f"gradients rms ratio at most {worst_rms[1]:.2f} ({worst_rms[2]}), max ratio median "
+        f"{med_max:.2f}, largest {ratios['max_max']:.2f}, {ratios['over_twice_max']} over 2")
+    if worst_rms[1] > 2 or med_max > 1.5:
+        raise AssertionError(f"the attention kernel's gradients: rms ratio {worst_rms[1]:.2f} "
+                             f"({worst_rms[2]}) over 2 or max ratio median {med_max:.2f} over 1.5")
+    return ratios
+
+
 def gate_vrt_grads(cfg, model, batch, device) -> dict:
     """Phase 10 (a)'s gradient gates on one microbatch: the SR output and
     every parameter's gradient with the ``fused`` and the ``take`` kernels
     (bf16) each within twice plain bf16's deviation from the fp32 plain
-    route (TF32 off), in max and rms; finite; SpyNet's zero (frozen); each
-    route's launches by shape those of one remat'd forward and backward.
-    Returns the worst ratios."""
+    route (the plain sampler and the plain attention, TF32 off), in max and
+    rms; finite; SpyNet's zero (frozen); each route's launches by shape
+    those of one remat'd forward and backward (the window attention's those
+    its calls imply, the recompute's included); and the window attention
+    on its own (:func:`gate_attention_grads`). Returns the worst ratios."""
     import torch
 
     mb = {k: v[: v.shape[0] // int(cfg.train.num_grad_acc)] for k, v in batch.items()}
     clip = (*mb["lr"].shape[:4], 3)
-    runs = {impl: vrt_grads(model, mb, impl) for impl in ("fused", "take", "plain")}
+    plans = []
+    runs = {impl: vrt_grads(model, mb, impl, plans) for impl in ("fused", "take", "plain")}
+    plans = dict(zip(runs, plans))
     model32 = build_train_vrt(cfg, "fp32", device)
     model32.load_state_dict(model.state_dict())
-    before = tf32(False)
-    ref_loss, ref_sr, ref, _ = vrt_grads(model32, mb, "plain")
-    tf32(before)
+    with plain_attention():  # the attention's yardsticks: the plain version in bf16 and fp32
+        attention = vrt_grads(model, mb, "fused")
+        before = tf32(False)
+        ref_loss, ref_sr, ref, _ = vrt_grads(model32, mb, "plain")
+        tf32(before)
     del model32
     torch.cuda.empty_cache()
-    worst = {}
+    worst = {"attention": gate_attention_grads(runs["fused"], attention, (ref_sr, ref))}
     plain_sr, plain = runs["plain"][1], runs["plain"][2]
     for impl, kernel in (("fused", "bilinear_sample"), ("take", "packed_row_gather")):
         loss, sr, grads, launches = runs[impl]
-        want = {"bilinear_sample": {}, "packed_row_gather": {}}
+        want = {"bilinear_sample": {}, "packed_row_gather": {}, "window_attention": plans[impl]}
         want[kernel] = remat_launches(clip, kernel)
         gate_counts(f"VRT microbatch {clip} forward and backward ({impl}, remat)", launches, want)
         if not math.isfinite(loss):
@@ -3634,8 +3972,8 @@ def vrt_parts(model):
 
 
 def vrt_train_phase(device, card) -> dict:
-    """Phase 10 (a). Returns the sampler kernels' launches by shape on the
-    main path (one step with the fused sampler, one with the row gather)."""
+    """Phase 10 (a). Returns the VRT kernels' launches by shape on the main
+    path (one step with the fused sampler, one with the row gather)."""
     import torch
 
     from vsrlab_tpu_torch.core.config import load_config
@@ -3671,11 +4009,12 @@ def vrt_train_phase(device, card) -> dict:
     calls, losses = {}, []
     for impl, kernel in (("fused", "bilinear_sample"), ("take", "packed_row_gather")):
         set_sampler_impl(model, impl)
-        _, m = step(state, batch)
+        with attention_plan(model) as plan:
+            _, m = step(state, batch)
         losses.append(float(m["Loss"]))
         now = {k: fn.launches_by_shape.copy() for k, fn in vrt_wrappers().items()}
         calls[impl], seen = {k: now[k] - seen[k] for k in now}, now
-        want = {"bilinear_sample": {}, "packed_row_gather": {}}
+        want = {"bilinear_sample": {}, "packed_row_gather": {}, "window_attention": plan}
         want[kernel] = remat_launches(mb_clip, kernel, acc)
         gate_counts(f"VRT train step ({impl}, {acc} microbatches of {mb_clip}, remat)",
                     calls[impl], want)
@@ -4128,7 +4467,8 @@ def dp_cards_main() -> int:
     log(f"data parallelism over {ranks} x {torch.cuda.get_device_name(0)}")
     log(card)
     with concurrent.futures.ThreadPoolExecutor() as pool:
-        libs = list(pool.map(load, ("residual_pair", "packed_gather", "bilinear_sample")))
+        libs = list(pool.map(load, ("residual_pair", "packed_gather", "bilinear_sample",
+                                    "window_attention")))
     for lib in libs:
         log(f"  kernels built in {lib.build_seconds:.1f} s -> {lib.path.name}")
     t = [time.perf_counter()]
@@ -4249,7 +4589,9 @@ def tp_grads(model, lr, hr, device) -> dict:
 
 
 def vrt_counts() -> dict:
-    return {k: fn.launches_by_shape.copy() for k, fn in vrt_wrappers().items()}
+    """The two samplers' launches by shape so far (the ranks' gates hold
+    these; the window attention is held in phases 2, 4, 6 and 10)."""
+    return {k: fn.launches_by_shape.copy() for k, fn in vrt_wrappers().items() if k in SAMPLERS}
 
 
 def listed(counts: dict) -> dict:
@@ -4487,7 +4829,7 @@ def gate_p11_ranks(records, ref, outdir, per_card: bool) -> dict:
 
     one_card = "cuda:0" if records[0]["device"].startswith("cuda") else "cpu"
     pairs = collections.Counter()
-    samplers = {k: collections.Counter() for k in VRT_KERNELS}
+    samplers = {k: collections.Counter() for k in SAMPLERS}
     frames = records[0]["sp_shape"][1]
     windows = -(-frames // SP_WINDOW)
     per_rank = -(-windows // records[0]["time_mesh"]["time"])
@@ -5330,7 +5672,7 @@ def vrt_sp_ranks(ref, axes: dict, device_spec: str, per_card: bool, card: str,
     one_card = "cuda:0" if device_spec.startswith("cuda") else "cpu"
     clip = (*vrt_microbatch("cpu")["lr"].shape[:4], 3)
     b, t = clip[0] // axes.get("data", 1), clip[1] // axes["time"]
-    launches = {"bf16": {k: collections.Counter() for k in VRT_KERNELS},
+    launches = {"bf16": {k: collections.Counter() for k in SAMPLERS},
                 "fp32": collections.Counter()}
     for r in records:
         k, coords = r["rank"], r["coords"]
@@ -5353,7 +5695,7 @@ def vrt_sp_ranks(ref, axes: dict, device_spec: str, per_card: bool, card: str,
         for label, kernel in (("fp32", "bilinear_sample"), ("bf16", "bilinear_sample"),
                               ("take", "packed_row_gather")):
             got = unlisted(r[label]["launches"])
-            want = {name: {} for name in VRT_KERNELS}
+            want = {name: {} for name in SAMPLERS}
             want[kernel] = split_vrt_launches((b, clip[1], *clip[2:]), kernel,
                                               coords["time"], axes["time"])
             gate_counts(f"rank {k} ({coords}): the {label} step, {b} clips of {t} frames", got,
@@ -5864,7 +6206,7 @@ def reference_checkpoint_phase(device, card) -> dict:
     reset_vrt_counts()
     got = make_forward(vrt, device=device)(vclip)
     torch.cuda.synchronize()
-    counts = {name: fn.launches_by_shape.copy() for name, fn in vrt_wrappers().items()}
+    counts = vrt_counts()
     gate_counts("imported VRT, the 16x256x256 request (fused)", counts,
                 {"bilinear_sample": expected_vrt_launches(VRT_CLIP, "bilinear_sample")})
     samplers += counts["bilinear_sample"]
@@ -5895,7 +6237,7 @@ def reference_checkpoint_phase(device, card) -> dict:
         ["--model", "vrt", "--checkpoint", vckpt, "--data", vdata, "--bar", str(ACCEPT_BAR),
          "--bf16", "--tile", str(tile), "--window", str(t), "--align-chunks", "0",
          "--published-psnr", str(direct), "--published-ssim", str(direct_ssim)], device)
-    counts = {name: fn.launches_by_shape.copy() for name, fn in vrt_wrappers().items()}
+    counts = vrt_counts()
     n_tiles = (len(_tile_starts(VRT_CLIP[2], tile, tile - 16))
                * len(_tile_starts(VRT_CLIP[3], tile, tile - 16)))
     per_tile = expected_vrt_launches((1, t, tile, tile, 3), "bilinear_sample")
@@ -5999,7 +6341,8 @@ def main() -> int:
         log(f"  {module}: {found}")
     # one nvcc for each source, started together
     with concurrent.futures.ThreadPoolExecutor() as pool:
-        libs = list(pool.map(load, ("residual_pair", "packed_gather", "bilinear_sample")))
+        libs = list(pool.map(load, ("residual_pair", "packed_gather", "bilinear_sample",
+                                    "window_attention")))
     for lib in libs:
         log(f"  kernels built in {lib.build_seconds:.1f} s -> {lib.path.name}")
         for line in lib.log.splitlines():
@@ -6009,7 +6352,8 @@ def main() -> int:
     phase("phase 2: kernels against their plain version")
     errs = check_kernels(device)
     vrt_errs = {"bilinear_sample": check_sampler_kernel(device),
-                "packed_row_gather": check_gather_kernel(device)}
+                "packed_row_gather": check_gather_kernel(device),
+                "window_attention": check_attention_kernel(device)}
 
     phase("phase 3: RealBasicVSR path (4x, mid 64, 30+20 blocks, bf16; one fp32 request)")
     pair_launches, fp32_launches = realbasicvsr_phase(device, card)
@@ -6027,10 +6371,11 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     phase("phase 7: serving from a checkpoint (headline RealBasicVSR, paper-configuration VRT)")
-    serve_pairs, serve_samplers = serving_phase(device, card)
+    serve_pairs, serve_samplers, serve_attention = serving_phase(device, card)
     for form, by_shape in serve_pairs.items():
         pair_launches[form] += by_shape
     vrt_launches["bilinear_sample"] += serve_samplers
+    vrt_launches["window_attention"] += serve_attention
     torch.cuda.empty_cache()
 
     phase("phase 8: GAN fine-tuning (headline G, UNet D mid 64, VGG19, batch 4 x 6 frames, "
@@ -6112,15 +6457,19 @@ def main() -> int:
             rows += time_kernel(form, fp32_pairs[form], device, torch.float32)[1]
         kernels.append({"name": name, "route": "cuda", "source": SOURCE, "replaces": replaces,
                         **kernel_summary(rows, err, errs[form])})
-    timers = {"bilinear_sample": time_sampler, "packed_row_gather": time_gather}
+    timers = {"bilinear_sample": time_sampler, "packed_row_gather": time_gather,
+              "window_attention": time_attention}
     for name, (source, replaces, also) in VRT_KERNELS.items():
         err, rows = timers[name](vrt_launches[name], device)
         if name == "bilinear_sample":  # the flow paths' and phase 13's fp32 launches
             rows += time_sampler(fp32_samplers, device, torch.float32)[1]
         kernels.append({"name": name, "route": "cuda", "source": source, "replaces": replaces,
-                        "also_replaces": also, **kernel_summary(rows, err, vrt_errs[name]),
-                        # phase 10 (b): the PyTorch backward at the training shapes
-                        "backward": backward["rows"][name]})
+                        "also_replaces": also, **kernel_summary(rows, err, vrt_errs[name])})
+        if name in SAMPLERS:  # phase 10 (b): the PyTorch backward at the training shapes
+            kernels[-1]["backward"] = backward["rows"][name]
+        else:  # the attention's check reads a share of its gate (attention_gate), no error
+            kernels[-1]["gate_share"] = kernels[-1].pop("max_abs_err")
+            kernels[-1]["gate_share_fp32"] = kernels[-1].pop("max_abs_err_fp32")
     pair_host_split(device)
     train_host_split(device)
     phase("the kernels line")

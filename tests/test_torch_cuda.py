@@ -1,6 +1,7 @@
 """vsrlab_tpu_torch's CUDA kernels on the card (the residual pair, the
-bilinear sampler and the packed row gather): agreement with the plain
-version at ragged shapes, the launch counter, and the wrappers' refusals.
+bilinear sampler, the packed row gather and the fused window attention):
+agreement with the plain version at ragged shapes, the launch counter, and
+the wrappers' refusals.
 
 Skips without a CUDA device. On a machine with a card and no JAX, run
 without the JAX test configuration:
@@ -653,3 +654,215 @@ def test_imported_headline_realbasicvsr_serves_within_the_bf16_gate(cuda, tmp_pa
     for other in (plain, ref):
         d_max, d_rms = dev(got, other)
         assert d_max <= 2 * b_max and d_rms <= 2 * b_rms, (d_max, d_rms, b_max, b_rms)
+
+
+# -- fused window attention (ops/window_attention.py, csrc/window_attention.cu)
+
+from _attention_gate import QK_STD, bf16_gate_ratios  # noqa: E402
+from vsrlab_tpu_torch.ops import window_attention as owa  # noqa: E402
+
+# (name, windows, heads, nq, nk, hd, bias, masks): VRT's shapes and the edges.
+# self384: (6,8,8) windows at dims 120 / 180 over 6 heads (hd 20 / 30);
+# self128: the self part of a (2,8,8) mutual block; mutual64: one direction
+# of its mutual attention (halves of a 128-token window, the mask's first
+# frame); trunk64: the trunk's (1,8,8) windows; rows: forward_rows' rows of
+# 2 of 6 frames; none: neither bias nor masks; small: the CPU tests' dims
+# (8 or 12 channels over 2 heads); ragged: nq, nk off every tile; hd64: the
+# widest head the kernel takes
+WA_CASES = [
+    ("self384", 12, 6, 384, 384, 20, True, True),
+    ("self384_hd30", 8, 6, 384, 384, 30, True, True),
+    ("self128", 16, 6, 128, 128, 20, True, True),
+    ("mutual64", 16, 6, 64, 64, 30, False, True),
+    ("trunk64", 16, 6, 64, 64, 30, True, False),
+    ("rows", 8, 6, 128, 384, 20, True, True),
+    ("none", 8, 3, 64, 64, 20, False, False),
+    ("small4", 9, 2, 32, 32, 4, True, True),
+    ("small6", 9, 2, 12, 12, 6, True, True),
+    ("ragged", 5, 3, 50, 77, 12, True, True),
+    ("hd64", 4, 2, 128, 128, 64, True, True),
+    ("hd64_384", 2, 2, 384, 384, 64, True, True),
+]
+
+
+def _wa_operands(case, dtype, device, seed=0):
+    """q, k, v as head views of one fused projection output (B, n, 3*H*hd),
+    as WindowAttention hands them over; a mutual case takes a 2*n-token
+    window's second half of q against the first half of k and v, and the
+    first frame's corner of (T, 2n, 2n) masks. q and k of std ``QK_STD``
+    (logits of std ~4, as a trained model's); bias drawn at +-0.5 (VRT's
+    tables start at +-0.04) so that a lost bias shows beside the gate."""
+    name, b, h, nq, nk, hd, with_bias, with_masks = case
+    g = torch.Generator().manual_seed(seed)
+    mutual = name.startswith("mutual")
+    n = 2 * nq if mutual else max(nq, nk)
+    qkv = torch.randn((b, n, 3 * h * hd), generator=g)
+    qkv[..., :2 * h * hd] *= QK_STD
+    qkv = qkv.to(device, dtype)
+
+    def heads(t):
+        return t.reshape(b, n, h, hd).transpose(1, 2)
+
+    q, k, v = (heads(t) for t in qkv.chunk(3, -1))
+    if mutual:
+        q, k, v = q[:, :, nq:], k[:, :, :nq], v[:, :, :nq]
+    else:
+        q, k, v = q[:, :, :nq], k[:, :, :nk], v[:, :, :nk]
+    bias = ((torch.rand((h, nq, nk), generator=g) - 0.5).to(device)
+            if with_bias else None)
+    masks = tid = None
+    if with_masks:
+        types = 8
+        full = torch.where(torch.rand((types, n, n), generator=g) < 0.3, -100.0, 0.0)
+        masks = full.to(device)[:, :nq, :nk]
+        tid = torch.randint(0, types, (b,), generator=g).to(device)
+    return q, k, v, hd ** -0.5, bias, masks, tid
+
+
+def _assert_within_gate(got, want, v):
+    if got.dtype == torch.bfloat16:
+        elem, rms = bf16_gate_ratios(got, want)
+        assert elem <= 1 and rms <= 1, (elem, rms)
+    else:
+        torch.testing.assert_close(got, want, rtol=0, atol=2e-5 * v.abs().max().item())
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("case", WA_CASES, ids=[c[0] for c in WA_CASES])
+def test_window_attention_kernel_matches_plain(cuda, monkeypatch, dtype, case):
+    """The kernel against the plain version on the card, written into a
+    channel slice of a wider buffer. Gate: bf16, ``bf16_gate_ratios`` at
+    most 1 (``tests/_attention_gate.py``: each element within one bf16 ulp
+    at its own scale plus 2^-8 of the largest output, the rms within 2^-8
+    of the output's; a kernel with bf16 logits fails it); fp32 2e-5 of the
+    largest |v| (every output is a convex combination of v's rows; fp32
+    sums in another order, exp within 2 ulp, on logits up to ~30)."""
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    q, k, v, scale, bias, masks, tid = _wa_operands(case, dtype, cuda)
+    b, h, nq, hd = q.shape
+    buf = torch.full((b, nq, 2 * h * hd), 3.0, dtype=dtype, device=cuda)
+    before = owa.window_attention.launches
+    got = owa.window_attention(q, k, v, scale, bias, masks, tid, out=buf[:, :, h * hd:])
+    torch.cuda.synchronize()
+    assert owa.window_attention.launches == before + 1
+    assert got.data_ptr() == buf[:, :, h * hd:].data_ptr()
+    assert bool((buf[:, :, :h * hd] == 3.0).all())
+    want = owa.window_attention_plain(q, k, v, scale, bias, masks, tid)
+    _assert_within_gate(got, want, v)
+    again = owa.window_attention(q, k, v, scale, bias, masks, tid)
+    assert torch.equal(again, got)  # no atomics: a launch repeats bit for bit
+
+
+def test_window_attention_kernel_refuses_what_it_does_not_take(cuda):
+    q, k, v, scale, bias, masks, tid = _wa_operands(WA_CASES[2], torch.bfloat16, cuda)
+    before = owa.window_attention.launches
+    wide = torch.zeros((2, 2, 16, 80), dtype=torch.bfloat16, device=cuda)
+    strided = torch.zeros((16, 6, 128, 40), dtype=torch.bfloat16, device=cuda)[..., ::2]
+    cases = [
+        (wide, wide, wide, None, None, None),                     # head dim over 64
+        (q.half(), k.half(), v.half(), bias, masks, tid),         # fp16
+        (q, k.float(), v, bias, masks, tid),                      # mixed types
+        (q, k.cpu(), v, bias, masks, tid),                        # mixed devices
+        (strided, k, v, bias, masks, tid),                        # feature stride 2
+    ]
+    for qq, kk, vv, bb, mm, tt in cases:
+        with pytest.raises(ValueError):
+            owa.window_attention(qq, kk, vv, scale, bb, mm, tt)
+    # K and V of one (window, head) over the shared memory: the launch refuses
+    big = torch.zeros((1, 1, 1024, 64), dtype=torch.bfloat16, device=cuda)
+    with pytest.raises(RuntimeError, match="window_attention launch failed"):
+        owa.window_attention(big, big, big, 0.125)
+    assert owa.window_attention.launches == before
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_window_attention_kernel_writes_nan_for_a_type_without_a_mask(cuda, dtype):
+    """A window whose type id lies outside [0, T) names no mask: its rows
+    are NaN (where the plain version fails on the index), every other
+    window's are the in-range result."""
+    q, k, v, scale, bias, masks, tid = _wa_operands(WA_CASES[2], dtype, cuda)
+    want = owa.window_attention(q, k, v, scale, bias, masks, tid)
+    bad = tid.clone()
+    bad[3], bad[7] = masks.shape[0], -1
+    got = owa.window_attention(q, k, v, scale, bias, masks, bad)
+    torch.cuda.synchronize()
+    assert bool(got[[3, 7]].isnan().all())
+    keep = [i for i in range(q.shape[0]) if i not in (3, 7)]
+    assert torch.equal(got[keep], want[keep])
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("case", [WA_CASES[2], WA_CASES[5]], ids=["self128", "rows"])
+def test_window_attention_gradient_matches_autograd_through_plain(cuda, monkeypatch, dtype, case):
+    """Kernel forward, recompute backward (``FusedAttention``) against
+    autograd through the plain version: the same plain computation on the
+    same operands backward, so the gradients agree to the last bit; the
+    forward within the kernel test's gate."""
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    q, k, v, scale, bias, masks, tid = _wa_operands(case, dtype, cuda, seed=1)
+    leaves = [t.detach().clone().requires_grad_() for t in (q, k, v, bias)]
+    refs = [t.detach().clone().requires_grad_() for t in (q, k, v, bias)]
+    before = owa.window_attention.launches
+    got = owa.window_attention(*leaves[:3], scale, leaves[3], masks, tid)
+    assert owa.window_attention.launches == before + 1
+    want = owa.window_attention_plain(*refs[:3], scale, refs[3], masks, tid)
+    g = torch.randn(got.shape, generator=torch.Generator().manual_seed(2)).to(cuda, dtype)
+    got.backward(g)
+    want.backward(g)
+    _assert_within_gate(got.detach(), want.detach(), v)
+    for a, r in zip(leaves, refs):
+        torch.testing.assert_close(a.grad, r.grad, rtol=0, atol=0)
+
+
+def test_vrt_forward_on_the_card_launches_once_per_attention_call(cuda, monkeypatch):
+    """A VRT at the paper's widths (dims 120 / 180, 6 heads, window
+    (6, 8, 8); 2 blocks a stage, 1 a trunk group) serves a 6 x 64 x 64 clip
+    through the kernel: one launch for each self attention and each mutual
+    direction (3 a mutual block). Its output lies within twice the
+    deviation from fp32 (the same weights in fp32, TF32 off, the plain
+    version in the kernel's place) of the bf16 model with the plain version
+    in the kernel's place, in max and rms, as the sampler kernels' request
+    gate holds them."""
+    from vsrlab_tpu_torch.evaluation.harness import make_forward
+    from vsrlab_tpu_torch.models import VRT
+    from vsrlab_tpu_torch.models.vrt import WindowAttention
+    from vsrlab_tpu_torch.nn.blocks import init_weights
+
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+
+    def build(dtype):
+        return init_weights(VRT(upscale=4, depths=[2] * 7 + [1] * 6,
+                                embed_dims=[120] * 7 + [180] * 6, num_heads=[6] * 13,
+                                deformable_groups=12, dtype=dtype),
+                            torch.Generator().manual_seed(0))
+
+    model = build(torch.bfloat16)
+    calls = []
+    for m in model.modules():
+        if isinstance(m, WindowAttention):
+            m.register_forward_hook(lambda mod, args, out: calls.append(3 if mod.mut_attn else 1))
+    clip = torch.rand((1, 6, 64, 64, 3), generator=torch.Generator().manual_seed(1))
+    before = owa.window_attention.launches
+    got = make_forward(model, device=cuda)(clip).float()
+    torch.cuda.synchronize()
+    assert len(calls) == 20 and owa.window_attention.launches - before == sum(calls)
+    assert bool(torch.isfinite(got).all())
+
+    def plain_launch(q, k, v, scale, bias, masks, tid, out=None):
+        y = owa.window_attention_plain(q, k, v, scale, bias, masks, tid)
+        return y if out is None else out.copy_(y)
+
+    monkeypatch.setattr(owa, "_launch", plain_launch)
+    plain = make_forward(model, device=cuda)(clip).float()
+    model32 = build(None)
+    model32.load_state_dict(model.state_dict())
+    ref = make_forward(model32, device=cuda)(clip).float()
+
+    def dev(a, b):
+        d = (a - b).abs()
+        return float(d.max()), float(d.pow(2).mean().sqrt())
+
+    b_max, b_rms = dev(plain, ref)
+    d_max, d_rms = dev(got, ref)
+    assert d_max <= 2 * b_max and d_rms <= 2 * b_rms, (d_max, d_rms, b_max, b_rms)

@@ -22,6 +22,7 @@ from vsrlab_tpu_torch import convert  # noqa: E402
 from vsrlab_tpu_torch.models import vrt  # noqa: E402
 from vsrlab_tpu_torch.models.vrt import window_attention as wa  # noqa: E402
 from vsrlab_tpu_torch.nn.blocks import set_sampler_impl  # noqa: E402
+from vsrlab_tpu_torch.ops import window_attention as owa  # noqa: E402
 
 ATOL = 5e-4
 ATOL_MODULE = 2e-5
@@ -110,7 +111,7 @@ def test_window_attention_matches_jax(rng, monkeypatch, mut_attn, mask_kind, n):
     np.testing.assert_allclose(_run(mod, x, mask).numpy(), np.asarray(want),
                                atol=ATOL_MODULE, rtol=0)
     # the same result when the windows go through in chunks of 3
-    monkeypatch.setattr(wa, "LOGITS_BUDGET", 3 * heads * n * n * 4)
+    monkeypatch.setattr(owa, "LOGITS_BUDGET", 3 * heads * n * n * 4)
     np.testing.assert_allclose(_run(mod, x, mask).numpy(), np.asarray(want),
                                atol=ATOL_MODULE, rtol=0)
 

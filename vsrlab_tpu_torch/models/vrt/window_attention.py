@@ -5,8 +5,12 @@
 * the shift mask is computed in numpy once per (padded shape, window,
   shift) and cached, in its factored form (at most 8 distinct window
   masks plus a type id per window);
-* self attention and both mutual-attention directions run as batched
-  matmuls over a chunk of windows at a time, with fp32 logits and softmax;
+* self attention and both mutual-attention directions run through
+  :func:`vsrlab_tpu_torch.ops.window_attention.window_attention`: on the
+  card one fused kernel launch a call over every window (logits, bias,
+  mask and softmax kept on chip), each head's rows written into its
+  channel slice of the pre-projection buffer; on the CPU batched matmuls
+  with fp32 logits over chunks of windows;
 * mutual attention splits each temporal-window-2 token block into its two
   frames and cross-attends them both ways;
 * :meth:`WindowAttention.forward_rows` computes the output rows of some
@@ -35,12 +39,8 @@ import torch.nn.functional as F
 from torch import nn
 
 from vsrlab_tpu_torch.nn.blocks import Linear
+from vsrlab_tpu_torch.ops.window_attention import window_attention
 from vsrlab_tpu_torch.parallel import active_mesh
-
-# fp32 logits of one chunk of windows: above this the windows are processed
-# in chunks. Unchunked, full VRT at 16x256x256 has (3072, 6, 384, 384) fp32
-# logits in one block: 10.9 GB.
-LOGITS_BUDGET = 1 << 30
 
 
 def window_partition(x: torch.Tensor, window_size: Sequence[int]) -> torch.Tensor:
@@ -339,35 +339,26 @@ class WindowAttention(nn.Module):
             self.relative_position_bias_table.normal_(0.0, 0.02, generator=generator)
             self.relative_position_bias_table.clamp_(-0.04, 0.04)
 
-    def _core(self, q, k, v, masks, tid, bias):
-        """Windowed attention on one chunk: ``q`` (Bc, nH, nq, hd) against
-        ``k``, ``v`` (Bc, nH, nk, hd); ``bias`` (1, nH, nq, nk) and the
-        window types' ``masks`` (types, nq, nk) are already cut to these rows
-        and columns (``rpi[rows][:, cols]``, ``masks[:, rows][:, :, cols]``),
-        ``tid`` the chunk's window types."""
-        nq = q.shape[2]
-        attn = torch.matmul((q * self.scale).float(), k.float().transpose(-1, -2))
-        if bias is not None:
-            attn = attn + bias
-        if masks is not None:
-            attn = attn + masks[tid][:, None]
-        attn = torch.softmax(attn, dim=-1).to(v.dtype)
-        out = torch.matmul(attn, v)
-        return out.transpose(1, 2).reshape(out.shape[0], nq, -1)
-
     def _block(self, q, k, v, qkv_m, masks, tid, bias):
-        """Self (+ mutual) attention for one chunk of windows; returns the
-        pre-projection concat (Bc, N, C or 2C), ``[mutual, self]`` on channels."""
-        x_out = self._core(q, k, v, masks, tid, bias)
+        """Self (+ mutual) attention of the windows ``q``, ``k``, ``v``
+        (B_, nH, N, hd), ``bias`` (nH, N, N), the window types' ``masks``
+        (types, N, N) and ``tid`` (B_,); returns the pre-projection concat
+        (B_, N, C or 2C), ``[mutual, self]`` on channels, each attention
+        writing its rows into its slice."""
         if not self.mut_attn:
-            return x_out
+            return window_attention(q, k, v, self.scale, bias, masks, tid)
+        b, nh, n, hd = q.shape
+        c, half = nh * hd, n // 2
+        out = q.new_empty((b, n, 2 * c))
         qm, km, vm = qkv_m
-        half = q.shape[2] // 2
         # both directions read the first frame's mask (the JAX package's slice)
         m = None if masks is None else masks[:, :half, :half]
-        x1 = self._core(qm[:, :, half:], km[:, :, :half], vm[:, :, :half], m, tid, None)
-        x2 = self._core(qm[:, :, :half], km[:, :, half:], vm[:, :, half:], m, tid, None)
-        return torch.cat([torch.cat([x1, x2], 1), x_out], -1)
+        window_attention(qm[:, :, half:], km[:, :, :half], vm[:, :, :half], self.scale, None, m,
+                         tid, out[:, :n - half, :c])
+        window_attention(qm[:, :, :half], km[:, :, half:], vm[:, :, half:], self.scale, None, m,
+                         tid, out[:, n - half:, :c])
+        window_attention(q, k, v, self.scale, bias, masks, tid, out[:, :, c:])
+        return out
 
     def head_shard(self):
         """``(group, start, stop)``: this rank's heads under the active mesh,
@@ -403,7 +394,7 @@ class WindowAttention(nn.Module):
         qkv_m = None if qkv_mut is None else tuple(heads(t) for t in qkv_mut.chunk(3, -1))
         rpi = self.rpi[:n, :n].reshape(-1)
         table = self.relative_position_bias_table[:, lo:lo + nh]
-        bias = table[rpi].reshape(n, n, nh).permute(2, 0, 1)[None]
+        bias = table[rpi].reshape(n, n, nh).permute(2, 0, 1)
 
         masks = tid = None
         if isinstance(mask, FactoredMask):
@@ -414,14 +405,7 @@ class WindowAttention(nn.Module):
             masks = torch.as_tensor(mask, dtype=torch.float32, device=x.device)
             tid = torch.arange(b_, device=x.device) % masks.shape[0]
 
-        chunk = max(1, LOGITS_BUDGET // (max(nh, 1) * n * n * 4))
-        outs = []
-        for s in range(0, b_, chunk):
-            sl = slice(s, s + chunk)
-            outs.append(self._block(
-                q[sl], k[sl], v[sl], None if qkv_m is None else tuple(t[sl] for t in qkv_m),
-                masks, None if tid is None else tid[sl], bias))
-        out = outs[0] if len(outs) == 1 else torch.cat(outs, 0)
+        out = self._block(q, k, v, qkv_m, masks, tid, bias)
         if shard is None:
             return self.proj(out)
         # the bias once, on the group's first rank, then the sum over the group
@@ -470,7 +454,7 @@ class WindowAttention(nn.Module):
         q, k, v = heads(q[:, rows]), heads(k), heads(v)
         rpi = self.rpi[:n, :n][rows].reshape(-1)
         table = self.relative_position_bias_table[:, lo:hi]
-        bias = table[rpi].reshape(nq, n, nh).permute(2, 0, 1)[None]
+        bias = table[rpi].reshape(nq, n, nh).permute(2, 0, 1)
         masks = mut_masks = None
         if mask is not None:
             full = torch.from_numpy(mask.masks).to(dev)
@@ -482,19 +466,16 @@ class WindowAttention(nn.Module):
             qm = heads(qm[:, span([1 - p for p in positions])])
             km, vm = heads(km[:, rows]), heads(vm[:, rows])
 
-        chunk = max(1, LOGITS_BUDGET // (max(nh, 1) * nq * n * 4))
-        outs = []
-        for at in range(0, b_, chunk):
-            sl = slice(at, at + chunk)
-            t = None if tid is None else tid[sl]
-            out = self._core(q[sl], k[sl], v[sl], masks, t, bias)
-            if self.mut_attn:
-                mut = [self._core(qm[sl, :, i * s:(i + 1) * s], km[sl, :, i * s:(i + 1) * s],
-                                  vm[sl, :, i * s:(i + 1) * s], mut_masks, t, None)
-                       for i in range(len(positions))]
-                out = torch.cat([torch.cat(mut, 1), out], -1)
-            outs.append(out)
-        out = outs[0] if len(outs) == 1 else torch.cat(outs, 0)
+        if not self.mut_attn:
+            out = window_attention(q, k, v, self.scale, bias, masks, tid)
+        else:
+            c = nh * hd
+            out = q.new_empty((b_, nq, 2 * c))
+            for i in range(len(positions)):
+                rs = slice(i * s, (i + 1) * s)
+                window_attention(qm[:, :, rs], km[:, :, rs], vm[:, :, rs], self.scale, None,
+                                 mut_masks, tid, out[:, rs, :c])
+            window_attention(q, k, v, self.scale, bias, masks, tid, out[:, :, c:])
         if shard is None:
             return self.proj(out)
         part = _proj_heads(self.proj, out, lo, hi, hd, 2 if self.mut_attn else 1, lo == 0)
