@@ -9,6 +9,9 @@
                                                   # device times, the same way
     python3 chip_smoke.py --split-rounding        # a one-process diagnostic of a split's
                                                   # bf16 gradient rounding (PERF.md)
+    python3 chip_smoke.py --bvpp                  # phase 1's build, phase 2's sampler
+                                                  # checks, phase 16 and the sampler's
+                                                  # times at its shapes
     python3 chip_smoke.py --dp-cards              # phase 10 (c) with one rank a card
                                                   # over every visible card (NCCL),
                                                   # train.train under torchrun, phase
@@ -44,7 +47,8 @@ Phases, in order; any failure exits non-zero:
    (``bilinear_sample``) against ``bilinear_sample_plain`` at the
    alignment's 180 images of 128x128x10, a row pitch that is no multiple
    of 16 bytes (9x13x10), C = 4, C = 3 (the generic path), one row, one
-   column and one pixel, on realistic coordinates (the pixel grid plus an
+   column, one pixel, BasicVSR++'s deformable taps (16 groups of 8
+   channels at 180x320) and its state warps (C = 64 at 180x320), on realistic coordinates (the pixel grid plus an
    N(0, 3) residue), uniform ones, far ones (most corners outside) and, in
    zeros mode, ones with +-inf, NaN and +-1e30 among them (the result must
    be 0 there and finite everywhere), in zeros and border mode, three
@@ -407,10 +411,21 @@ Phases, in order; any failure exits non-zero:
    one batch, as phase 4 runs it; the default 30 runs it one frame a chunk,
    15x the launches and ~4x the time), 126 fused launches a tile. The
    phase's wall seconds. The launches count into the ``kernels`` line.
-16. One JSON line ``{"kernels": [...]}``: per kernel its main-path launches
+16. BasicVSR++ (run after phase 14, before phase 6) at mmagic's
+   ``basicvsr-pp_c64n7`` widths (64 channels, 7 units a branch, 16 offset
+   groups, bf16, the offset heads drawn), one whole 100-frame 180x320 clip
+   through ``make_forward``: the request that captures the alignments'
+   CUDA graphs, a replayed one and the eager route, the kernels' counts
+   zeroed before each and gated by shape (``bvpp_launches``: the pair 10
+   times at 100 frames and 2,800 at one, the sampler 788 state warps, 392
+   flow warps and 3,564 deformable taps at ``(16, 180, 320, 8)``; a replay
+   counts its graph's launch plan), the graphed outputs bitwise the eager
+   one, then frames/s of replayed requests. The launches count into the
+   ``kernels`` line.
+17. One JSON line ``{"kernels": [...]}``: per kernel its main-path launches
    (inference, training, serving, GAN fine-tuning, the flow paths, VRT
-   training, the ranks of phases 11 to 13 and 15 and phase 14's imported
-   models; the window attention's: phase 4's requests, phase 7 (g)'s tiles
+   training, the ranks of phases 11 to 13 and 15, phase 14's imported
+   models and phase 16's BasicVSR++; the window attention's: phase 4's requests, phase 7 (g)'s tiles
    and phase 10 (a)'s steps) and,
    summed over those launches (per-launch time at each shape times that
    shape's count), ``ms``, ``plain_ms``,
@@ -509,11 +524,17 @@ PACKED_CHECKS = ((180, 128, 128, 10, 2), (3, 9, 13, 5, 2), (24, 8, 8, 4, 8), (2,
                  (2, 4, 1, 4, 8))
 # (images, H, W, C): the alignment's 128x128 stage, a row pitch that is no
 # multiple of 16 bytes (W = 13), C = 4, C = 3 (the generic path), one row,
-# one column, one pixel
+# one column, one pixel; BasicVSR++'s deformable taps (16 groups of 8
+# channels at 180x320) and its state warps (C = 64)
 SAMPLER_CHECKS = ((180, 128, 128, 10), (3, 9, 13, 10), (24, 8, 8, 4), (3, 9, 13, 3),
-                  (2, 1, 5, 10), (2, 4, 1, 4), (1, 1, 1, 10))
+                  (2, 1, 5, 10), (2, 4, 1, 4), (1, 1, 1, 10), (16, 180, 320, 8),
+                  (1, 180, 320, 64))
 SAMPLER_KINDS = ("realistic", "uniform", "far", "nonfinite")
 VRT_CLIP = (1, 16, 256, 256, 3)
+# BasicVSR++ at mmagic's basicvsr-pp_c64n7 widths, a whole 100-frame REDS clip a request
+BVPP = {"mid_channels": 64, "num_blocks": 7, "max_residue_magnitude": 10.0, "deform_groups": 16,
+        "upscale": 4}
+BVPP_FRAMES = 100
 # phase 7: the served LR frame size (the headline's) and the tile of the tiled requests
 SERVE_LR = (180, 320)
 SERVE_TILE = 128
@@ -1403,11 +1424,12 @@ def seed_offset_heads(model, g):
     top of the flow prior and masks vary."""
     import torch
 
-    from vsrlab_tpu_torch.models.vrt import FlowGuidedDeformAlign
+    from vsrlab_tpu_torch.models.vrt.deform import (
+        FlowGuidedDeformAlign, SecondOrderDeformableAlignment)
 
     with torch.no_grad():
         for m in model.modules():
-            if isinstance(m, FlowGuidedDeformAlign):
+            if isinstance(m, (FlowGuidedDeformAlign, SecondOrderDeformableAlignment)):
                 m.conv_offset_3.weight.normal_(0.0, 0.05, generator=g)
                 m.conv_offset_3.bias.normal_(0.0, 0.05, generator=g)
     return model
@@ -6311,6 +6333,128 @@ def split_rounding_main() -> int:
     return 0
 
 
+def bvpp_launches(t: int, h: int, w: int, widths=BVPP, extract: int = 5,
+                  reconstruct: int = 5) -> tuple:
+    """One BasicVSR++ request's launches by shape of the pair kernel and of
+    the sampler, for one clip of ``t >= 2`` frames of ``h x w``: the pair
+    ``extract`` + ``reconstruct`` times at ``t`` frames and ``num_blocks``
+    times a branch step at one; the sampler once for the state warp at each
+    step after a branch's first, twice more from its third step (the
+    composed flow's warp of the 2-channel flow, the warp of the state two
+    back), and nine taps an alignment over the offset groups (SpyNet warps
+    with the plain version)."""
+    import collections
+
+    c, groups = widths["mid_channels"], widths["deform_groups"]
+    hw, branches = h * w, 4
+    pairs = collections.Counter({(t, h, w, c): extract + reconstruct,
+                                 (1, h, w, c): branches * t * widths["num_blocks"]})
+    samples = collections.Counter({(1, h, w, c, hw): branches * (2 * t - 3),
+                                   (1, h, w, 2, hw): branches * (t - 2),
+                                   (groups, h, w, 2 * c // groups, hw): 9 * branches * (t - 1)})
+    return pairs, samples
+
+
+def bvpp_phase(device, card, frames: int = BVPP_FRAMES, widths=BVPP) -> tuple:
+    """BasicVSR++ at the published widths (bf16, the offset heads drawn, so
+    that the taps sample off the flow) served one whole ``frames``-frame
+    180x320 clip through ``make_forward``: the request that captures the
+    alignments' CUDA graphs and a replayed one, each with the kernels'
+    counts zeroed just before and gated by shape against
+    :func:`bvpp_launches` (a replay counts its graph's launch plan), then
+    the eager route (no graphs) under the same gate; the graphed outputs
+    must equal the eager one bit for bit and be finite. Logs frames/s of
+    replayed requests (median of 3). Returns the pair's and the sampler's
+    launches by shape over the three requests."""
+    import collections
+
+    import torch
+
+    from vsrlab_tpu_torch.evaluation.harness import make_forward
+    from vsrlab_tpu_torch.models import BasicVSRPlusPlus
+    from vsrlab_tpu_torch.nn.blocks import init_weights
+    from vsrlab_tpu_torch.ops import bilinear_sample as bs
+    from vsrlab_tpu_torch.ops.residual_pair import reset_launch_counts
+    from vsrlab_tpu_torch.utils.graphs import GraphedCall
+
+    g = torch.Generator().manual_seed(0)
+    model = BasicVSRPlusPlus(**widths, dtype=torch.bfloat16)
+    model = seed_offset_heads(init_weights(model, g), g)
+    h, w = SERVE_LR
+    clip = torch.rand((1, frames, h, w, 3), generator=g)
+    forward = make_forward(model, device=device)
+    pairs, samples = bvpp_launches(frames, h, w, widths)
+    total_pairs, total_samples = collections.Counter(), collections.Counter()
+
+    def request(label):
+        reset_launch_counts()
+        bs.reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = forward(clip)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        gate_counts(f"BasicVSR++ {label} request", pair_counts(), {"taps": pairs})
+        gate_samples(f"BasicVSR++ {label} request", samples)
+        total_pairs.update(pairs)
+        total_samples.update(samples)
+        log(f"  BasicVSR++ {label} request: {wall * 1e3:.1f} ms")
+        return out
+
+    graphed = [request("capturing"), request("replayed")]
+    on_card = torch.device(device).type == "cuda"  # a CPU rehearsal runs eagerly throughout
+    if on_card and [len(m._graphed) for m in model.deform_align.values()] != [1] * 4:
+        raise AssertionError("BasicVSR++: not one graph an alignment")
+    call = GraphedCall.__call__
+    GraphedCall.__call__ = lambda self, *args, extra=None: self.fn(*args)
+    try:
+        eager = request("eager")
+    finally:
+        GraphedCall.__call__ = call
+    same = [torch.equal(out, eager) for out in graphed]
+    finite = bool(torch.isfinite(eager).all())
+    log(f"  BasicVSR++ graphed outputs bitwise the eager one: {same}; finite: {finite}")
+    if not all(same) or not finite:
+        raise AssertionError("BasicVSR++: the graphed request differs from the eager one")
+    del graphed, eager
+    walls = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        forward(clip)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    log(f"  BasicVSR++ {frames} frames {h}x{w} -> {4 * h}x{4 * w}, bf16: "
+        f"{frames / statistics.median(walls):.2f} frames/s (median of 3 requests, upload in, "
+        f"no copy back; {card})")
+    return total_pairs, total_samples
+
+
+def bvpp_main() -> int:
+    """``--bvpp``: the kernels' build, the sampler's checks (phase 2's, with
+    BasicVSR++'s shapes), the BasicVSR++ request (:func:`bvpp_phase`) and
+    the sampler's times at its shapes."""
+    import torch
+
+    from vsrlab_tpu_torch.build import load
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    device = torch.device("cuda")
+    card = card_line()
+    log(card)
+    for name in ("residual_pair", "bilinear_sample"):
+        log(f"  {name} built in {load(name).build_seconds:.1f} s")
+    log(json.dumps({"bilinear_sample_checks": check_sampler_kernel(device)}))
+    _, samples = bvpp_phase(device, card)
+    torch.cuda.empty_cache()
+    flows = {s: n for s, n in samples.items() if s[0] == 1 and s[3] == 2}
+    rows = time_sampler({s: n for s, n in samples.items() if s not in flows}, device)[1]
+    rows += time_sampler(flows, device, torch.float32)[1]
+    log(json.dumps({"bvpp_sampler_rows": rows}))
+    return 0
+
+
 def main() -> int:
     import torch
 
@@ -6449,6 +6593,15 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     torch.cuda.empty_cache()
 
+    phase("phase 16: BasicVSR++ (mmagic's c64n7 widths, a whole 100-frame 180x320 clip, bf16; "
+          "the alignments as CUDA graphs and eager)")
+    bvpp_pairs, bvpp_samples = bvpp_phase(device, card)
+    pair_launches["taps"] += bvpp_pairs
+    for shape, n in bvpp_samples.items():  # the flows' warps are fp32, the features' bf16
+        flow = shape[0] == 1 and shape[3] == 2
+        (fp32_samplers if flow else vrt_launches["bilinear_sample"])[shape] += n
+    torch.cuda.empty_cache()
+
     phase("phase 6: each kernel at its paths' shapes")
     kernels = []
     for form, (name, replaces) in KERNELS.items():
@@ -6500,4 +6653,6 @@ if __name__ == "__main__":
         sys.exit(split_rounding_main())
     if sys.argv[1:2] == ["--dp-cards"]:
         sys.exit(dp_cards_main())
+    if sys.argv[1:2] == ["--bvpp"]:
+        sys.exit(bvpp_main())
     sys.exit(main())

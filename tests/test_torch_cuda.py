@@ -866,3 +866,79 @@ def test_vrt_forward_on_the_card_launches_once_per_attention_call(cuda, monkeypa
     b_max, b_rms = dev(plain, ref)
     d_max, d_rms = dev(got, ref)
     assert d_max <= 2 * b_max and d_rms <= 2 * b_rms, (d_max, d_rms, b_max, b_rms)
+
+
+def test_basicvsr_pp_alignment_graph_replays_the_eager_call(cuda, monkeypatch):
+    """BasicVSR++'s alignments run as CUDA graphs in inference: the capturing
+    call and every replay give the eager call's bits and count the eager
+    call's sampler launches by shape, and new weights (a
+    ``load_state_dict``) are captured anew."""
+    from vsrlab_tpu_torch.models import BasicVSRPlusPlus
+    from vsrlab_tpu_torch.utils.graphs import GraphedCall
+
+    torch.manual_seed(0)
+    model = BasicVSRPlusPlus(64, 2, dtype=torch.bfloat16).to(cuda)
+    graphed = [m._graphed for m in model.deform_align.values()]
+    x = torch.rand(1, 6, 48, 64, 3, device=cuda)
+    replay = GraphedCall.__call__
+
+    def run(graphed_):
+        monkeypatch.setattr(GraphedCall, "__call__", replay if graphed_ else
+                            lambda self, *args, extra=None: self.fn(*args))
+        bs.reset_launch_counts()
+        with torch.inference_mode():
+            out = model(x)
+        torch.cuda.synchronize()
+        return out, (bs.bilinear_sample.launches, dict(bs.bilinear_sample.launches_by_shape))
+
+    for scale in (0.04, 0.02):
+        state = model.state_dict()  # random offset heads, so that the taps sample off the flow
+        for k in state:
+            if ".conv_offset_3." in k:
+                state[k] = (torch.rand_like(state[k]) * 2 - 1) * scale
+        model.load_state_dict(state)
+        want, eager = run(False)
+        assert eager[1][(16, 48, 64, 8, 48 * 64)] == 4 * 5 * 9  # 9 taps an alignment
+        for _ in range(2):  # the capturing call, then a replay
+            got, counted = run(True)
+            assert torch.equal(got, want)
+            assert counted == eager
+            assert all(len(g) == 1 for g in graphed)
+
+
+def test_graphed_call_keeps_a_graph_a_shape_and_counts_on_replay(cuda):
+    """Alternating shapes replay their own graphs (no capture after the
+    first of each), at most ``MAX_GRAPHS`` are kept, the least recently used
+    dropped, and a replay under a profiler counts ``deform.samples`` as the
+    eager call does."""
+    from vsrlab_tpu_torch.models.vrt.deform import SecondOrderDeformableAlignment
+    from vsrlab_tpu_torch.utils import profiler
+    from vsrlab_tpu_torch.utils.graphs import MAX_GRAPHS
+
+    torch.manual_seed(1)
+    align = SecondOrderDeformableAlignment(32, 16, 4, dtype=torch.bfloat16).to(cuda)
+
+    def args(h, w):
+        return (torch.randn(1, h, w, 32, device=cuda, dtype=torch.bfloat16),
+                torch.randn(1, h, w, 48, device=cuda, dtype=torch.bfloat16),
+                torch.randn(1, h, w, 2, device=cuda), torch.randn(1, h, w, 2, device=cuda))
+
+    shapes = [args(8 + i, 12) for i in range(MAX_GRAPHS)]
+    captures = []
+    real = align._graphed._capture
+    align._graphed._capture = lambda key, a: captures.append(key) or real(key, a)
+    with torch.no_grad():
+        want = [align._align(*a) for a in shapes]
+        for _ in range(3):
+            for a, w in zip(shapes, want):
+                assert torch.equal(align(*a), w)
+        assert len(captures) == MAX_GRAPHS and len(align._graphed) == MAX_GRAPHS
+        align(*args(4, 4))  # one shape more drops the least recently used, shapes[0]
+        assert len(captures) == MAX_GRAPHS + 1 and len(align._graphed) == MAX_GRAPHS
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]):
+            before = profiler.counters().get("deform.samples", 0)
+            assert torch.equal(align(*shapes[1]), want[1])  # a replay: still cached
+            after = profiler.counters().get("deform.samples", 0)
+    torch.cuda.synchronize()
+    assert len(captures) == MAX_GRAPHS + 1
+    assert after - before == 9 * 12 * 32 * 9

@@ -1,8 +1,8 @@
 """Component registry of the port: the ``_target_`` names a config
-instantiates (supervised RealBasicVSR / BasicVSR / VRT / TinyVRT training;
-GAN fine-tuning with its discriminator and losses; the serving entry
-points rebuild a model from a run's config snapshot; the optical-flow
-models, datasets and losses).
+instantiates (supervised RealBasicVSR / BasicVSR / BasicVSR++ / VRT /
+TinyVRT training; GAN fine-tuning with its discriminator and losses; the
+serving entry points rebuild a model from a run's config snapshot; the
+optical-flow models, datasets and losses).
 
 Importing this module fills :data:`vsrlab_tpu_torch.core.config.REGISTRY`.
 Names the JAX package's configs use for components the port does not have
@@ -21,11 +21,13 @@ from vsrlab_tpu_torch.core.metrics import MetricCollection
 from vsrlab_tpu_torch.core.perceptual import PerceptualLoss
 from vsrlab_tpu_torch.data import DatasetVSR, SyntheticVSR, ValDatasetVSR, VideoDatasetVSR
 from vsrlab_tpu_torch.data.flow_dataset import FlowDataset, SyntheticFlowDataset
-from vsrlab_tpu_torch.models import VRT, BasicVSR, RealBasicVSR, SpyNet, TinyVRT, UNetDiscriminator
+from vsrlab_tpu_torch.models import (
+    VRT, BasicVSR, BasicVSRPlusPlus, RealBasicVSR, SpyNet, TinyVRT, UNetDiscriminator)
 from vsrlab_tpu_torch.models.flow import RAFT, IRRPWCNet, SpyNetProgressive
 
 register("RealBasicVSR", RealBasicVSR)
 register("BasicVSR", BasicVSR)
+register("BasicVSRPlusPlus", BasicVSRPlusPlus)
 register("DatasetVSR", DatasetVSR)
 register("ValDatasetVSR", ValDatasetVSR)
 register("VideoDatasetVSR", VideoDatasetVSR)

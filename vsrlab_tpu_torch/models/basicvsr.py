@@ -45,6 +45,40 @@ from vsrlab_tpu_torch.parallel import active_links
 from vsrlab_tpu_torch.utils.profiler import annotate
 
 
+def adjacent_flows(spynet: SpyNet, lrs, train_flow: bool = False, prev=None, next_frame=None):
+    """``(flows_forward, flows_backward)``, each ``(B, T-1, H, W, 2)``:
+    ``flows_backward[:, i]`` is the flow from frame ``i`` to ``i + 1``,
+    ``flows_forward[:, i]`` from ``i + 1`` to ``i``, both directions from one
+    batched call of ``spynet``; detached unless ``train_flow``.
+
+    With ``prev`` (streaming: the previous window's last frame; split
+    over time: the previous rank's, ``(B, H, W, 3)``) the forward flows
+    gain the ``prev -> frame0`` flow as their first entry (``T``
+    entries). With ``next_frame`` (the next rank's first frame) the
+    backward flows gain the ``frame[-1] -> next_frame`` flow as their
+    last. The pairs' other directions are the neighbours' and dropped.
+    """
+    b, t, h, w, c = lrs.shape
+    frames = [lrs]
+    if prev is not None:
+        frames.insert(0, prev[:, None])
+    if next_frame is not None:
+        frames.append(next_frame[:, None])
+    frames = torch.cat(frames, 1) if len(frames) > 1 else lrs
+    t = frames.shape[1]
+    flows = spynet.adjacent_pairs(frames.reshape(-1, h, w, c), t)
+    if not train_flow:
+        flows = flows.detach()
+    fb, ff = flows.chunk(2, 0)
+    flows_backward = fb.reshape(b, t - 1, h, w, 2)
+    flows_forward = ff.reshape(b, t - 1, h, w, 2)
+    if prev is not None:
+        flows_backward = flows_backward[:, 1:]
+    if next_frame is not None:
+        flows_forward = flows_forward[:, :-1]
+    return flows_forward, flows_backward
+
+
 class BasicVSR(nn.Module):
     """Bidirectional recurrent VSR network.
 
@@ -75,34 +109,9 @@ class BasicVSR(nn.Module):
         self.conv_last = Conv2d(64, 3, 3, 1, 1, dtype=dtype)
 
     def compute_flow(self, lrs, prev=None, next_frame=None):
-        """``(flows_forward, flows_backward)``, each ``(B, T-1, H, W, 2)``.
-
-        With ``prev`` (streaming: the previous window's last frame; split
-        over time: the previous rank's, ``(B, H, W, 3)``) the forward flows
-        gain the ``prev -> frame0`` flow as their first entry (``T``
-        entries). With ``next_frame`` (the next rank's first frame) the
-        backward flows gain the ``frame[-1] -> next_frame`` flow as their
-        last. The pairs' other directions are the neighbours' and dropped.
-        """
-        b, t, h, w, c = lrs.shape
-        frames = [lrs]
-        if prev is not None:
-            frames.insert(0, prev[:, None])
-        if next_frame is not None:
-            frames.append(next_frame[:, None])
-        frames = torch.cat(frames, 1) if len(frames) > 1 else lrs
-        t = frames.shape[1]
-        flows = self.spynet.adjacent_pairs(frames.reshape(-1, h, w, c), t)
-        if not self.train_flow:
-            flows = flows.detach()
-        fb, ff = flows.chunk(2, 0)
-        flows_backward = fb.reshape(b, t - 1, h, w, 2)
-        flows_forward = ff.reshape(b, t - 1, h, w, 2)
-        if prev is not None:
-            flows_backward = flows_backward[:, 1:]
-        if next_frame is not None:
-            flows_forward = flows_forward[:, :-1]
-        return flows_forward, flows_backward
+        """``(flows_forward, flows_backward)`` of :func:`adjacent_flows`
+        through this model's SpyNet."""
+        return adjacent_flows(self.spynet, lrs, self.train_flow, prev, next_frame)
 
     @staticmethod
     def _step(block, feat, lr_t, flow_t):

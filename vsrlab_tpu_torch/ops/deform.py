@@ -13,6 +13,11 @@ Offset layout follows torchvision: ``offset[..., 2*(g*kh*kw + k)]`` is the
 **y** displacement and ``... + 1`` the **x** displacement of offset group
 ``g`` and kernel tap ``k`` (row-major over ``(kh, kw)``). ``mask`` is the
 DCNv2 modulation scalar for each tap and offset group.
+
+While a profiler collects, each call adds its sampled values,
+``N * Ho * Wo * Cin * kh * kw``, to the counter ``deform.samples``
+(:func:`vsrlab_tpu_torch.utils.profiler.count`): with ``Cout`` they give
+the call's products (``2 * samples * Cout`` FLOPs) and the sampler's reads.
 """
 
 from __future__ import annotations
@@ -20,6 +25,7 @@ from __future__ import annotations
 import torch
 
 from vsrlab_tpu_torch.ops.warp import sample_pixel_coords
+from vsrlab_tpu_torch.utils.profiler import count
 
 
 def deform_conv2d(
@@ -58,6 +64,7 @@ def deform_conv2d(
         raise ValueError("Cin must be divisible by the offset groups")
     cg = cin // groups
     ho, wo = offset.shape[1], offset.shape[2]
+    count("deform.samples", n * ho * wo * cin * taps)
 
     # fold the offset groups into the batch axis, group-major within a sample
     xg = x.reshape(n, h, w, groups, cg).permute(0, 3, 1, 2, 4).reshape(n * groups, h, w, cg)

@@ -7,6 +7,8 @@
   timeline while a profiler collects, nothing otherwise;
 * :func:`count` / :func:`counters`: the program's counters, counted only
   while a profiler collects (tracing has one switch: a running profiler);
+  :func:`recording` also collects the counts made inside it, whatever the
+  switch (a CUDA graph's capture records what each replay counts);
 * :func:`best_time`: best-of-repeats seconds a call, with one sync each.
 
 The spans sit at the layer boundaries of the entry points, the models and
@@ -31,9 +33,10 @@ SPAN_PREFIX = "vsr::"
 
 _OFF = contextlib.nullcontext()
 _counts: Counter = Counter()
+_recorders: list = []
 
 
-def _collecting() -> bool:
+def collecting() -> bool:
     """Whether a profiler is collecting in this process."""
     return torch._C._autograd._profiler_enabled()
 
@@ -60,15 +63,30 @@ def trace(log_dir: str = "./profile") -> Iterator[torch.profiler.profile]:
 def annotate(name: str):
     """The span ``vsr::<name>`` while a profiler collects; otherwise one
     shared no-op context (a flag read, no profiler call)."""
-    if _collecting():
+    if collecting():
         return torch.profiler.record_function(SPAN_PREFIX + name)
     return _OFF
 
 
 def count(name: str, n: int = 1) -> None:
-    """Add ``n`` to the counter ``name`` while a profiler collects."""
-    if _collecting():
+    """Add ``n`` to the counter ``name`` while a profiler collects, and to
+    every open :func:`recording`."""
+    if collecting():
         _counts[name] += int(n)
+    for rec in _recorders:
+        rec[name] += int(n)
+
+
+@contextlib.contextmanager
+def recording() -> Iterator[Counter]:
+    """Yield a ``Counter`` of the counts made inside the block, whether or
+    not a profiler collects."""
+    rec: Counter = Counter()
+    _recorders.append(rec)
+    try:
+        yield rec
+    finally:
+        _recorders.remove(rec)
 
 
 def counters() -> Dict[str, int]:
